@@ -7,7 +7,11 @@ layout mirrors the reference (``ops/``, ``models/``, ``pipeline.py``,
 
 Ported so far: the synthesis path — fused-kernel AR sampling of the
 latent grid (``models/sampling.py`` over the hand-written CUDA decode
-step in ``csrc/fused_decode.cu``) and VQ-VAE ``decode_samples``.
+step in ``csrc/fused_decode.cu``) and VQ-VAE ``decode_samples`` — and
+the prior's training path: ``Performer.forward``, ``losses/transformer``
+and ``train/transformer_steps``, with the FAVOR+ and local-attention
+kernels (forward and backward) in ``csrc/favor_attention.cu`` and
+``csrc/local_attention.cu``.
 """
 
 __version__ = "0.1.0"

@@ -1,22 +1,39 @@
-"""FAVOR+ helpers needed by the decode path.
+"""FAVOR+ linear attention (Performer), plain PyTorch.
 
-Port of ``synthanatomy_tpu/ops/favor.py``: ``default_nb_features`` and
-``gaussian_orthogonal_random_matrix``, so a seeded model can be built
-without JAX.  The random draws come from a ``torch.Generator`` and do
-not reproduce JAX's bits; weights that must match are carried across by
-``interop.performer_from_jax``.  The feature map itself lives inside
-the fused decode step (``ops/fused_decode.py``); the full-sequence
-causal scan is not ported yet.
+Port of ``synthanatomy_tpu/ops/favor.py``: ``default_nb_features``,
+``gaussian_orthogonal_random_matrix``, the softmax-kernel and
+generalized feature maps, the chunked causal prefix scan (and the
+non-causal form), and ``favor_attention`` with JAX's routing: causal
+softmax-kernel attention with a projection and the zero key stabilizer
+goes to the fused kernel (``ops/favor_attention.py``) when
+``use_pallas_scan`` is set; generalized features, ``no_projection``,
+non-causal attention and ``stabilize_keys=True`` always take the plain
+path here, as they take XLA's in JAX.
+
+Random draws come from a ``torch.Generator`` and do not reproduce
+JAX's bits; weights that must match are carried across by
+``interop.performer_from_jax``.  Feature maps and denominators are f32;
+products take operands in ``compute_dtype`` and accumulate in f32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-__all__ = ["default_nb_features", "gaussian_orthogonal_random_matrix"]
+from synthanatomy_tpu_torch.ops import favor_attention as _fused
+from synthanatomy_tpu_torch.ops.local_attention import rounded
+
+__all__ = [
+    "default_nb_features",
+    "gaussian_orthogonal_random_matrix",
+    "softmax_kernel_features",
+    "generalized_kernel_features",
+    "causal_linear_attention_chunked",
+    "favor_attention",
+]
 
 
 def default_nb_features(dim_head: int) -> int:
@@ -55,3 +72,133 @@ def gaussian_orthogonal_random_matrix(
     else:
         raise ValueError(f"invalid scaling {scaling}")
     return multiplier[:, None] * mat
+
+
+def softmax_kernel_features(
+    data: torch.Tensor,
+    projection: torch.Tensor,
+    *,
+    is_query: bool,
+    eps: float = 1e-4,
+    stabilizer: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(..., L, d) → (..., L, m) f32: m^-1/2 (exp(x·dn·Pᵀ − ‖x‖²dn²/2 −
+    stab) + eps).  The query stabilizer is the row max over features
+    (``amax``: its gradient splits evenly across ties, as JAX's
+    ``reduce_max`` does); the key default is the max over rows and
+    features, and an explicit ``stabilizer`` overrides either."""
+    data = data.to(torch.float32)
+    d = data.shape[-1]
+    m = projection.shape[0]
+    dn = d ** -0.25
+    data_dash = torch.einsum("...id,jd->...ij", dn * data, projection.to(torch.float32))
+    diag = (data * data).sum(-1, keepdim=True) / 2.0 * (dn ** 2)
+    if stabilizer is None:
+        stabilizer = (data_dash.amax(-1, keepdim=True) if is_query
+                      else data_dash.amax(dim=(-1, -2), keepdim=True))
+    return m ** -0.5 * (torch.exp(data_dash - diag - stabilizer) + eps)
+
+
+def generalized_kernel_features(
+    data: torch.Tensor,
+    projection: Optional[torch.Tensor],
+    *,
+    kernel_fn: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+    kernel_eps: float = 1e-3,
+) -> torch.Tensor:
+    data = data.to(torch.float32)
+    dn = data.shape[-1] ** -0.25
+    if projection is None:
+        return kernel_fn(dn * data) + kernel_eps
+    data_dash = torch.einsum("...id,jd->...ij", dn * data, projection.to(torch.float32))
+    return kernel_fn(data_dash) + kernel_eps
+
+
+def _noncausal_linear_attention(q_p, k_p, v, compute_dtype):
+    cd = compute_dtype
+    k_sum = rounded(k_p, cd).sum(-2)
+    d_inv = 1.0 / torch.clamp(
+        torch.einsum("...nd,...d->...n", rounded(q_p, cd), k_sum), min=1e-12)
+    context = torch.einsum("...nd,...ne->...de", rounded(k_p, cd), rounded(v, cd))
+    return torch.einsum("...de,...nd,...n->...ne", context, rounded(q_p, cd), d_inv)
+
+
+def causal_linear_attention_chunked(
+    q_p: torch.Tensor,
+    k_p: torch.Tensor,
+    v: torch.Tensor,
+    chunk: int,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """q_p/k_p: (B, H, L, m), v: (B, H, L, d) → (B, H, L, d) f32.
+
+    A scan over chunks of ``chunk`` rows carrying S (B, H, m, d) and z
+    (B, H, m) in f32; within a chunk, the lower-triangular score block.
+    S and z are rounded to ``compute_dtype`` only where they enter a
+    product.  The denominator is clamped at 1e-12, as in JAX.  Rows past
+    the last full chunk form a shorter last chunk: JAX pads them with
+    zeros, and zero rows after every real row change no real output."""
+    cd = compute_dtype
+    b, h, n, m = q_p.shape
+    S = q_p.new_zeros(b, h, m, v.shape[-1], dtype=torch.float32)
+    z = q_p.new_zeros(b, h, m, dtype=torch.float32)
+    outs = []
+    for c0 in range(0, n, chunk):
+        qi = rounded(q_p[:, :, c0:c0 + chunk], cd)
+        ki = rounded(k_p[:, :, c0:c0 + chunk], cd)
+        vi = rounded(v[:, :, c0:c0 + chunk], cd)
+        c = qi.shape[2]
+        tri = torch.tril(torch.ones(c, c, dtype=torch.float32, device=q_p.device))
+        scores = torch.einsum("bhim,bhjm->bhij", qi, ki) * tri
+        num = (torch.einsum("bhij,bhjd->bhid", rounded(scores, cd), vi)
+               + torch.einsum("bhim,bhmd->bhid", qi, rounded(S, cd)))
+        den = scores.sum(-1) + torch.einsum("bhim,bhm->bhi", qi, rounded(z, cd))
+        outs.append(num / torch.clamp(den, min=1e-12)[..., None])
+        S = S + torch.einsum("bhjm,bhjd->bhmd", ki, vi)
+        z = z + ki.sum(-2)
+    return torch.cat(outs, dim=2)
+
+
+def favor_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    projection: Optional[torch.Tensor],
+    *,
+    causal: bool = True,
+    generalized: bool = False,
+    kernel_fn: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+    chunk: int = 128,
+    stabilize_keys: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
+    use_pallas_scan: bool = False,
+    pallas_chunk: int = 128,
+) -> torch.Tensor:
+    """q, k, v: (B, H, L, d) → (B, H, L, d) in v's dtype (see module
+    docstring for the routing)."""
+    in_dtype = v.dtype
+    if (use_pallas_scan and causal and not generalized and projection is not None
+            and not stabilize_keys):
+        cd = compute_dtype
+        out = _fused.favor_attention_fused(
+            q.to(cd), k.to(cd), v.to(cd), projection, pallas_chunk)
+        return out.to(in_dtype)
+    if generalized:
+        q_p = generalized_kernel_features(q, projection, kernel_fn=kernel_fn)
+        k_p = generalized_kernel_features(k, projection, kernel_fn=kernel_fn)
+    elif projection is None:
+        # no_projection: q softmaxed over features, k exponentiated
+        # (causal) or softmaxed over the sequence (non-causal)
+        q_p = torch.softmax(q.to(torch.float32), dim=-1)
+        k_p = (torch.exp(k.to(torch.float32)) if causal
+               else torch.softmax(k.to(torch.float32), dim=-2))
+    else:
+        q_p = softmax_kernel_features(q, projection, is_query=True)
+        k_stab = None if stabilize_keys else torch.zeros((), device=k.device)
+        k_p = softmax_kernel_features(k, projection, is_query=False, stabilizer=k_stab)
+    v32 = v.to(torch.float32)
+    if causal:
+        out = causal_linear_attention_chunked(q_p, k_p, v32, chunk, compute_dtype)
+    else:
+        out = _noncausal_linear_attention(q_p, k_p, v32, compute_dtype)
+    return out.to(in_dtype)

@@ -1,0 +1,306 @@
+"""Causal FAVOR+ with fused feature maps: the CUDA kernel and its plain twin.
+
+Port of ``synthanatomy_tpu/ops/favor_pallas.py::favor_attention_fused``
+(TPU kernels ``_fwd_kernel`` :148, ``_bwd_dq_kernel`` :180,
+``_bwd_dkv_kernel`` :218).  ``favor_attention_fused(q, k, v, projection,
+chunk)`` takes q/k/v (B, H, L, d) in the compute dtype (bf16 or f32) and
+the (m, d) projection, and returns (B, H, L, d) f32.  Softmax-kernel
+features with the row-max query stabilizer and the zero key stabilizer,
+a causal prefix scan over chunks; products take operands in the compute
+dtype and accumulate in f32; S and z are f32 and rounded only where they
+enter a product.  The backward is the TPU kernel's two sweeps: dq in
+forward order recomputing the prefix (S, z), dk/dv in reverse order
+carrying the suffix; the output cotangent is rounded to the compute
+dtype first, as JAX rounds it, and the projection's cotangent is zeros.
+
+A CUDA tensor launches ``csrc/favor_attention.cu`` (forward: one launch;
+backward: two) or raises; a CPU tensor takes the plain version
+(``favor_fwd_plain`` / ``favor_bwd_plain``, the same sweeps in PyTorch
+at the same rounding points).  ``favor_attention_fused.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from synthanatomy_tpu_torch._build import SMEM_PER_BLOCK, load_library
+from synthanatomy_tpu_torch.ops.local_attention import rounded
+
+__all__ = [
+    "favor_attention_fused",
+    "favor_attention_fused_plain",
+    "favor_fwd_plain",
+    "favor_bwd_plain",
+]
+
+_EPS = 1e-4  # the feature map's epsilon
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (rows are (N, L, ·) with N = B·H)
+# ---------------------------------------------------------------------------
+
+
+def _features(q, k, proj, cd):
+    """Feature maps of one chunk: (qp, kp, e_q, e_k, u_q), all f32."""
+    d, m = q.shape[-1], proj.shape[0]
+    dn, r = d ** -0.25, m ** -0.5
+    p = rounded(proj, cd)
+    u_q = rounded(q * dn, cd) @ p.T
+    u_k = rounded(k * dn, cd) @ p.T
+    diag_q = (q * q).sum(-1, keepdim=True) * (0.5 * dn * dn)
+    diag_k = (k * k).sum(-1, keepdim=True) * (0.5 * dn * dn)
+    e_q = torch.exp(u_q - diag_q - u_q.amax(-1, keepdim=True))
+    e_k = torch.exp(u_k - diag_k)
+    return r * (e_q + _EPS), r * (e_k + _EPS), e_q, e_k, u_q
+
+
+def _chunks(n, chunk, reverse=False):
+    starts = list(range(0, n, chunk))
+    for c0 in reversed(starts) if reverse else starts:
+        yield slice(c0, min(c0 + chunk, n))
+
+
+def _tri(c, device):
+    return torch.tril(torch.ones(c, c, dtype=torch.bool, device=device))
+
+
+def favor_fwd_plain(q, k, v, proj, chunk):
+    """q, k, v: (N, L, d) in the compute dtype → (out (N, L, d) f32,
+    den (N, L) f32)."""
+    cd = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    n_bh, n, d = q.shape
+    m = proj.shape[0]
+    S = q.new_zeros(n_bh, m, d)
+    z = q.new_zeros(n_bh, m)
+    out, den = torch.empty_like(q), q.new_empty(n_bh, n)
+    for sl in _chunks(n, chunk):
+        qp, kp, _, _, _ = _features(q[:, sl], k[:, sl], proj, cd)
+        qc, kc = rounded(qp, cd), rounded(kp, cd)
+        c = qc.shape[1]
+        scores = torch.where(_tri(c, q.device), qc @ kc.transpose(1, 2), 0.0)
+        num = rounded(scores, cd) @ v[:, sl] + qc @ rounded(S, cd)
+        dn_ = scores.sum(-1) + (qc * rounded(z, cd)[:, None, :]).sum(-1)
+        out[:, sl] = num * (1.0 / torch.clamp(dn_, min=1e-12))[..., None]
+        den[:, sl] = dn_
+        S = S + kc.transpose(1, 2) @ v[:, sl]
+        z = z + kp.sum(1)
+    return out, den
+
+
+def _out_cotangent(g, out, den):
+    inv = 1.0 / torch.clamp(den, min=1e-12)[..., None]
+    return g * inv, -(g * out).sum(-1, keepdim=True) * inv
+
+
+def favor_bwd_plain(q, k, v, proj, g, out, den, chunk):
+    """The two backward sweeps.  g: (N, L, d) in the compute dtype; out,
+    den: the forward's f32 results → (dq, dk, dv) f32."""
+    cd = q.dtype
+    q, k, v, g = q.float(), k.float(), v.float(), g.float()
+    n_bh, n, d = q.shape
+    m = proj.shape[0]
+    dn, r = d ** -0.25, m ** -0.5
+    p = rounded(proj, cd)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+    S = q.new_zeros(n_bh, m, d)
+    z = q.new_zeros(n_bh, m)
+    for sl in _chunks(n, chunk):
+        qp, kp, e_q, _, u_q = _features(q[:, sl], k[:, sl], proj, cd)
+        kc = rounded(kp, cd)
+        dnum, gd = _out_cotangent(g[:, sl], out[:, sl], den[:, sl])
+        c = kc.shape[1]
+        ds = torch.where(_tri(c, q.device), rounded(dnum, cd) @ v[:, sl].transpose(1, 2) + gd,
+                         0.0)
+        dqp = (rounded(ds, cd) @ kc + rounded(dnum, cd) @ rounded(S, cd).transpose(1, 2)
+               + gd * z[:, None, :])
+        # through φ_q; the row max's cotangent −w splits evenly over ties
+        dE = dqp * (r * e_q)
+        w = dE.sum(-1, keepdim=True)
+        ties = (u_q == u_q.amax(-1, keepdim=True)).float()
+        du = dE - ties * (w / ties.sum(-1, keepdim=True))
+        dq[:, sl] = rounded(du, cd) @ p * dn - w * (dn * dn) * q[:, sl]
+        S = S + kc.transpose(1, 2) @ v[:, sl]
+        z = z + kp.sum(1)
+
+    dS = q.new_zeros(n_bh, m, d)
+    dz = q.new_zeros(n_bh, m)
+    for sl in _chunks(n, chunk, reverse=True):
+        qp, kp, _, e_k, _ = _features(q[:, sl], k[:, sl], proj, cd)
+        qc, kc = rounded(qp, cd), rounded(kp, cd)
+        dnum, gd = _out_cotangent(g[:, sl], out[:, sl], den[:, sl])
+        tri = _tri(qc.shape[1], q.device)
+        scores = torch.where(tri, qc @ kc.transpose(1, 2), 0.0)
+        ds = torch.where(tri, rounded(dnum, cd) @ v[:, sl].transpose(1, 2) + gd, 0.0)
+        dkp = (rounded(ds, cd).transpose(1, 2) @ qc
+               + v[:, sl] @ rounded(dS, cd).transpose(1, 2) + dz[:, None, :])
+        dv[:, sl] = (rounded(scores, cd).transpose(1, 2) @ rounded(dnum, cd)
+                     + kc @ rounded(dS, cd))
+        dE = dkp * (r * e_k)
+        w = dE.sum(-1, keepdim=True)
+        dk[:, sl] = rounded(dE, cd) @ p * dn - w * (dn * dn) * k[:, sl]
+        dS = dS + qc.transpose(1, 2) @ rounded(dnum, cd)
+        dz = dz + (qp * gd).sum(1)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = load_library("favor_attention")
+    ints, flts, ptr = [ctypes.c_int] * 6, [ctypes.c_float] * 4, ctypes.c_void_p
+    lib.favor_fwd.argtypes = ints + flts + [ptr] * 8
+    lib.favor_bwd_dq.argtypes = ints + flts + [ptr] * 10
+    lib.favor_bwd_dkv.argtypes = ints + flts + [ptr] * 11
+    for fn in (lib.favor_fwd, lib.favor_bwd_dq, lib.favor_bwd_dkv):
+        fn.restype = ctypes.c_int
+    lib.favor_work_floats.argtypes = [ctypes.c_int] * 4
+    lib.favor_work_floats.restype = ctypes.c_longlong
+    lib.favor_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.favor_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_kernel_inputs(q, k, v, proj, chunk):
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"favor kernel takes f32 or bf16 q/k/v, got {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != dev or x.dtype != q.dtype or x.shape != q.shape:
+            raise ValueError(f"{name} must match q ({q.dtype}, {tuple(q.shape)}, {dev}); "
+                             f"got {x.dtype}, {tuple(x.shape)}, {x.device}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, H, L, d), got {tuple(q.shape)}")
+    if proj.device != dev or proj.dim() != 2 or proj.shape[1] != q.shape[-1]:
+        raise ValueError(f"projection must be (m, {q.shape[-1]}) on {dev}, got "
+                         f"{tuple(proj.shape)} on {proj.device}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    smem = _lib().favor_smem_bytes(q.shape[-1], proj.shape[0], chunk)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"projection {tuple(proj.shape)} with chunk {chunk} needs {smem} "
+                         f"bytes of shared memory per block; the card has {SMEM_PER_BLOCK}")
+
+
+def _consts(d, m):
+    dn = d ** -0.25
+    return [dn, 0.5 * dn * dn, dn * dn, m ** -0.5]
+
+
+def _kernel_fwd(q, k, v, proj, chunk):
+    b, h, n, d = q.shape
+    m = proj.shape[0]
+    bh = b * h
+    out = torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
+    den = torch.empty(bh, n, dtype=torch.float32, device=q.device)
+    work = torch.empty(_lib().favor_work_floats(bh, chunk, d, m), dtype=torch.float32,
+                       device=q.device)
+    err = _lib().favor_fwd(
+        bh, n, d, m, chunk, int(q.dtype == torch.bfloat16), *_consts(d, m),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(), out.data_ptr(),
+        den.data_ptr(), work.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"favor_fwd: CUDA error {err}")
+    favor_attention_fused.launches += 1
+    return out, den
+
+
+def _kernel_bwd(q, k, v, proj, g, out, den, chunk):
+    b, h, n, d = q.shape
+    m = proj.shape[0]
+    bh = b * h
+    dq, dk, dv = (torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    work = torch.empty(_lib().favor_work_floats(bh, chunk, d, m), dtype=torch.float32,
+                       device=q.device)
+    common = [bh, n, d, m, chunk, int(q.dtype == torch.bfloat16), *_consts(d, m),
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(), g.data_ptr(),
+              out.data_ptr(), den.data_ptr()]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().favor_bwd_dq(*common, dq.data_ptr(), work.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"favor_bwd_dq: CUDA error {err}")
+    favor_attention_fused.launches += 1
+    err = _lib().favor_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), work.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"favor_bwd_dkv: CUDA error {err}")
+    favor_attention_fused.launches += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _flat(x):
+    return x.reshape(-1, *x.shape[2:])
+
+
+class _Plain:
+    @staticmethod
+    def fwd(q, k, v, proj, chunk):
+        out, den = favor_fwd_plain(_flat(q), _flat(k), _flat(v), proj.float(), chunk)
+        return out.view(q.shape), den
+
+    @staticmethod
+    def bwd(q, k, v, proj, g, out, den, chunk):
+        grads = favor_bwd_plain(_flat(q), _flat(k), _flat(v), proj.float(), _flat(g),
+                                _flat(out), den, chunk)
+        return tuple(x.view(q.shape) for x in grads)
+
+
+class _Kernel:
+    fwd = staticmethod(_kernel_fwd)
+    bwd = staticmethod(_kernel_bwd)
+
+
+class _FavorFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, proj, chunk, impl):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        proj = proj.to(torch.float32).contiguous()
+        out, den = impl.fwd(q, k, v, proj, chunk)
+        ctx.save_for_backward(q, k, v, proj, out, den)
+        ctx.chunk, ctx.impl = chunk, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, proj, out, den = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        dq, dk, dv = ctx.impl.bwd(q, k, v, proj, g, out, den, ctx.chunk)
+        dproj = torch.zeros_like(proj) if ctx.needs_input_grad[3] else None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dproj, None, None
+
+
+def favor_attention_fused(q, k, v, projection, chunk: int = 128):
+    """Causal FAVOR+ with fused feature maps (see module docstring).
+    q/k/v: (B, H, L, d) in the compute dtype; projection (m, d) → (B, H,
+    L, d) f32.  CUDA tensors launch the kernel (anything it cannot take
+    raises); CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return _FavorFused.apply(q, k, v, projection, chunk, _Plain)
+    if q.device.type != "cuda":
+        raise ValueError(f"no FAVOR kernel for device {q.device}")
+    _check_kernel_inputs(q, k, v, projection, chunk)
+    return _FavorFused.apply(q, k, v, projection, chunk, _Kernel)
+
+
+favor_attention_fused.launches = 0
+
+
+def favor_attention_fused_plain(q, k, v, projection, chunk: int = 128):
+    """The plain version of :func:`favor_attention_fused` on any device
+    (forward and backward), for holding the kernel against it."""
+    return _FavorFused.apply(q, k, v, projection, chunk, _Plain)

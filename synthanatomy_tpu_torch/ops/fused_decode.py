@@ -95,11 +95,14 @@ class FusedDecodeConfig:
 
 
 def supports_fused_decode(model) -> bool:
-    """The fused step covers softmax-kernel FAVOR heads plus optional
-    local heads, pre-LayerNorm or ReZero blocks, no biases on q/k/v/out,
-    non-GLU FF — the configurations the port's ``Performer`` builds —
-    at widths the kernels tile (dh 64 or 128, dim a multiple of 128)."""
-    return _widths_ok(
+    """The fused step covers causal softmax-kernel FAVOR heads with a
+    projection plus optional local heads, pre-LayerNorm or ReZero blocks,
+    no biases on q/k/v/out, non-GLU FF — at widths the kernels tile (dh
+    64 or 128, dim a multiple of 128)."""
+    plain_heads = (model.causal and not model.generalized_attention
+                   and not model.no_projection and not model.qkv_bias
+                   and not model.attn_out_bias)
+    return plain_heads and _widths_ok(
         model.heads - model.local_attn_heads, model.dim_head, model.dim,
         model.dim * model.ff_mult,
     )
@@ -417,7 +420,7 @@ def _check(name, x, shape, dtype, device):
 @functools.lru_cache(maxsize=None)
 def _entry_points():
     """The C entry points of the kernel library, typed (built at first use)."""
-    lib = load_library()
+    lib = load_library("fused_decode")
     fn = lib.fused_decode_step
     fn.argtypes = (
         [ctypes.c_int] * 14 + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 30

@@ -1,0 +1,102 @@
+"""Stage-2 (Performer prior) train and eval steps.
+
+Port of ``synthanatomy_tpu/train/transformer_steps.py``:
+``create_transformer_train_state``, ``make_transformer_train_step`` and
+``make_transformer_eval_step``.  Cross-entropy over next-token logits,
+Adam (β 0.9/0.999, eps 1e-8, as ``optax.adam``) with the learning rate
+set each step from the scheduled ``sched["lr"]``.  The FAVOR projections
+are redrawn from the state's generator every ``feature_redraw_interval``
+steps (the JAX runner's loop does this between steps).
+
+The model trains in place: the state holds the module, its optimizer
+and the generator that dropout and the redraw draw from.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from synthanatomy_tpu_torch.losses.transformer import ce_loss
+from synthanatomy_tpu_torch.models.performer import Performer, redraw_projections
+
+__all__ = [
+    "TransformerTrainState",
+    "create_transformer_train_state",
+    "make_transformer_train_step",
+    "make_transformer_eval_step",
+]
+
+
+@dataclasses.dataclass
+class TransformerTrainState:
+    step: int
+    model: Performer
+    optimizer: torch.optim.Adam
+    generator: torch.Generator  # dropout draws (on the model's device)
+    redraw_generator: torch.Generator  # projection redraws (CPU: QR on the host)
+    steps_since_redraw: int = 0
+
+
+def create_transformer_train_state(
+    model: Performer,
+    seed: int,
+    *,
+    learning_rate: float = 1e-4,
+) -> TransformerTrainState:
+    """Adam over the model's parameters (the FAVOR projections are
+    buffers, never trained) and generators seeded from ``seed``."""
+    device = next(model.parameters()).device
+    optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    model.set_generator(generator)
+    return TransformerTrainState(
+        step=0, model=model, optimizer=optimizer, generator=generator,
+        redraw_generator=torch.Generator().manual_seed(seed + 1234),
+    )
+
+
+def make_transformer_train_step(model: Performer) -> Callable:
+    """step(state, inputs, targets, conditionings, sched) → (state,
+    metrics).  inputs/targets: (B, L) int tensors (the BOS-shifted pair
+    from ``runners.transformer.prepare_batch``); ``sched["lr"]`` is this
+    step's learning rate.  The projections are redrawn every
+    ``model.feature_redraw_interval`` steps (0: never)."""
+    interval = model.feature_redraw_interval
+
+    def step(state: TransformerTrainState, inputs, targets,
+             conditionings: Optional[Sequence[torch.Tensor]], sched: Dict[str, float]):
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = model(inputs, conditionings)
+        loss, summaries = ce_loss(logits, targets)
+        loss.backward()
+        for group in state.optimizer.param_groups:
+            group["lr"] = float(sched["lr"])
+        state.optimizer.step()
+        state.step += 1
+        state.steps_since_redraw += 1
+        if interval and state.steps_since_redraw >= interval:
+            redraw_projections(model, state.redraw_generator)
+            state.steps_since_redraw = 0
+        return state, {**{k: v.detach() for k, v in summaries.items()},
+                       "Loss": loss.detach()}
+
+    return step
+
+
+def make_transformer_eval_step(model: Performer) -> Callable:
+    """step(state, inputs, targets, conditionings) → (logits, metrics),
+    without dropout or gradients."""
+
+    @torch.no_grad()
+    def step(state: TransformerTrainState, inputs, targets, conditionings=None):
+        model.eval()
+        logits = model(inputs, conditionings)
+        loss, summaries = ce_loss(logits, targets)
+        return logits, {**summaries, "Loss": loss}
+
+    return step

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from synthanatomy_tpu_torch.models.performer import Performer
+from synthanatomy_tpu_torch.ops import favor_attention as tfa
 from synthanatomy_tpu_torch.ops import fused_decode as tfd
+from synthanatomy_tpu_torch.ops import local_attention_flash as tlf
+from synthanatomy_tpu_torch.ops.favor import gaussian_orthogonal_random_matrix
 
 B, DIM, HEADS, DH, LH, WIN, M, DEPTH, VOCAB = 2, 128, 2, 64, 1, 12, 128, 2, 33
 
@@ -96,3 +99,108 @@ def test_fused_decode_kernel_rejects_bad_inputs(cuda):
         tfd.fused_decode_step(params, st, h[:, ::2], 0, cfg)
     with pytest.raises(ValueError):
         tfd.fused_decode_step(params, dict(st, z=st["z"].cpu()), h, 0, cfg)
+
+
+# ---------------------------------------------------------------------------
+# training kernels: FAVOR+ (forward, dq and dk/dv sweeps) and banded local
+# attention (forward, dq, dk/dv), each against its plain twin
+# ---------------------------------------------------------------------------
+
+
+def _fwd_bwd(fn, q, k, v, g):
+    """fn's output and d(Σ out·g)/d(q, k, v) on fresh leaves."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g.to(out.dtype))
+    return [out.detach()] + list(grads)
+
+
+def _assert_kernel_close(name, a, b, dtype):
+    """Same rounding points, other summation orders: at f32 the results
+    agree to ~1e-6 relative; at bf16 an operand on a rounding boundary
+    may round the other way (2^-8 of it) and move a few results by up to
+    ~1e-2 of the largest, while the norm-relative error stays ~1e-3.  A
+    wrong index or mask gives errors of order 1."""
+    a, b = a.float(), b.float()
+    tol_max, tol_norm = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)
+    err = float((a - b).abs().max())
+    assert err <= tol_max * float(b.abs().max()), f"{name}: max abs err {err}"
+    assert float(torch.linalg.norm(a - b)) <= tol_norm * float(torch.linalg.norm(b)), name
+
+
+def _inputs(shape, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(*shape, generator=gen, device=device) for _ in range(4))
+    return q.to(dtype), k.to(dtype), (v * 0.5).to(dtype), g
+
+
+FAVOR_SHAPES = [  # (B, H, L, d, m, chunk, dtype)
+    (1, 2, 37, 16, 32, 16, torch.float32),   # L not a multiple of the chunk
+    (2, 3, 300, 64, 256, 128, torch.bfloat16),
+    (1, 2, 100, 64, 128, 64, torch.float32),
+    (6, 8, 1400, 64, 256, 128, torch.bfloat16),  # the paper shape
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FAVOR_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_favor_kernel_matches_plain(cuda, shape):
+    b, h, n, d, m, chunk, dtype = shape
+    q, k, v, g = _inputs((b, h, n, d), dtype, cuda, seed=n)
+    proj = gaussian_orthogonal_random_matrix(
+        m, d, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = tfa.favor_attention_fused.launches
+    got = _fwd_bwd(lambda *x: tfa.favor_attention_fused(*x, proj, chunk), q, k, v, g)
+    torch.cuda.synchronize()
+    assert tfa.favor_attention_fused.launches == before + 3
+    want = _fwd_bwd(lambda *x: tfa.favor_attention_fused_plain(*x, proj, chunk), q, k, v, g)
+    for name, a, b_ in zip(("out", "dq", "dk", "dv"), got, want):
+        _assert_kernel_close(f"favor {shape} {name}", a, b_, dtype)
+    again = _fwd_bwd(lambda *x: tfa.favor_attention_fused(*x, proj, chunk), q, k, v, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+LOCAL_SHAPES = [  # (B, H, L, d, window, dtype)
+    (1, 2, 37, 16, 12, torch.float32),
+    (1, 2, 20, 16, 40, torch.bfloat16),    # L < w
+    (2, 2, 100, 64, 45, torch.bfloat16),   # w not a multiple of the block
+    (1, 3, 70, 32, 1, torch.float32),      # the diagonal alone
+    (6, 8, 1400, 64, 420, torch.bfloat16),  # the paper shape
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LOCAL_SHAPES, ids=lambda s: "x".join(map(str, s[:5])))
+def test_local_kernel_matches_plain(cuda, shape):
+    b, h, n, d, w, dtype = shape
+    q, k, v, g = _inputs((b, h, n, d), dtype, cuda, seed=n + w)
+    before = tlf.local_attention_flash.launches
+    got = _fwd_bwd(lambda *x: tlf.local_attention_flash_core(*x, w), q, k, v, g)
+    torch.cuda.synchronize()
+    assert tlf.local_attention_flash.launches == before + 3
+    want = _fwd_bwd(lambda *x: tlf.local_attention_flash_plain(*x, w), q, k, v, g)
+    for name, a, b_ in zip(("out", "dq", "dk", "dv"), got, want):
+        _assert_kernel_close(f"local {shape} {name}", a, b_, dtype)
+    again = _fwd_bwd(lambda *x: tlf.local_attention_flash_core(*x, w), q, k, v, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+@pytest.mark.gpu
+def test_attention_kernels_reject_bad_inputs(cuda):
+    q = torch.zeros(1, 2, 16, 16, device=cuda)
+    proj = torch.zeros(32, 16, device=cuda)
+    with pytest.raises(TypeError):
+        tfa.favor_attention_fused(q.half(), q.half(), q.half(), proj)
+    with pytest.raises(ValueError):
+        tfa.favor_attention_fused(q, q[:, :1], q, proj)
+    with pytest.raises(ValueError):
+        tfa.favor_attention_fused(q, q, q, proj[:, :8])
+    with pytest.raises(ValueError):  # S of 1024 x 128 f32 does not fit shared memory
+        big = torch.zeros(1, 1, 8, 128, device=cuda)
+        tfa.favor_attention_fused(big, big, big, torch.zeros(1024, 128, device=cuda))
+    with pytest.raises(TypeError):
+        tlf.local_attention_flash_core(q.half(), q.half(), q.half(), 4)
+    with pytest.raises(ValueError):
+        tlf.local_attention_flash_core(q, q.cpu(), q, 4)
+    with pytest.raises(ValueError):  # the score band does not fit shared memory
+        tlf.local_attention_flash_core(q, q, q, 4000)
