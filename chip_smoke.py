@@ -43,9 +43,40 @@ result, without them.  Phases, each fatal on failure:
    and exactly 24 layers x 3 launches of each kernel per step;
 8. timings on the card: train step kernels vs plain (ms, tokens/s, peak
    memory), forward + backward of each kernel vs its plain version, and a
-   torch.profiler breakdown of one kernel step.
+   torch.profiler breakdown of one kernel step;
+9. the stage-1 kernels against their plain versions on the same seeded
+   inputs: the VQ argmin and argmin + EMA statistics at the paper shape
+   (N 4200 = B3 x 10x14x10 rows, K 2048, D 32) and at ragged N, K and D
+   (indices equal except where the two best distances lie within a
+   stated margin, counts exact, sums within tolerance, two runs
+   bit-identical); the fused residual layer at the paper shape (1 x 128 x
+   80x112x80 bf16, R 128) and at awkward ones (D/H/W not multiples of the
+   tile, C != R, f32 and bf16): y and h, then the backward on the same
+   saved x, h, y and gy (dx, dW1, db1, dW2, db2), two backward runs
+   bit-identical;
+10. the paper stage 1 at full width from seeded random weights (4 levels,
+   (4,2,1,1) down, (4,2,1,0,1) up, codebook 2048 x 32, 256 channels, 3
+   slim residual layers per level, bf16, remat, fused residual auto):
+   extraction (``index_quantize`` of B3 volumes -> (3, 10, 14, 10) codes
+   in [0, 2048), one argmin launch) and ``decode_samples`` back to (3, 1,
+   160, 224, 160); one train step (jukebox_perceptual + LPIPS alex on
+   random features, keep 0.5; BaselineDiscriminator with least-square
+   criteria, weight 0.005; Adam 3e-4 / 5e-4; EMA decay 0.5, commitment
+   0.25; B3) through the kernels against the same step through the plain
+   versions, in f32 (TF32 off) and bf16: losses, every G and D gradient,
+   EMA state; then steps on a repeated batch: finite losses, a lower
+   reconstruction loss after, and exactly 12 forward (6 fused layers x
+   forward + recompute), 6 backward and 1 argmin launch per step; one step
+   with ``FUSED_EMA_STATS`` gives the indices and EMA state of the step
+   without it;
+11. timings on the card: extraction + decode ms per volume; the stage-1
+   train step, kernels vs plain (ms, volumes/s, peak memory); each new
+   kernel vs its plain version and its yardstick (addmm + argmin; cuDNN
+   conv3d -> relu -> conv3d -> add -> relu); a torch.profiler breakdown of
+   one kernel step.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (time, plain time,
+bound and library time of every kernel); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +99,13 @@ T_CHECK = (0, 1, 447, 448, 1000)
 TRAIN_BATCH = 6  # the paper batch of tools/bench_transformer.py
 TRAIN_STEPS = 5
 LAUNCHES_PER_STEP = 24 * 3  # per kernel family: forward + two backward launches per layer
+VQ_BATCH = 3  # the stage-1 batch (synthanatomy_tpu/config.py batch_size)
+VQ_STEPS = 4
+VOLUME = (160, 224, 160)
+# per stage-1 train step: 6 fused layers (3 encoder at level 0, 3 decoder
+# at the last level) x (forward + remat recompute), 6 backward, 1 argmin
+RES_FWD_PER_STEP, RES_BWD_PER_STEP, ARGMIN_PER_STEP = 12, 6, 1
+PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM dense peaks (FLOP/s, B/s)
 
 
 def _require(cond, msg):
@@ -114,7 +152,7 @@ def _performer(rezero, *, dim, depth, heads, local_heads, window, seed, device,
         heads=heads, dim_head=64, local_attn_heads=local_heads,
         local_window_size=window, use_rezero=rezero, spatial_position_emb="absolute",
         spatial_shape=grid, ordering=ordering,
-        generator=torch.Generator().manual_seed(seed),
+        generator=torch.Generator().manual_seed(seed), device="cpu",
     )
     with torch.no_grad():
         for blk in model.blocks:
@@ -308,7 +346,7 @@ def _train_prior(dev, dtype):
         spatial_position_emb="absolute", spatial_shape=GRID, ordering=ordering,
         use_pallas_local=True, use_pallas_favor=True, attn_compute_dtype=dtype,
         dtype=dtype, feature_redraw_interval=2,
-        generator=torch.Generator().manual_seed(20),
+        generator=torch.Generator().manual_seed(20), device="cpu",
     ).to(dev)
     with torch.no_grad():
         for blk in model.blocks:
@@ -361,6 +399,508 @@ def _time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(flops, nbytes, peak):
+    """(bound ms, what bounds it): the larger of operations over the
+    peak rate and bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _argmin_mismatch(x, w, got, want):
+    """Rows where two argmins disagree must be near-ties: their distances
+    (f64) within 1e-5 of the distances' scale.  Returns (rows that
+    differ, largest distance gap)."""
+    import torch
+
+    rows = torch.nonzero(got != want).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    xd, wd = x[rows].double(), w.double()
+    dist = (wd * wd).sum(1)[None, :] - 2.0 * xd @ wd.t()
+    dk = dist.gather(1, got[rows].long()[:, None])
+    dp = dist.gather(1, want[rows].long()[:, None])
+    gap = float((dk - dp).abs().max())
+    scale = float(dist.abs().max())
+    _require(gap <= 1e-5 * scale, f"argmin differs on {rows.numel()} rows, gap {gap} > "
+                                  f"1e-5 x {scale}")
+    return int(rows.numel()), gap
+
+
+def _check_vq_kernels(dev):
+    """Phase 9, rows 3 and 4; returns max errors at the paper shape."""
+    import torch
+    from synthanatomy_tpu_torch.ops import vq
+
+    errs = {}
+    for label, (n, k, d) in (("paper", (VQ_BATCH * SEQ, 2048, 32)), ("ragged", (37, 130, 5)),
+                             ("K % tile, D 64", (1000, 300, 64)), ("N, K odd", (4099, 2047, 32))):
+        gen = torch.Generator(device=dev).manual_seed(n + k)
+        x = torch.randn(n, d, generator=gen, device=dev)
+        w = torch.randn(k, d, generator=gen, device=dev)
+        idx = vq.nearest_codeword(x, w)
+        ref = vq.nearest_codeword_plain(x, w)
+        sidx, counts, dw = vq.nearest_codeword_stats(x, w)
+        sidx2, counts2, dw2 = vq.nearest_codeword_stats(x, w)
+        torch.cuda.synchronize()
+        n_diff, gap = _argmin_mismatch(x, w, idx, ref)
+        _require(torch.equal(sidx, idx), f"{label}: stats kernel indices differ from the argmin")
+        _require(torch.equal(counts, torch.bincount(idx.long(), minlength=k).float()),
+                 f"{label}: counts are not exact")
+        onehot = torch.nn.functional.one_hot(idx.long(), k).float()
+        sx_err = _compare_grad(f"vq stats {label} sum x", dw, onehot.t() @ x)
+        _require(torch.equal(dw, dw2) and torch.equal(counts, counts2) and torch.equal(
+            sidx, sidx2), f"{label}: two stats runs differ")
+        if label == "paper":
+            errs = {"argmin": gap, "stats": sx_err}
+        print(f"[check] nearest_codeword == plain ({label}: N {n}, K {k}, D {d}, f32): "
+              f"{n_diff} rows differ (allowed only within 1e-5 of the distance scale; gap "
+              f"{gap:.3e}); stats: counts exact, sum x max abs err {sx_err:.3e} (tol 2e-2 of "
+              f"max |plain|, 1e-2 in norm), two runs bit-identical")
+    return errs
+
+
+def _res_inputs(shape, r, dtype, seed, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, c = shape[:2]
+    x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    w1 = torch.randn(r, c, 3, 3, 3, generator=gen, device=dev) * (27 * c) ** -0.5
+    b1 = torch.randn(r, generator=gen, device=dev) * 0.1
+    w2 = torch.randn(c, r, 1, 1, 1, generator=gen, device=dev) * r ** -0.5
+    b2 = torch.randn(c, generator=gen, device=dev) * 0.1
+    gy = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    return x, w1, b1, w2, b2, gy
+
+
+def _check_res_kernels(dev):
+    """Phase 9, row 7: the forward on the same inputs, then the backward
+    on the same saved x, h, y and gy (the plain forward's); returns max
+    errors at the paper shape."""
+    import torch
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [("paper", (1, 128, 80, 112, 80), 128, bf16),
+              ("tiny, C != R", (1, 3, 5, 6, 7), 4, f32),
+              ("D/H/W % tile, C != R", (2, 8, 9, 10, 11), 12, bf16),
+              ("W 70, C 24, R 40", (1, 24, 7, 9, 70), 40, bf16),
+              ("f32, C 16, R 32", (1, 16, 6, 7, 33), 32, f32)]
+    errs = {}
+    for label, shape, r, dtype in shapes:
+        x, w1, b1, w2, b2, gy = _res_inputs(shape, r, dtype, sum(shape) + r, dev)
+        w1c, b1c, w2c, b2c = (t.to(dtype) for t in (w1, b1, w2, b2))
+        yk, hk = rs._kernel_fwd(x, w1c, b1c, w2c, b2c, True)
+        yp, hp = rs.residual_layer_plain(x, w1c, b1c, w2c, b2c)
+        torch.cuda.synchronize()
+        fwd_err = max(_compare_grad(f"res {label} y", yk, yp),
+                      _compare_grad(f"res {label} h", hk, hp))
+        got = rs._kernel_bwd(x, hp, yp, gy, w1c, w2c)
+        want = rs.residual_layer_bwd_plain(x, hp, yp, gy, w1c, w2c)
+        again = rs._kernel_bwd(x, hp, yp, gy, w1c, w2c)
+        torch.cuda.synchronize()
+        bwd_err = max(_compare_grad(f"res {label} {n}", a, b)
+                      for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want))
+        _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"res {label}: two backward runs differ")
+        if label == "paper":
+            errs = {"fwd": fwd_err, "bwd": bwd_err}
+        print(f"[check] fused_residual_layer == plain ({label}: {shape}, R {r}, "
+              f"{str(dtype)[6:]}): y/h max abs err {fwd_err:.3e}; on the same saved x, h, y, "
+              f"gy: dx/dW1/db1/dW2/db2 max abs err {bwd_err:.3e} (tol 2e-2 of max |plain|, "
+              f"1e-2 in norm); two backward runs bit-identical")
+    return errs
+
+
+@contextlib.contextmanager
+def _plain_stage1():
+    """Route stage 1 through the kernels' plain versions (on the card too)."""
+    from synthanatomy_tpu_torch.models import vqvae as vqm
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+
+    with mock.patch.object(vqm, "fused_residual_layer", rs.fused_residual_layer_plain), \
+            mock.patch.object(vq, "nearest_codeword", vq.nearest_codeword_plain), \
+            mock.patch.object(vq, "nearest_codeword_stats", vq.nearest_codeword_stats_plain):
+        yield
+
+
+def _paper_vqvae(dev, dtype, **kw):
+    import torch
+
+    from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
+
+    return BaselineVQVAE(
+        n_levels=4, downsample_parameters=((4, 2, 1, 1),) * 4,
+        upsample_parameters=((4, 2, 1, 0, 1),) * 4, n_embed=2048, embed_dim=32,
+        n_channels=256, n_res_channels=256, n_res_layers=3, dtype=dtype,
+        generator=torch.Generator().manual_seed(30), device=dev, **kw)
+
+
+def _stage1(dev, dtype):
+    """The paper stage-1 trainer: VQ-VAE (remat, fused auto), D, LPIPS,
+    the CLI's loss and adversarial defaults."""
+    import torch
+
+    from synthanatomy_tpu_torch.losses.lpips import init_lpips_params
+    from synthanatomy_tpu_torch.models.discriminator import BaselineDiscriminator
+    from synthanatomy_tpu_torch.train.vqvae_steps import make_vqvae_train_step
+
+    model = _paper_vqvae(dev, dtype, use_remat=True)
+    d_model = BaselineDiscriminator(dtype=dtype, generator=torch.Generator().manual_seed(31),
+                                    device=dev)
+    lpips = init_lpips_params("alex", generator=torch.Generator().manual_seed(32), device=dev)
+    step = make_vqvae_train_step(model, loss_name="jukebox_perceptual", d_model=d_model,
+                                 generator_criterion="least_square",
+                                 discriminator_criterion="least_square",
+                                 adversarial_weight=0.005)
+    return model, d_model, lpips, step
+
+
+VQ_SCHED = {"lr": 3e-4, "d_lr": 5e-4, "decay": 0.5, "commitment_cost": 0.25,
+            "gdl_factor": 0.0, "epoch": 0}
+
+
+def _snapshot(*modules):
+    return [{k: v.detach().clone() for k, v in m.state_dict().items()} for m in modules]
+
+
+def _one_step(model, d_model, lpips, step, batch, snap):
+    """One step from the snapshot; returns metrics, G and D gradients, the
+    EMA state and the step's code indices, and restores the snapshot."""
+    from synthanatomy_tpu_torch.ops import vq
+    from synthanatomy_tpu_torch.train.vqvae_steps import create_vqvae_train_state
+
+    seen = []
+    quantize = vq.quantize_ema
+
+    def keep_indices(*a, **k):
+        out = quantize(*a, **k)
+        seen.append(out[2].flatten().clone())
+        return out
+
+    state = create_vqvae_train_state(model, 0, d_model=d_model, device=batch.device)
+    with mock.patch.object(vq, "quantize_ema", keep_indices):
+        _, metrics = step(state, batch, VQ_SCHED, lpips)
+    out = ({k: float(v) for k, v in metrics.items()},
+           {n: p.grad.detach().float().clone() for n, p in model.named_parameters()},
+           {n: p.grad.detach().float().clone() for n, p in d_model.named_parameters()},
+           {k: v.detach().clone() for k, v in model.vq.state_dict().items()}, seen[0])
+    model.load_state_dict(snap[0])
+    d_model.load_state_dict(snap[1])
+    return out
+
+
+def _ema_rel(vk, vp, ik, ip):
+    """EMA state error over the codewords that no flipped row touched
+    (a latent whose nearest code differs between two runs moves both
+    codes' averages by design).  Returns (rows flipped, error)."""
+    import torch
+
+    flips = ik != ip
+    touched = torch.zeros(vk["codebook"].shape[0], dtype=torch.bool, device=ik.device)
+    touched[ik[flips].long()] = True
+    touched[ip[flips].long()] = True
+    keep = ~touched
+    return int(flips.sum()), _rel({k: v[keep] for k, v in vk.items()},
+                                  {k: v[keep] for k, v in vp.items()})
+
+
+def _rel(a, b, names=None):
+    import torch
+
+    names = list(a) if names is None else names
+    num = sum(float(torch.linalg.norm(a[n] - b[n])) ** 2 for n in names)
+    den = sum(float(torch.linalg.norm(b[n])) ** 2 for n in names)
+    return (num / max(den, 1e-60)) ** 0.5
+
+
+def _worst(a, b):
+    name = max(a, key=lambda n: _rel(a, b, [n]))
+    return name, _rel(a, b, [name])
+
+
+def _seed_codebook(model, vols, seed):
+    """Codewords drawn from the model's own latents (plus 1% noise), so
+    that at random weights many codes are in use and the argmin, the
+    statistics and the EMA update see real work."""
+    import torch
+
+    with torch.no_grad():
+        z = model.encode(vols)[0].float().permute(0, 2, 3, 4, 1).reshape(-1, model.embed_dim)
+        gen = torch.Generator(device=z.device).manual_seed(seed)
+        pick = torch.randint(0, z.shape[0], (model.n_embed,), generator=gen, device=z.device)
+        noise = torch.randn(model.n_embed, model.embed_dim, generator=gen, device=z.device)
+        cb = z[pick] + 0.01 * z.std() * noise
+        model.vq.codebook.copy_(cb)
+        model.vq.embed_avg.copy_(cb)
+    return z
+
+
+def _stage1_volumes(dev, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(VQ_BATCH, 1, *VOLUME, generator=gen, device=dev)
+
+
+def _check_stage1(dev, smi):
+    """Phases 10 and 11.  Returns the records the kernels' JSON line needs."""
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+    from synthanatomy_tpu_torch.train.vqvae_steps import (
+        create_vqvae_train_state,
+        make_vqvae_eval_step,
+    )
+
+    rec = {}
+    # 10a. extraction -> decode (the extract path builds the model with the
+    # fused residual off, as JAX's runner does)
+    extract = _paper_vqvae(dev, torch.bfloat16, use_fused_residual=False)
+    vols = _stage1_volumes(dev, 40)
+    z = _seed_codebook(extract, vols, 42)
+    with torch.no_grad():
+        vq.nearest_codeword.launches = 0
+        idx = extract.index_quantize(vols)[0]
+        torch.cuda.synchronize()
+        n_argmin = vq.nearest_codeword.launches
+        rec_vols = extract.decode_samples([idx])
+        with _plain_stage1():
+            ref = extract.index_quantize(vols)[0]
+        torch.cuda.synchronize()
+    _require(n_argmin == 1, f"extraction launched the argmin {n_argmin} times, want 1")
+    n_diff, _ = _argmin_mismatch(z, extract.vq.codebook, idx.flatten(), ref.flatten())
+    _require(tuple(idx.shape) == (VQ_BATCH,) + GRID and int(idx.min()) >= 0
+             and int(idx.max()) < 2048, f"codes {tuple(idx.shape)} in [{int(idx.min())}, "
+                                        f"{int(idx.max())}]")
+    _require(tuple(rec_vols.shape) == (VQ_BATCH, 1) + VOLUME
+             and bool(torch.isfinite(rec_vols).all()), "decoded volumes")
+    print(f"[stage1] index_quantize B{VQ_BATCH} {VOLUME} -> codes {tuple(idx.shape)} in "
+          f"[0, 2048) ({int(torch.unique(idx).numel())} distinct; {n_diff} differ from the "
+          f"plain argmin, near-ties only), 1 argmin launch; "
+          f"decode_samples -> {tuple(rec_vols.shape)} {rec_vols.dtype}, finite")
+
+    def extract_ms():
+        with torch.no_grad():
+            extract.decode_samples(extract.index_quantize(vols))
+
+    rec["extract_ms"] = _time_ms(extract_ms, 2) / VQ_BATCH
+    print(f"[time] extraction + decode, bf16, B{VQ_BATCH}: {rec['extract_ms']:.2f} ms per "
+          f"volume  [{smi}]")
+    del extract, rec_vols
+    torch.cuda.empty_cache()
+
+    # 10b. one step through the kernels against the plain versions.  The
+    # two encoders sum in other orders, so a latent near the midpoint of
+    # two codewords may pick the other one; with the codebook seeded from
+    # the latents themselves such pairs are common.  At most 1% of the
+    # rows may flip at f32 and 10% at bf16 (where the fused encoder layers
+    # round each latent to 8 bits), and the EMA state is compared on the
+    # codewords no flip touched.  G gradients: tight at f32 (summation
+    # order only).  D sees the decoded voxels of a flipped latent
+    # directly, hence its wider bound.
+    for dtype, loss_tol, g_tol, d_tol, flip_tol in (
+            (torch.float32, 1e-4, 1e-4, 1e-2, 0.01), (torch.bfloat16, 2e-2, 5e-2, 1e-1, 0.1)):
+        model, d_model, lpips, step = _stage1(dev, dtype)
+        batch = _stage1_volumes(dev, 41)
+        _seed_codebook(model, batch, 43)
+        snap = _snapshot(model, d_model)
+        mk, gk, dk, vk, ik = _one_step(model, d_model, lpips, step, batch, snap)
+        with _plain_stage1():
+            mp, gp, dp, vp, ip = _one_step(model, d_model, lpips, step, batch, snap)
+        name = str(dtype)[6:]
+        for key in ("Loss-Reconstruction-Total", "Loss-Discriminator-Total",
+                    "Loss-Generator-Total"):
+            _require(abs(mk[key] - mp[key]) <= loss_tol * abs(mp[key]),
+                     f"{name} stage-1 step {key}: kernels {mk[key]} vs plain {mp[key]}")
+        n_flip, v_rel = _ema_rel(vk, vp, ik, ip)
+        g_rel, d_rel = _rel(gk, gp), _rel(dk, dp)
+        _require(n_flip <= flip_tol * ik.numel(),
+                 f"{name}: {n_flip} of {ik.numel()} codes differ")
+        _require(g_rel <= g_tol and d_rel <= d_tol and v_rel <= g_tol,
+                 f"{name} stage-1 step: G grad {g_rel}, D grad {d_rel}, EMA {v_rel}")
+        gw, gwr = _worst(gk, gp)
+        print(f"[check] paper stage-1 step ({name}, B{VQ_BATCH}), kernels vs plain versions: "
+              f"recon loss {mk['Loss-Reconstruction-Total']:.6f} vs "
+              f"{mp['Loss-Reconstruction-Total']:.6f}, D loss {mk['Loss-Discriminator-Total']:.6f}"
+              f" vs {mp['Loss-Discriminator-Total']:.6f} (tol {loss_tol:g} relative); "
+              f"{n_flip} of {ik.numel()} codes differ (tol {flip_tol:.0%}); norm-relative error "
+              f"G gradients "
+              f"{g_rel:.3e} (tol {g_tol:g}; largest per tensor {gwr:.3e} at {gw}), D gradients "
+              f"{d_rel:.3e} (tol {d_tol:g}), EMA state on unflipped codes {v_rel:.3e} (tol "
+              f"{g_tol:g}); perplexity {mk['VQ0-Perplexity']:.2f} vs {mp['VQ0-Perplexity']:.2f}")
+        if dtype == torch.float32:
+            del model, d_model, lpips, step, snap
+            torch.cuda.empty_cache()
+
+    # 10c. FUSED_EMA_STATS on and off give the same indices and EMA state
+    _, _, _, v_off, i_off = _one_step(model, d_model, lpips, step, batch, snap)
+    vq.nearest_codeword.launches = vq.nearest_codeword_stats.launches = 0
+    with mock.patch.object(vq, "FUSED_EMA_STATS", True):
+        _, _, _, v_on, i_on = _one_step(model, d_model, lpips, step, batch, snap)
+    torch.cuda.synchronize()
+    rec["stats_launches"] = vq.nearest_codeword_stats.launches
+    _require(rec["stats_launches"] == 1 and vq.nearest_codeword.launches == 0,
+             f"FUSED_EMA_STATS step: {rec['stats_launches']} stats and "
+             f"{vq.nearest_codeword.launches} argmin launches, want 1 and 0")
+    _require(torch.equal(i_on, i_off), "FUSED_EMA_STATS changes the indices")
+    ema_err = max(_compare_grad(f"EMA {k}", v_on[k], v_off[k]) for k in v_off)
+    print(f"[check] FUSED_EMA_STATS step == default step: indices equal, EMA state max abs "
+          f"err {ema_err:.3e} (tol 2e-2 of max |plain|, 1e-2 in norm); 1 stats launch")
+
+    # 10d. the main path: steps on a repeated batch through the kernels
+    state = create_vqvae_train_state(model, 1, d_model=d_model, device=dev)
+    losses = []
+    vq.nearest_codeword.launches = 0
+    rs.fused_residual_layer.launches = rs.fused_residual_layer.bwd_launches = 0
+    for _ in range(VQ_STEPS):
+        state, metrics = step(state, batch, VQ_SCHED, lpips)
+        losses.append(float(metrics["Loss-Reconstruction-Total"]))
+    torch.cuda.synchronize()
+    rec["launches"] = {"argmin": vq.nearest_codeword.launches,
+                       "fwd": rs.fused_residual_layer.launches,
+                       "bwd": rs.fused_residual_layer.bwd_launches}
+    want = {"argmin": ARGMIN_PER_STEP, "fwd": RES_FWD_PER_STEP, "bwd": RES_BWD_PER_STEP}
+    for k, per in want.items():
+        _require(rec["launches"][k] == per * VQ_STEPS,
+                 f"stage-1 {k}: {rec['launches'][k]} launches in {VQ_STEPS} steps, want "
+                 f"{per * VQ_STEPS}")
+    _, ev = make_vqvae_eval_step(model, loss_name="jukebox_perceptual")(
+        state, batch, VQ_SCHED, lpips)
+    final = float(ev["Loss-Reconstruction-Total"] if "Loss-Reconstruction-Total" in ev
+                  else ev["Loss"])
+    _require(all(np.isfinite(losses)) and np.isfinite(final), f"losses {losses} {final}")
+    _require(final < losses[0], f"reconstruction loss did not fall: {losses} then {final}")
+    print(f"[train] paper stage 1 B{VQ_BATCH} x {VOLUME}, bf16, {VQ_STEPS} steps: "
+          f"reconstruction losses {[round(x, 5) for x in losses]}, after {final:.5f}; "
+          f"launches per step: residual forward {rec['launches']['fwd'] // VQ_STEPS}, "
+          f"backward {rec['launches']['bwd'] // VQ_STEPS}, argmin "
+          f"{rec['launches']['argmin'] // VQ_STEPS}")
+
+    # 11. timings
+    def step_s(reps):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = step(state, batch, VQ_SCHED, lpips)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    with _plain_stage1():
+        p1 = step_s(1)
+    torch.cuda.reset_peak_memory_stats()
+    k1 = step_s(2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k2 = step_s(2)
+    with _plain_stage1():
+        torch.cuda.reset_peak_memory_stats()
+        p2 = step_s(1)
+        peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_k, step_p = (k1 + k2) / 2 * 1e3, (p1 + p2) / 2 * 1e3
+    rec["step"] = (step_k, step_p, peak, peak_plain)
+    print(f"[time] paper stage-1 train step B{VQ_BATCH}: kernels {step_k:.1f} ms ({k1 * 1e3:.1f}"
+          f", {k2 * 1e3:.1f}), {VQ_BATCH / (step_k / 1e3):.3f} volumes/s, peak {peak:.2f} GiB; "
+          f"plain {step_p:.1f} ms ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}), "
+          f"{VQ_BATCH / (step_p / 1e3):.3f} volumes/s, peak {peak_plain:.2f} GiB  [{smi}]")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = step_s(1)
+    rows = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(evt, "self_device_time_total", None)
+            dt = evt.self_cuda_time_total if dt is None else dt
+            rows[evt.key] = rows.get(evt.key, 0.0) + dt / 1e3
+    busy = sum(rows.values())
+    print(f"[profile] one stage-1 kernel train step: wall {wall * 1e3:.1f} ms, device time "
+          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy)  [{smi}]")
+    for key, ms in sorted(rows.items(), key=lambda kv: -kv[1])[:16]:
+        print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+    del state, model, d_model, lpips, step, snap, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _time_stage1_kernels(dev, smi):
+    """Phase 11: each new kernel at the shape the main path gives it, vs
+    its plain version and its yardstick; returns {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+
+    out = {}
+    n, k, d = VQ_BATCH * SEQ, 2048, 32
+    gen = torch.Generator(device=dev).manual_seed(50)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    w = torch.randn(k, d, generator=gen, device=dev)
+    wsq = (w * w).sum(1)
+
+    def yard_argmin():
+        return torch.addmm(wsq[None, :], x, w.t(), alpha=-2.0).argmin(1)
+
+    io = _nbytes(x, w) + n * 4
+    pairs = {
+        "argmin": (lambda: vq.nearest_codeword(x, w), lambda: vq.nearest_codeword_plain(x, w),
+                   yard_argmin, _bound(2 * n * k * d, io, PEAK_F32)),
+        "stats": (lambda: vq.nearest_codeword_stats(x, w),
+                  lambda: vq.nearest_codeword_stats_plain(x, w), yard_argmin,
+                  _bound(2 * n * k * d + n * d, io + k * (d + 1) * 4, PEAK_F32)),
+    }
+    xs, w1, b1, w2, b2, gy = _res_inputs((1, 128, 80, 112, 80), 128, torch.bfloat16, 51, dev)
+    bf = torch.bfloat16
+    w1c, b1c, w2c, b2c = (t.to(bf) for t in (w1, b1, w2, b2))
+    yp, hp = rs.residual_layer_plain(xs, w1c, b1c, w2c, b2c)
+    m = xs.shape[2] * xs.shape[3] * xs.shape[4]
+    c = r = 128
+    act = xs.numel() * 2  # one bf16 activation tensor
+
+    def yard_fwd():  # cuDNN: conv3d -> relu -> conv3d -> add -> relu, biases inside
+        return torch.relu(F.conv3d(torch.relu(F.conv3d(xs, w1c, b1c, padding=1)), w2c, b2c) + xs)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (xs, w1c, b1c, w2c, b2c)]
+
+    def yard_bwd():
+        y = torch.relu(F.conv3d(torch.relu(F.conv3d(leaves[0], leaves[1], leaves[2], padding=1)),
+                                leaves[3], leaves[4]) + leaves[0])
+        return torch.autograd.grad(y, leaves, gy)
+
+    pairs["res_fwd"] = (lambda: rs._kernel_fwd(xs, w1c, b1c, w2c, b2c, True),
+                        lambda: rs.residual_layer_plain(xs, w1c, b1c, w2c, b2c), yard_fwd,
+                        _bound(2 * m * c * r * 28, 3 * act + _nbytes(w1c, w2c), PEAK_BF16))
+    pairs["res_bwd"] = (lambda: rs._kernel_bwd(xs, hp, yp, gy, w1c, w2c),
+                        lambda: rs.residual_layer_bwd_plain(xs, hp, yp, gy, w1c, w2c),
+                        yard_bwd,
+                        _bound(2 * m * c * r * 56, 5 * act + _nbytes(w1c, w2c) * 3, PEAK_BF16))
+    yard_name = {"argmin": "addmm + argmin", "stats": "addmm + argmin",
+                 "res_fwd": "cuDNN conv3d chain, forward",
+                 "res_bwd": "cuDNN conv3d chain, forward + backward"}
+    for name, (kern, plain, yard, bound) in pairs.items():
+        reps = 20 if name in ("argmin", "stats") else 3
+        p1, k1, k2, p2 = (_time_ms(plain, reps), _time_ms(kern, reps), _time_ms(kern, reps),
+                          _time_ms(plain, reps))
+        y_ms = _time_ms(yard, reps)
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "yard_ms": y_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"[time] {name}: kernel {out[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+              f"{out[name]['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), yardstick "
+              f"({yard_name[name]}) {y_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})  "
+              f"[{smi}]")
+    return out
 
 
 def main() -> int:
@@ -486,10 +1026,16 @@ def main() -> int:
         local_window=420, nb_features=performer.nb_features, ring_quant=True,
         use_rezero=True)
     times = {}
+    decode_bound = None
     for wq in ("int8", "int4"):
         c = dataclasses.replace(cfg, weight_quant=wq)
         params = fd.strip_reference_weights(fd.pack_fused_params(performer, weight_quant=wq))
         st, h = _random_state(c, torch.Generator(device=dev).manual_seed(9), dev)
+        if wq == "int8":  # weights and state read once, S and z written once
+            n_weights = sum(t.numel() for t in params.values() if t.dtype == torch.int8)
+            decode_bound = _bound(2 * BATCH * n_weights,
+                                  _nbytes(*params.values(), *st.values(), h, st["S"], st["z"]),
+                                  PEAK_BF16)
         # plain, kernel, kernel, plain (the card may drift within a call)
         p1 = _time_ms(lambda: fd.fused_decode_step_ref(params, st, h, 700, c), 5)
         k1 = _time_ms(lambda: fd.fused_decode_step(params, st, h, 700, c), 20)
@@ -651,34 +1197,62 @@ def main() -> int:
     for key, ms in sorted(rows.items(), key=lambda kv: -kv[1])[:14]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_decode_step",
-        "route": "cuda",
-        "source": "synthanatomy_tpu_torch/csrc/fused_decode.cu",
-        "replaces": "synthanatomy_tpu/ops/fused_decode.py:541",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": times["int8"][0],
-        "plain_ms": times["int8"][1],
-    }, {
-        "name": "favor_attention_fused",
-        "route": "cuda",
-        "source": "synthanatomy_tpu_torch/csrc/favor_attention.cu",
-        "replaces": "synthanatomy_tpu/ops/favor_pallas.py:148",
-        "launches": train_launches["favor"],
-        "max_abs_err": kerr["favor"],
-        "ms": ktimes["favor"][0],
-        "plain_ms": ktimes["favor"][1],
-    }, {
-        "name": "local_attention_flash",
-        "route": "cuda",
-        "source": "synthanatomy_tpu_torch/csrc/local_attention.cu",
-        "replaces": "synthanatomy_tpu/ops/local_attention_pallas.py:128",
-        "launches": train_launches["local"],
-        "max_abs_err": kerr["local"],
-        "ms": ktimes["local"][0],
-        "plain_ms": ktimes["local"][1],
-    }]}))
+    # bounds of the training kernels at the timed shape; the library call
+    # beside local attention: SDPA with the banded causal mask
+    bhld = TRAIN_BATCH * 8 * SEQ * 64
+    io = _nbytes(q, k, v, g) * 2  # q, k, v, g read; out, dq, dk, dv written
+    favor_bound = _bound(24 * bhld * 256, io + _nbytes(proj), PEAK_BF16)
+    pairs_in_band = sum(min(i + 1, 420) for i in range(SEQ))
+    local_bound = _bound(14 * TRAIN_BATCH * 8 * pairs_in_band * 64, io, PEAK_BF16)
+    i_, j_ = torch.arange(SEQ, device=dev)[:, None], torch.arange(SEQ, device=dev)[None, :]
+    band = (j_ <= i_) & (j_ > i_ - 420)
+
+    def sdpa():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=band)
+        return torch.autograd.grad(o, leaves, g.to(o.dtype))
+
+    sdpa_ms = _time_ms(sdpa, 5)
+    print(f"[time] library: scaled_dot_product_attention with the banded causal mask, fwd+bwd, "
+          f"same shape: {sdpa_ms:.3f} ms; bounds: favor {favor_bound[0]:.4f} ms, local "
+          f"{local_bound[0]:.4f} ms ({local_bound[1]})  [{smi}]")
+    del state, model, train_step, q, k, v, g, prof
+    torch.cuda.empty_cache()
+
+    # 9. the stage-1 kernels against their plain versions
+    verr = _check_vq_kernels(dev)
+    rerr = _check_res_kernels(dev)
+    torch.cuda.empty_cache()
+    # 10-11. the paper stage 1, then the kernels' timings
+    s1 = _check_stage1(dev, smi)
+    t1 = _time_stage1_kernels(dev, smi)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"synthanatomy_tpu_torch/csrc/{source}",
+                "replaces": f"synthanatomy_tpu/ops/{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms}
+
+    print(json.dumps({"kernels": [
+        entry("fused_decode_step", "fused_decode.cu", "fused_decode.py:541", launches, max_err,
+              *times["int8"], decode_bound),
+        entry("favor_attention_fused", "favor_attention.cu", "favor_pallas.py:148",
+              train_launches["favor"], kerr["favor"], *ktimes["favor"], favor_bound),
+        entry("local_attention_flash", "local_attention.cu", "local_attention_pallas.py:128",
+              train_launches["local"], kerr["local"], *ktimes["local"], local_bound, sdpa_ms),
+        entry("nearest_codeword", "vq_argmin.cu", "vq.py:103", s1["launches"]["argmin"],
+              verr["argmin"], t1["argmin"]["ms"], t1["argmin"]["plain_ms"],
+              (t1["argmin"]["bound_ms"], t1["argmin"]["bound_by"])),
+        entry("nearest_codeword_stats", "vq_argmin.cu", "vq.py:176", s1["stats_launches"],
+              verr["stats"], t1["stats"]["ms"], t1["stats"]["plain_ms"],
+              (t1["stats"]["bound_ms"], t1["stats"]["bound_by"])),
+        entry("fused_residual_layer", "res_stack.cu", "res_stack_pallas.py:116",
+              s1["launches"]["fwd"], rerr["fwd"], t1["res_fwd"]["ms"], t1["res_fwd"]["plain_ms"],
+              (t1["res_fwd"]["bound_ms"], t1["res_fwd"]["bound_by"])),
+        entry("fused_residual_layer_bwd", "res_stack.cu", "res_stack_pallas.py:271",
+              s1["launches"]["bwd"], rerr["bwd"], t1["res_bwd"]["ms"], t1["res_bwd"]["plain_ms"],
+              (t1["res_bwd"]["bound_ms"], t1["res_bwd"]["bound_by"])),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-// Shared device helpers for the attention training kernels
-// (favor_attention.cu, local_attention.cu): operand types, rounding to
-// the compute dtype, warp reductions, and a block-wide tiled product.
+// Shared device helpers for the training kernels (favor_attention.cu,
+// local_attention.cu, res_stack.cu): operand types, rounding to the
+// compute dtype, warp reductions, and a block-wide tiled product.
 //
 // Rounding model.  The TPU kernels run their products with operands in
 // the compute dtype T (bf16 or f32) and f32 accumulation.  A bf16 value
@@ -60,6 +60,7 @@ template <int TM, int TN>
 struct Gemm {
   static constexpr int kThreads = TM * TN / 16;
   static constexpr int kSmemFloats = kTK * (TM + TN);
+  static constexpr int kTN = TN;
 
   template <bool A_KFAST, bool B_KFAST, class FA, class FB, class FE>
   __device__ static void run(int M, int N, int K, FA a, FB b, FE epi, float* stage) {

@@ -1,9 +1,11 @@
 """Carry trained weights from the JAX package into the port.
 
-``performer_from_jax`` and ``vqvae_from_jax`` take the JAX variables as
-numpy trees (``jax.device_get`` of the flax variables) and return port
-modules loaded with ``strict=True``.  The transposes are the ones
-``synthanatomy_tpu/interop.py`` validated against torch layouts:
+``performer_from_jax``, ``vqvae_from_jax`` and ``discriminator_from_jax``
+take the JAX variables as numpy trees (``jax.device_get`` of the flax
+variables) and return port modules loaded with ``strict=True``, on the
+card unless ``device`` says otherwise; ``lpips_from_jax`` carries an
+LPIPS parameter tree.  The transposes (the port's own copies of those
+``synthanatomy_tpu/interop.py`` validated against torch layouts):
 
 - Dense kernel (in, out) → Linear weight (out, in);
 - Conv kernel DHWIO → Conv3d weight (O, I, D, H, W);
@@ -11,7 +13,8 @@ modules loaded with ``strict=True``.  The transposes are the ones
   weight (I, O, D, H, W).
 
 No JAX is imported: the VQ state is read through its ``.codebook``
-attribute (a ``VQState``) or as a plain dict.
+attribute (a ``VQState``) or as a plain dict, the LPIPS tree through
+its ``.net`` / ``.lin`` / ``.kind`` attributes or as a dict.
 """
 
 from __future__ import annotations
@@ -22,11 +25,22 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from synthanatomy_tpu.interop import _conv_w_inv, _convT_w_inv
+from synthanatomy_tpu_torch.losses.lpips import lpips_params_from_numpy
+from synthanatomy_tpu_torch.models.discriminator import BaselineDiscriminator
 from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
 
-__all__ = ["performer_from_jax", "vqvae_from_jax"]
+__all__ = ["discriminator_from_jax", "lpips_from_jax", "performer_from_jax", "vqvae_from_jax"]
+
+
+def _conv_w_inv(w) -> np.ndarray:
+    """DHWIO → torch Conv3d (O, I, D, H, W)."""
+    return np.transpose(np.asarray(w), (4, 3, 0, 1, 2))
+
+
+def _convT_w_inv(w) -> np.ndarray:
+    """DHWIO (forward orientation) → torch ConvTranspose3d (I, O, D, H, W)."""
+    return np.transpose(np.asarray(w), (3, 4, 0, 1, 2))
 
 
 def _t(x) -> torch.Tensor:
@@ -52,7 +66,7 @@ def performer_from_jax(
     max_seq_len = np.asarray(params["abs_pos_emb"]["embedding"]).shape[0]
     if config.get("conditioning_type") == "prepending":
         max_seq_len -= len(config["conditioning_num_tokens"])
-    device = config.pop("device", None)
+    config.setdefault("device", "cuda")
     model = Performer(num_tokens, max_seq_len, dim, depth, **config)
 
     sd = {
@@ -84,7 +98,7 @@ def performer_from_jax(
         if f"block_{i}" in favor:
             sd[f"{p}.attn.projection"] = _t(favor[f"block_{i}"]["attn"]["projection"])
     model.load_state_dict(sd, strict=True)
-    return model if device is None else model.to(device)
+    return model
 
 
 def vqvae_from_jax(
@@ -93,15 +107,17 @@ def vqvae_from_jax(
 ) -> BaselineVQVAE:
     """Flax ``BaselineVQVAE`` variables (``params``, ``vq``) → loaded port
     ``BaselineVQVAE``.  ``config`` holds the remaining constructor
-    arguments (down/upsample parameters, dtype, ...); codebook size,
-    embedding width and channel counts are read from the shapes."""
+    arguments (down/upsample parameters, dtype, sub-pixel, remat, fused
+    residual, device, ...); codebook size, embedding width and channel
+    counts are read from the shapes.  Weights stay f32, as flax keeps
+    them; the model computes in ``dtype``."""
     state = vq["level_0"]
     get = (lambda k: getattr(state, k)) if hasattr(state, "codebook") else state.__getitem__
     n_embed, embed_dim = np.asarray(get("codebook")).shape
     n_channels = np.asarray(params["decoder_in_conv"]["kernel"]).shape[-1]
     n_res_channels = np.asarray(params["decoder_res_0_0"]["TorchConv3d_0"]["kernel"]).shape[-1]
     dtype = config.pop("dtype", torch.bfloat16)
-    device = config.pop("device", None)
+    config.setdefault("device", "cuda")
     model = BaselineVQVAE(
         n_levels=n_levels, n_embed=n_embed, embed_dim=embed_dim,
         n_channels=n_channels, n_res_channels=n_res_channels,
@@ -125,11 +141,47 @@ def vqvae_from_jax(
             res(f"encoder_res.{i}.{j}", params[f"encoder_res_{i}_{j}"])
         for j in range(n_res_layers):
             res(f"decoder_res.{i}.{j}", params[f"decoder_res_{i}_{j}"])
-        conv(f"decoder_ups.{i}", params[f"decoder_up_{i}"], transposed=True)
+        if i == n_levels - 1 and model.use_subpixel_conv:
+            conv(f"decoder_ups.{i}", params["decoder_subpixel"])
+        else:
+            conv(f"decoder_ups.{i}", params[f"decoder_up_{i}"], transposed=True)
     conv("encoder_out_conv", params["encoder_out_conv"])
     conv("decoder_in_conv", params["decoder_in_conv"])
     for k in ("codebook", "cluster_size", "embed_avg"):
         sd[f"vq.{k}"] = _t(get(k))
-    # conv weights land in the compute dtype, the codebook stays f32
     model.load_state_dict(sd, strict=True)
-    return model if device is None else model.to(device)
+    return model
+
+
+def discriminator_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                           **config) -> BaselineDiscriminator:
+    """Flax ``BaselineDiscriminator`` variables (``params``,
+    ``batch_stats``) → loaded port ``BaselineDiscriminator``.  ``config``
+    holds ``dtype``, ``use_split_bn`` and ``device``; channel counts and
+    depth are read from the tree."""
+    k0 = np.asarray(params["conv_0"]["kernel"])
+    n_layers = sum(1 for k in params if k.startswith("norm_"))
+    config.setdefault("device", "cuda")
+    model = BaselineDiscriminator(input_nc=k0.shape[3], ndf=k0.shape[4], n_layers=n_layers,
+                                  **config)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ["conv_0", *(f"conv_{n}" for n in range(1, n_layers + 1)), "conv_out"]:
+        sd[f"{name}.weight"] = _t(_conv_w_inv(params[name]["kernel"]))
+        if "bias" in params[name]:
+            sd[f"{name}.bias"] = _t(params[name]["bias"])
+    for n in range(1, n_layers + 1):
+        for k in ("scale", "bias"):
+            sd[f"norm_{n}.{k}"] = _t(params[f"norm_{n}"][k])
+        for k in ("mean", "var"):
+            sd[f"norm_{n}.{k}"] = _t(batch_stats[f"norm_{n}"][k])
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def lpips_from_jax(params, device="cuda") -> Dict[str, Any]:
+    """A JAX ``LPIPSParams`` (or its dict form) → the port's LPIPS tree."""
+    if isinstance(params, dict):
+        net, lin, kind = params["net"], params["lin"], params.get("kind", "alex")
+    else:
+        net, lin, kind = params.net, params.lin, params.kind
+    return lpips_params_from_numpy({"net": net, "lin": lin}, kind, device)

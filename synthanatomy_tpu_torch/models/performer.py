@@ -264,7 +264,7 @@ class Performer(nn.Module):
         reversible: bool = False,
         remat_attention: bool = False,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         waiting = {"rotary_position_emb": rotary_position_emb,

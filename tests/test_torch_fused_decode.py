@@ -44,7 +44,7 @@ def _models(rezero: bool):
             params[f"block_{i}"] = blk
     variables = {"params": params, "favor": jax.device_get(variables["favor"])}
     tm = performer_from_jax(
-        params, variables["favor"], DEPTH, heads=HEADS, dim_head=DH,
+        params, variables["favor"], DEPTH, device="cpu", heads=HEADS, dim_head=DH,
         local_attn_heads=LH, local_window_size=WIN, nb_features=M,
         use_rezero=rezero,
     )

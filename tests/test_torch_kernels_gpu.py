@@ -15,6 +15,8 @@ from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.ops import favor_attention as tfa
 from synthanatomy_tpu_torch.ops import fused_decode as tfd
 from synthanatomy_tpu_torch.ops import local_attention_flash as tlf
+from synthanatomy_tpu_torch.ops import res_stack as trs
+from synthanatomy_tpu_torch.ops import vq as tvq
 from synthanatomy_tpu_torch.ops.favor import gaussian_orthogonal_random_matrix
 
 B, DIM, HEADS, DH, LH, WIN, M, DEPTH, VOCAB = 2, 128, 2, 64, 1, 12, 128, 2, 33
@@ -24,6 +26,9 @@ B, DIM, HEADS, DH, LH, WIN, M, DEPTH, VOCAB = 2, 128, 2, 64, 1, 12, 128, 2, 33
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' f32 convolutions in full f32 (cuDNN defaults to TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -204,3 +209,115 @@ def test_attention_kernels_reject_bad_inputs(cuda):
         tlf.local_attention_flash_core(q, q.cpu(), q, 4)
     with pytest.raises(ValueError):  # the score band does not fit shared memory
         tlf.local_attention_flash_core(q, q, q, 4000)
+
+
+VQ_SHAPES = [(37, 130, 5), (1000, 300, 64), (4099, 2047, 32), (4200, 2048, 32)]  # (N, K, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", VQ_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_vq_kernels_match_plain(cuda, shape):
+    """Indices equal the plain argmin except on near-ties (distances within
+    1e-5 of their scale, in f64); counts exact; sums of x within f32
+    summation error; two runs bit-identical."""
+    n, k, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    w = torch.randn(k, d, generator=gen, device=cuda)
+    before = tvq.nearest_codeword.launches
+    idx = tvq.nearest_codeword(x, w)
+    assert tvq.nearest_codeword.launches == before + 1 and idx.dtype == torch.int32
+    ref = tvq.nearest_codeword_plain(x, w)
+    rows = torch.nonzero(idx != ref).flatten()
+    if rows.numel():
+        dist = (w.double() ** 2).sum(1)[None] - 2 * x[rows].double() @ w.double().t()
+        gap = (dist.gather(1, idx[rows].long()[:, None])
+               - dist.gather(1, ref[rows].long()[:, None])).abs().max()
+        assert float(gap) <= 1e-5 * float(dist.abs().max())
+    sidx, counts, dw = tvq.nearest_codeword_stats(x, w)
+    assert torch.equal(sidx, idx)
+    assert torch.equal(counts, torch.bincount(idx.long(), minlength=k).float())
+    onehot = torch.nn.functional.one_hot(idx.long(), k).float()
+    _assert_kernel_close(f"vq {shape} sum x", dw, onehot.t() @ x, torch.float32)
+    again = tvq.nearest_codeword_stats(x, w)
+    assert all(torch.equal(a, b_) for a, b_ in zip((sidx, counts, dw), again))
+
+
+RES_SHAPES = [  # (B, C, D, H, W, R, dtype)
+    (1, 3, 5, 6, 7, 4, torch.float32),
+    (2, 8, 9, 10, 11, 12, torch.bfloat16),
+    (1, 24, 7, 9, 70, 40, torch.bfloat16),
+    (1, 16, 6, 7, 33, 32, torch.float32),
+    (1, 128, 80, 112, 80, 128, torch.bfloat16),  # the paper shape
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RES_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_residual_kernels_match_plain(cuda, shape):
+    """The forward on the same inputs; the backward on the same saved x,
+    h, y and gy; two backward runs bit-identical."""
+    *xs, r, dtype = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(xs) + r)
+    c = xs[1]
+    x = torch.randn(*xs, generator=gen, device=cuda).to(dtype)
+    w1 = (torch.randn(r, c, 3, 3, 3, generator=gen, device=cuda) * (27 * c) ** -0.5).to(dtype)
+    b1 = (torch.randn(r, generator=gen, device=cuda) * 0.1).to(dtype)
+    w2 = (torch.randn(c, r, 1, 1, 1, generator=gen, device=cuda) * r ** -0.5).to(dtype)
+    b2 = (torch.randn(c, generator=gen, device=cuda) * 0.1).to(dtype)
+    gy = torch.randn(*xs, generator=gen, device=cuda).to(dtype)
+    before = trs.fused_residual_layer.launches
+    yk, hk = trs._kernel_fwd(x, w1, b1, w2, b2, True)
+    assert trs.fused_residual_layer.launches == before + 1
+    yp, hp = trs.residual_layer_plain(x, w1, b1, w2, b2)
+    _assert_kernel_close(f"res {shape} y", yk, yp, dtype)
+    _assert_kernel_close(f"res {shape} h", hk, hp, dtype)
+    got = trs._kernel_bwd(x, hp, yp, gy, w1, w2)
+    want = trs.residual_layer_bwd_plain(x, hp, yp, gy, w1, w2)
+    for name, a, b_ in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        _assert_kernel_close(f"res {shape} {name}", a, b_, dtype)
+    again = trs._kernel_bwd(x, hp, yp, gy, w1, w2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+@pytest.mark.gpu
+def test_autograd_through_residual_kernel(cuda):
+    """fused_residual_layer on the card: autograd reaches the backward
+    kernel and agrees with the plain route."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args = [torch.randn(2, 6, 5, 7, 9, generator=gen, device=cuda),
+            torch.randn(5, 6, 3, 3, 3, generator=gen, device=cuda) * 0.1,
+            torch.randn(5, generator=gen, device=cuda) * 0.1,
+            torch.randn(6, 5, 1, 1, 1, generator=gen, device=cuda) * 0.3,
+            torch.randn(6, generator=gen, device=cuda) * 0.1]
+    outs = []
+    for fn in (trs.fused_residual_layer, trs.fused_residual_layer_plain):
+        leaves = [a.clone().requires_grad_() for a in args]
+        y = fn(*leaves)
+        outs.append([y] + list(torch.autograd.grad(y.square().sum(), leaves)))
+    for a, b_ in zip(*outs):
+        _assert_kernel_close("res autograd", a, b_, torch.float32)
+
+
+@pytest.mark.gpu
+def test_stage1_kernels_reject_bad_inputs(cuda):
+    x = torch.zeros(8, 4, device=cuda)
+    with pytest.raises(ValueError):
+        tvq.nearest_codeword(x, torch.zeros(16, 5, device=cuda))
+    with pytest.raises(TypeError):
+        tvq.nearest_codeword(x, torch.zeros(16, 4, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):  # rows wider than the kernel takes
+        tvq.nearest_codeword(torch.zeros(8, 300, device=cuda), torch.zeros(4, 300, device=cuda))
+    v = torch.zeros(1, 4, 3, 3, 3, device=cuda)
+    w1, b1 = torch.zeros(5, 4, 3, 3, 3, device=cuda), torch.zeros(5, device=cuda)
+    w2, b2 = torch.zeros(4, 5, 1, 1, 1, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(TypeError):
+        trs.fused_residual_layer(v.half(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        trs.fused_residual_layer(v, w1[:, :3], b1, w2, b2)
+    with pytest.raises(ValueError):
+        trs.fused_residual_layer(v, w1, b1, w2.cpu(), b2)
+    with pytest.raises(ValueError):  # R above the kernel's shared-memory h tile
+        trs.fused_residual_layer(v, torch.zeros(600, 4, 3, 3, 3, device=cuda),
+                                 torch.zeros(600, device=cuda),
+                                 torch.zeros(4, 600, 1, 1, 1, device=cuda), b2)

@@ -46,10 +46,10 @@ def test_make_synthesizer_matches_jax():
                                  decode_batch=1)
     j_vols, j_grids = j_synth(pvars, vvars, jax.random.key(3))
 
-    tp = performer_from_jax(pvars["params"], pvars["favor"], 2, **perf_kw)
+    tp = performer_from_jax(pvars["params"], pvars["favor"], 2, device="cpu", **perf_kw)
     tv = vqvae_from_jax(vvars["params"], vvars["vq"], 2, 1,
                         downsample_parameters=DOWN, upsample_parameters=UP,
-                        dtype=torch.float32)
+                        dtype=torch.float32, device="cpu")
     synth = make_synthesizer(tp, tv, ordering, batch=B, do_sample=False, decode_batch=1)
     vols, grids = synth()
     # both default to int8 weights and int8 rings: greedy grids agree exactly

@@ -94,7 +94,7 @@ def _models(rezero, cond, dtype, **extra):
             blk["g_attn"] = np.asarray([0.7], np.float32)
             blk["g_ff"] = np.asarray([0.5], np.float32)
             params[f"block_{i}"] = blk
-    tm = performer_from_jax(params, favor, DEPTH, dtype=td, attn_compute_dtype=td,
+    tm = performer_from_jax(params, favor, DEPTH, device="cpu", dtype=td, attn_compute_dtype=td,
                             use_pallas_local=True, use_pallas_favor=True, **kw)
     return jm, params, favor, tm, kw
 
@@ -137,7 +137,7 @@ def test_forward_matches_jax(rezero, cond, dtype, extra):
 def _by_name(tree, favor, kw):
     """A JAX parameter-shaped tree as the port's {name: numpy} (through
     the same transposes as the weights)."""
-    m = performer_from_jax(tree, favor, DEPTH, **kw)
+    m = performer_from_jax(tree, favor, DEPTH, device="cpu", **kw)
     return {k: v.detach().numpy() for k, v in m.named_parameters()}
 
 
@@ -217,7 +217,7 @@ def test_redraw_and_eval_step():
     the state's generator (so a seed repeats it); the eval step returns
     the forward's logits and loss, without dropout."""
     kw = _config(True, None)
-    model = Performer(VOCAB, L + 1, 64, DEPTH, emb_dropout=0.5, dtype=torch.float32,
+    model = Performer(VOCAB, L + 1, 64, DEPTH, emb_dropout=0.5, device="cpu", dtype=torch.float32,
                       generator=torch.Generator().manual_seed(0), **kw)
     old = [b.attn.projection.clone() for b in model.blocks]
     redraw_projections(model, torch.Generator().manual_seed(7))

@@ -30,7 +30,7 @@ def vqvaes():
     variables = jax.device_get(jax.jit(jm.init)(jax.random.key(2), jnp.zeros((1, 4, 4, 4, 1))))
     tm = vqvae_from_jax(variables["params"], variables["vq"], 2, 2,
                         downsample_parameters=DOWN, upsample_parameters=UP,
-                        dtype=torch.float32)
+                        dtype=torch.float32, device="cpu")
     return jm, variables, tm
 
 
@@ -63,8 +63,10 @@ def test_module_names_follow_jax_tree(vqvaes):
 def test_bf16_decode_close_and_encode_not_ported(vqvaes):
     jm, variables, tm32 = vqvaes
     tm = vqvae_from_jax(variables["params"], variables["vq"], 2, 2,
-                        downsample_parameters=DOWN, upsample_parameters=UP)
-    assert tm.decoder_in_conv.weight.dtype == torch.bfloat16
+                        downsample_parameters=DOWN, upsample_parameters=UP, device="cpu")
+    # f32 weights, as flax keeps them; the convolutions run in bf16
+    assert tm.decoder_in_conv.weight.dtype == torch.float32
+    assert tm.decoder_in_conv.compute_dtype == torch.bfloat16
     assert tm.vq.codebook.dtype == torch.float32  # VQ stays an f32 island
     idx = torch.randint(0, 32, (1, 3, 4, 3), generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -72,8 +74,9 @@ def test_bf16_decode_close_and_encode_not_ported(vqvaes):
         hi = tm32.decode_samples([idx])
     # bf16 convolutions: a few bf16 ulps of the output scale
     assert torch.linalg.norm(lo - hi) <= 0.05 * torch.linalg.norm(hi)
-    with pytest.raises(NotImplementedError):
-        tm.encode(torch.zeros(1, 1, 16, 16, 16))
+    # encode is ported: bf16 latents of the expected shape
+    z = tm.encode(torch.zeros(1, 1, 16, 16, 16))[0]
+    assert z.shape == (1, 8, 4, 4, 4) and z.dtype == torch.bfloat16
 
 
 def test_seeded_init_is_reproducible():
@@ -81,7 +84,7 @@ def test_seeded_init_is_reproducible():
         return BaselineVQVAE(n_levels=2, downsample_parameters=DOWN,
                              upsample_parameters=UP, n_embed=8, embed_dim=4,
                              n_channels=8, n_res_channels=8, n_res_layers=1,
-                             dtype=torch.float32,
+                             dtype=torch.float32, device="cpu",
                              generator=torch.Generator().manual_seed(3))
     a, b = make().state_dict(), make().state_dict()
     for k in a:
