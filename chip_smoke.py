@@ -73,7 +73,25 @@ result, without them.  Phases, each fatal on failure:
    train step, kernels vs plain (ms, volumes/s, peak memory); each new
    kernel vs its plain version and its yardstick (addmm + argmin; cuDNN
    conv3d -> relu -> conv3d -> add -> relu); a torch.profiler breakdown of
-   one kernel step.
+   one kernel step;
+12. the splash local-attention kernels (forward, dq, dk/dv, fused
+   backward) against their plain version on the same seeded, zero-padded
+   inputs: at the paper shape (B6 x 8 heads x L 1401 x d 64, w 420) in
+   bf16 and f32, blocks 256 and 128, fused and unfused backward, and at
+   awkward shapes (L 130 with w 17; L 300 with w 37; L < w; w 1; w a
+   multiple of the kernel's 64-row tile): o, lse, dq, dk and dv, two
+   backward runs bit-identical, and the tiles every kernel visited
+   against the tile map;
+13. the port's prior-training bench at paper form
+   (``tools/bench_transformer.main`` with --splash-local --pallas-favor
+   --use-rezero --spatial-emb absolute --attn-dtype bfloat16, B6, depth
+   24, remat on): finite losses and exactly 24 x (2 forward + 2 backward)
+   splash launches per step; one step through splash against the same
+   step through the banded kernel (row 6) from the same weights (ReZero
+   gains 0.1); a short run at --attn-dtype float32; then the step with
+   splash against the step with row 6 (ms, tok/s), splash fwd+bwd per
+   layer against its plain version, row 6 and SDPA with the banded mask,
+   and a torch.profiler breakdown of one splash bench step.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -106,6 +124,12 @@ VOLUME = (160, 224, 160)
 # at the last level) x (forward + remat recompute), 6 backward, 1 argmin
 RES_FWD_PER_STEP, RES_BWD_PER_STEP, ARGMIN_PER_STEP = 12, 6, 1
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM dense peaks (FLOP/s, B/s)
+# the bench's paper form through splash, and the same through row 6
+BENCH_SPLASH = ["--splash-local", "--pallas-favor", "--use-rezero", "--spatial-emb", "absolute",
+                "--attn-dtype", "bfloat16"]
+BENCH_BANDED = ["--pallas-local"] + BENCH_SPLASH[1:]
+BENCH_STEPS = ["--steps", "4", "--warmup", "1"]  # + the first step: 6 steps a run
+SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two backward launches
 
 
 def _require(cond, msg):
@@ -903,6 +927,233 @@ def _time_stage1_kernels(dev, smi):
     return out
 
 
+def _check_splash(dev):
+    """Phase 12; returns the max abs error at the main path's form (bf16,
+    block 256, unfused)."""
+    import torch
+    import torch.nn.functional as F
+    from synthanatomy_tpu_torch.ops import local_attention_splash as ls
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [("paper", (6, 8, 1401, 64), 420, block, dtype, fused)
+              for dtype in (bf16, f32) for block in (256, 128) for fused in (False, True)]
+    shapes += [(label, shape, w, 128, dtype, fused) for fused in (False, True)
+               for label, shape, w, dtype in (
+                   ("L 130, w 17", (1, 2, 130, 64), 17, f32),
+                   ("L 300, w 37", (2, 2, 300, 64), 37, bf16),
+                   ("L < w", (1, 2, 50, 64), 100, bf16),
+                   ("w 1", (1, 3, 200, 64), 1, f32),
+                   ("w = 2 tiles", (1, 2, 300, 64), 128, bf16))]
+    err_main = None
+    for label, shape, w, block, dtype, fused in shapes:
+        b, h, n, d = shape
+        n_pad = -(-n // block) * block
+        q, k, v, g = _attention_inputs((b, h, n, d), dtype, n + w, dev)
+        q = (q.float() * d ** -0.5).to(dtype)
+        q, k, v = (F.pad(x, (0, 0, 0, n_pad - n)) for x in (q, k, v))
+        g = F.pad(g, (0, 0, 0, n_pad - n))
+        got = _fwd_bwd(lambda *x: ls.splash_attention_core(*x, w, block, block, fused), q, k, v, g)
+        want = _fwd_bwd(lambda *x: ls.splash_attention_plain(*x, w, block, block, fused),
+                        q, k, v, g)
+        torch.cuda.synchronize()
+        if dtype == f32:  # same rounding points, f32 sums in other orders
+            err = max(_compare_f32(f"splash {label} {nm}", a, b_)
+                      for nm, a, b_ in zip(("out", "dq", "dk", "dv"), got, want))
+        else:
+            err = max(_compare_grad(f"splash {label} {nm}", a, b_)
+                      for nm, a, b_ in zip(("out", "dq", "dk", "dv"), got, want))
+        again = _fwd_bwd(lambda *x: ls.splash_attention_core(*x, w, block, block, fused),
+                         q, k, v, g)
+        _require(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                 f"splash {label}: two runs differ")
+        nt = n_pad // ls.KERNEL_TILE
+        nnz = ls._device_map(n_pad, w, q.device)[2]
+        fv = torch.zeros(b * h, nt, dtype=torch.int32, device=dev)
+        bv = torch.zeros(2, b * h, nt, dtype=torch.int32, device=dev)
+        o, lse = ls._kernel_fwd(q, k, v, w, visits=fv)
+        ls._kernel_bwd(q, k, v, o, lse, g.to(dtype), w, fused, visits=bv)
+        _, lse_plain = ls.splash_fwd_plain(q, k, v, w, block, block)
+        torch.cuda.synchronize()
+        lse_err = float((lse - lse_plain).abs().max())
+        _require(lse_err <= 1e-4 * max(1.0, float(lse_plain.abs().max())),
+                 f"splash {label} lse: max abs err {lse_err}")
+        visits = [int(fv.sum()), int(bv[0].sum()), int(bv[1].sum())]
+        want_visits = [nnz * b * h, nnz * b * h, 0 if fused else nnz * b * h]
+        _require(visits == want_visits, f"splash {label}: tiles visited {visits}, tile map "
+                                        f"{want_visits}")
+        if label == "paper" and dtype == bf16 and block == 256 and not fused:
+            err_main = err
+        print(f"[check] splash == plain ({label}: {shape} padded to {n_pad}, w {w}, block "
+              f"{block}, {str(dtype)[6:]}, {'fused' if fused else 'unfused'} bwd): o/dq/dk/dv "
+              f"max abs err {err:.3e} ({'1e-4 of max |plain| and in norm' if dtype == f32 else '2e-2 of max |plain|, 1e-2 in norm'}), "
+              f"lse {lse_err:.2e}; two runs bit-identical; tiles visited fwd/dkv/dq "
+              f"{visits[0]}/{visits[1]}/{visits[2]} = map {nnz} of {nt * nt} pairs x {b * h} "
+              f"heads")
+    return err_main
+
+
+def _compare_f32(name, a, b):
+    """f32 kernel vs plain: the same operations summed in other orders,
+    ~1e-6 relative; bound 1e-4 of the largest magnitude and in norm."""
+    import torch
+
+    a, b = a.float(), b.float()
+    err = float((a - b).abs().max())
+    _require(err <= 1e-4 * float(b.abs().max()) and float(torch.linalg.norm(a - b))
+             <= 1e-4 * float(torch.linalg.norm(b)),
+             f"kernel disagrees with plain on {name}: max abs err {err}")
+    return err
+
+
+def _check_bench(dev, smi):
+    """Phase 13.  Returns the records the kernels' JSON line needs."""
+    import numpy as np
+    import torch
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.ops import local_attention_splash as ls
+    from synthanatomy_tpu_torch.tools import bench_transformer as bench
+    from synthanatomy_tpu_torch.train.transformer_steps import (
+        create_transformer_train_state,
+        make_transformer_train_step,
+    )
+
+    rec = {}
+    # 13a. the main path: the bench entry point at paper form
+    ls.local_attention_splash.launches = 0
+    run_s1 = bench.main(BENCH_SPLASH + BENCH_STEPS)
+    torch.cuda.synchronize()
+    rec["launches"] = ls.local_attention_splash.launches
+    n_steps = len(run_s1["losses"])
+    _require(rec["launches"] == n_steps * SPLASH_PER_STEP,
+             f"bench: {rec['launches']} splash launches in {n_steps} steps, want "
+             f"{n_steps * SPLASH_PER_STEP}")
+    _require(all(np.isfinite(run_s1["losses"])), f"bench losses {run_s1['losses']}")
+    print(f"[bench] paper form through splash (bf16, remat, B{TRAIN_BATCH}): {n_steps} steps, "
+          f"losses {[round(x, 4) for x in run_s1['losses']]}, "
+          f"{rec['launches'] // n_steps} splash launches per step (24 layers x (2 fwd + 2 bwd))")
+
+    # 13b. one step through splash against the same step through row 6
+    args = bench.parse_args(BENCH_SPLASH)
+    model = bench.build_model(args, dev)
+    with torch.no_grad():
+        for blk in model.blocks:  # non-zero gains, so attention reaches the loss
+            blk.g_attn.fill_(0.1)
+            blk.g_ff.fill_(0.1)
+    inputs, targets = bench.batch(args, dev)
+    step = make_transformer_train_step(model)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def one_step():
+        model.load_state_dict(init)
+        state = create_transformer_train_state(model, seed=0)
+        _, m = step(state, inputs, targets, None, {"lr": 1e-4})
+        return float(m["Loss"]), _grads(model)
+
+    with bench.local_route(args):
+        loss_s, g_s = one_step()
+    loss_b, g_b = one_step()
+    model.load_state_dict(init)
+    g_rel = _rel(g_s, g_b)
+    gw, gwr = _worst(g_s, g_b)
+    _require(abs(loss_s - loss_b) <= 2e-3 * abs(loss_b),
+             f"splash step loss {loss_s} vs banded {loss_b}")
+    _require(g_rel <= 5e-2, f"splash step gradients vs banded: norm-relative {g_rel}")
+    print(f"[check] bench step (bf16, gains 0.1), splash vs row 6 from the same weights: loss "
+          f"{loss_s:.6f} vs {loss_b:.6f} (tol 2e-3 relative: p is rounded before P·V in row 6 "
+          f"and not in splash), gradient norm-relative {g_rel:.3e} (tol 5e-2; largest per "
+          f"tensor {gwr:.3e} at {gw})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with bench.local_route(args):
+        state = create_transformer_train_state(model, seed=0)
+        step(state, inputs, targets, None, {"lr": 1e-4})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, inputs, targets, None, {"lr": 1e-4})
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(evt, "self_device_time_total", None)
+            dt = evt.self_cuda_time_total if dt is None else dt
+            rows[evt.key] = rows.get(evt.key, 0.0) + dt / 1e3
+    busy = sum(rows.values())
+    print(f"[profile] one splash bench step (bf16, remat): wall {wall * 1e3:.1f} ms, device time "
+          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy)  [{smi}]")
+    for key, ms in sorted(rows.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+    del model, state, step, init, g_s, g_b, prof
+    torch.cuda.empty_cache()
+
+    # 13c. a short run with f32 attention
+    ls.local_attention_splash.launches = 0
+    run32 = bench.main(BENCH_SPLASH[:-1] + ["float32", "--steps", "1", "--warmup", "0"])
+    torch.cuda.synchronize()
+    _require(all(np.isfinite(run32["losses"])) and ls.local_attention_splash.launches
+             == len(run32["losses"]) * SPLASH_PER_STEP,
+             f"f32 bench: losses {run32['losses']}, {ls.local_attention_splash.launches} launches")
+    print(f"[bench] paper form through splash, f32 attention: losses {run32['losses']}, "
+          f"{ls.local_attention_splash.launches} splash launches in {len(run32['losses'])} steps")
+
+    # 13d. timings: the bench step, splash and row 6 in turns
+    lf.local_attention_flash.launches = 0
+    run_b1 = bench.main(BENCH_BANDED + BENCH_STEPS)
+    run_b2 = bench.main(BENCH_BANDED + BENCH_STEPS)
+    _require(lf.local_attention_flash.launches > 0, "the row-6 bench did not reach row 6")
+    run_s2 = bench.main(BENCH_SPLASH + BENCH_STEPS)
+    step_s = (run_s1["ms_per_step"] + run_s2["ms_per_step"]) / 2
+    step_b = (run_b1["ms_per_step"] + run_b2["ms_per_step"]) / 2
+    tokens = TRAIN_BATCH * (SEQ + 1)
+    rec["step"] = (step_s, step_b)
+    print(f"[time] bench step B{TRAIN_BATCH} x {SEQ + 1} (bf16, remat, FAVOR through row 5): "
+          f"splash {step_s:.1f} ms ({run_s1['ms_per_step']:.1f}, {run_s2['ms_per_step']:.1f}), "
+          f"{tokens / (step_s / 1e3):.0f} tok/s; row 6 {step_b:.1f} ms "
+          f"({run_b1['ms_per_step']:.1f}, {run_b2['ms_per_step']:.1f}), "
+          f"{tokens / (step_b / 1e3):.0f} tok/s  [{smi}]")
+
+    # 13e. one layer's local attention, fwd+bwd, at the paper shape
+    import torch.nn.functional as F
+
+    n, n_pad, w = SEQ + 1, 1536, 420
+    q, k, v, g = _attention_inputs((TRAIN_BATCH, 8, n, 64), torch.bfloat16, 6, dev)
+    g = g.to(torch.bfloat16)
+    qs = (q.float() * 0.125).to(torch.bfloat16)
+    qp, kp, vp, gp = (F.pad(x, (0, 0, 0, n_pad - n)) for x in (qs, k, v, g))
+    i_, j_ = torch.arange(n, device=dev)[:, None], torch.arange(n, device=dev)[None, :]
+    band = (j_ <= i_) & (j_ > i_ - w)
+
+    def splash():
+        return _fwd_bwd(lambda *x: ls.splash_attention_core(*x, w), qp, kp, vp, gp)
+
+    def plain():
+        return _fwd_bwd(lambda *x: ls.splash_attention_plain(*x, w), qp, kp, vp, gp)
+
+    def banded():
+        return _fwd_bwd(lambda *x: lf.local_attention_flash_core(*x, w), q, k, v, g)
+
+    def sdpa():
+        leaves = [t.detach().clone().requires_grad_() for t in (qs, k, v)]
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=band, scale=1.0)
+        return torch.autograd.grad(o, leaves, g)
+
+    p1, k1, b1, y1 = _time_ms(plain, 3), _time_ms(splash, 10), _time_ms(banded, 5), _time_ms(sdpa, 10)
+    y2, b2, k2, p2 = _time_ms(sdpa, 10), _time_ms(banded, 5), _time_ms(splash, 10), _time_ms(plain, 3)
+    pairs = sum(min(i + 1, w) for i in range(n))
+    io = _nbytes(qs, k, v, g) * 2 + TRAIN_BATCH * 8 * n * 4  # + lse
+    rec["bound"] = _bound(14 * TRAIN_BATCH * 8 * pairs * 64, io, PEAK_BF16)
+    rec["ms"], rec["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+    rec["banded_ms"], rec["sdpa_ms"] = (b1 + b2) / 2, (y1 + y2) / 2
+    print(f"[time] local attention fwd+bwd, one layer (B{TRAIN_BATCH} x 8 heads x L{n} x d64, "
+          f"w {w}, bf16): splash {rec['ms']:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+          f"{rec['plain_ms']:.3f} ({p1:.3f}, {p2:.3f}), row 6 {rec['banded_ms']:.3f} ({b1:.3f}, "
+          f"{b2:.3f}), SDPA banded mask {rec['sdpa_ms']:.3f} ({y1:.3f}, {y2:.3f}); bound "
+          f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})  [{smi}]")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1226,6 +1477,10 @@ def main() -> int:
     # 10-11. the paper stage 1, then the kernels' timings
     s1 = _check_stage1(dev, smi)
     t1 = _time_stage1_kernels(dev, smi)
+    torch.cuda.empty_cache()
+    # 12-13. the splash kernels, then the bench entry point through them
+    serr = _check_splash(dev)
+    sb = _check_bench(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"synthanatomy_tpu_torch/csrc/{source}",
@@ -1252,6 +1507,9 @@ def main() -> int:
         entry("fused_residual_layer_bwd", "res_stack.cu", "res_stack_pallas.py:271",
               s1["launches"]["bwd"], rerr["bwd"], t1["res_bwd"]["ms"], t1["res_bwd"]["plain_ms"],
               (t1["res_bwd"]["bound_ms"], t1["res_bwd"]["bound_by"])),
+        entry("local_attention_splash", "local_attention_splash.cu",
+              "local_attention_splash.py:91", sb["launches"], serr, sb["ms"], sb["plain_ms"],
+              sb["bound"], sb["sdpa_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,12 @@ step in ``csrc/fused_decode.cu``) and VQ-VAE ``decode_samples`` — and
 the prior's training path: ``Performer.forward``, ``losses/transformer``
 and ``train/transformer_steps``, with the FAVOR+ and local-attention
 kernels (forward and backward) in ``csrc/favor_attention.cu`` and
-``csrc/local_attention.cu``.
+``csrc/local_attention.cu``, and every forward option of the Performer;
+stage 1 (VQ-VAE training and latent extraction, ``csrc/vq_argmin.cu``
+and ``csrc/res_stack.cu``); and the prior-training bench
+(``tools/bench_transformer.py``), whose ``--splash-local`` runs the
+local heads through the block-sparse kernels of
+``csrc/local_attention_splash.cu``.
 """
 
 __version__ = "0.1.0"

@@ -59,22 +59,35 @@ def performer_from_jax(
     """Flax ``Performer`` variables → loaded port ``Performer``.
 
     ``config`` holds the port constructor's remaining arguments (heads,
-    dim_head, local heads and window, ReZero, spatial tables, ordering,
-    conditioning); vocabulary, width and sequence length are read from
-    the embedding shapes."""
+    dim_head, local heads and window, ReZero, ScaleNorm, GLU, position
+    and spatial embeddings, ordering, conditioning); vocabulary and width
+    are read from the embedding shapes, and the sequence length from the
+    learned positional table or, where the model has none (fixed, axial
+    and rotary embeddings), from ``config["max_seq_len"]``."""
     num_tokens, dim = np.asarray(params["token_emb"]["embedding"]).shape
-    max_seq_len = np.asarray(params["abs_pos_emb"]["embedding"]).shape[0]
-    if config.get("conditioning_type") == "prepending":
-        max_seq_len -= len(config["conditioning_num_tokens"])
+    if "abs_pos_emb" in params:
+        max_seq_len = np.asarray(params["abs_pos_emb"]["embedding"]).shape[0]
+        if config.get("conditioning_type") == "prepending":
+            max_seq_len -= len(config["conditioning_num_tokens"])
+        config.pop("max_seq_len", None)
+    else:
+        max_seq_len = config.pop("max_seq_len")
+    if "axial_emb_0" in params:
+        config.setdefault("axial_position_shape", (np.asarray(params["axial_emb_0"]).shape[0],
+                                                   np.asarray(params["axial_emb_1"]).shape[1]))
     config.setdefault("device", "cuda")
     model = Performer(num_tokens, max_seq_len, dim, depth, **config)
 
     sd = {
         "token_emb.weight": _t(params["token_emb"]["embedding"]),
-        "abs_pos_emb.weight": _t(params["abs_pos_emb"]["embedding"]),
         "final_norm.weight": _t(params["final_norm"]["scale"]),
         "final_norm.bias": _t(params["final_norm"]["bias"]),
     }
+    if "abs_pos_emb" in params:
+        sd["abs_pos_emb.weight"] = _t(params["abs_pos_emb"]["embedding"])
+    for key in ("axial_emb_0", "axial_emb_1"):
+        if key in params:
+            sd[key] = _t(params[key])
     for key in params:
         m = re.match(r"(spatial|conditioning)_emb_(\d+)$", key)
         if m:
@@ -93,8 +106,11 @@ def performer_from_jax(
             sd[f"{p}.g_ff"] = _t(blk["g_ff"]).reshape(1)
         else:
             for norm in ("norm_attn", "norm_ff"):
-                sd[f"{p}.{norm}.weight"] = _t(blk[norm]["scale"])
-                sd[f"{p}.{norm}.bias"] = _t(blk[norm]["bias"])
+                if "g" in blk[norm]:  # ScaleNorm
+                    sd[f"{p}.{norm}.g"] = _t(blk[norm]["g"]).reshape(1)
+                else:
+                    sd[f"{p}.{norm}.weight"] = _t(blk[norm]["scale"])
+                    sd[f"{p}.{norm}.bias"] = _t(blk[norm]["bias"])
         if f"block_{i}" in favor:
             sd[f"{p}.attn.projection"] = _t(favor[f"block_{i}"]["attn"]["projection"])
     model.load_state_dict(sd, strict=True)

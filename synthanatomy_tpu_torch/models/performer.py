@@ -10,6 +10,14 @@ tree (``blocks.{i}.attn.to_q``, ``token_emb``, ``abs_pos_emb``,
 ``spatial_embs.{i}``, ``final_norm``, ``to_out``) so
 ``interop.performer_from_jax`` loads strictly.
 
+Forward options, each as in JAX: fixed sinusoidal, axial or rotary
+sequence embeddings (rotary adds per-layer rotary on q/k before the
+FAVOR/local split; the local heads keep their own), ``fixed`` spatial
+tables, ScaleNorm, the GLU feed-forward, and ``remat_attention`` /
+``reversible`` as ``torch.utils.checkpoint`` (non-reentrant) around the
+attention sub-block / the whole block, with the dropout generators'
+state restored for the recompute (``_remat``).
+
 Precision follows flax under ``dtype``: parameters are held in f32;
 each dense layer casts its input and weights to ``dtype`` (f32
 accumulation, output in ``dtype``); embedding lookups are in ``dtype``;
@@ -21,20 +29,20 @@ take ``attn_compute_dtype`` operands.  With ``use_pallas_favor`` /
 kernels (``ops/favor_attention.py``, ``ops/local_attention_flash.py``)
 for CUDA tensors and their plain versions for CPU tensors.
 
-Not ported yet (ROADMAP §1, module 1): rotary, fixed and axial position
-embeddings, ScaleNorm, GLU, ``reversible`` and ``remat_attention``
-(they raise), and the exact ``decode_step`` path (sampling runs the
-fused decode step, ``models/sampling.py``).
+Not ported yet (ROADMAP §1): the exact ``decode_step`` path (sampling
+runs the fused decode step, ``models/sampling.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from synthanatomy_tpu_torch.models.ordering import Ordering
 from synthanatomy_tpu_torch.ops.favor import (
@@ -42,12 +50,14 @@ from synthanatomy_tpu_torch.ops.favor import (
     favor_attention,
     gaussian_orthogonal_random_matrix,
 )
-from synthanatomy_tpu_torch.ops.local_attention import local_attention
+from synthanatomy_tpu_torch.ops.local_attention import (
+    apply_rotary,
+    local_attention,
+    rotary_sin_cos,
+)
 from synthanatomy_tpu_torch.ops.local_attention_flash import local_attention_flash
 
 __all__ = ["Performer", "redraw_projections", "spatial_coordinate_sequences"]
-
-_WAITS = "not ported yet (ROADMAP §1, module 1)"
 
 
 def spatial_coordinate_sequences(
@@ -59,8 +69,11 @@ def spatial_coordinate_sequences(
     return [np.asarray(ordering(c.reshape(-1))) for c in coords]
 
 
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16)
+def _sinusoidal_table(length: int, dim: int) -> np.ndarray:
+    """(length, dim) f32 [sin | cos] table, computed in f64 as JAX does."""
+    inv_freq = 1.0 / (10000 ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    sinusoid = np.einsum("i,j->ij", np.arange(length, dtype=np.float64), inv_freq)
+    return np.concatenate([np.sin(sinusoid), np.cos(sinusoid)], axis=-1).astype(np.float32)
 
 
 def _dense(fan_in: int, fan_out: int, bias: bool, gen, device) -> nn.Linear:
@@ -121,6 +134,51 @@ class Dropout(nn.Module):
                                                                     device=x.device))
 
 
+def _remat(module: nn.Module, *args):
+    """``module(*args)`` under ``torch.utils.checkpoint`` (non-reentrant),
+    as ``nn.remat`` in JAX.  checkpoint restores only torch's default
+    generators for the recompute; the explicit generators the dropouts in
+    ``module`` draw from are set back to their state at the forward for
+    the recompute (so it draws the same masks) and to their state before
+    the recompute after it (so later draws do not depend on remat)."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    at_forward = [g.get_state() for g in gens]
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return module(*a)
+        before = [g.get_state() for g in gens]
+        for g, s in zip(gens, at_forward):
+            g.set_state(s)
+        try:
+            return module(*a)
+        finally:
+            for g, s in zip(gens, before):
+                g.set_state(s)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+class ScaleNorm(nn.Module):
+    """x / max(‖x‖, eps) · g in f32, output in x's dtype (JAX's ScaleNorm)."""
+
+    def __init__(self, device, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(1, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        n = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+        return (xf / torch.clamp(n, min=self.eps) * self.g).to(x.dtype)
+
+
 class PerformerAttention(nn.Module):
     """Hybrid FAVOR+/local multi-head self-attention: FAVOR heads
     ``[:gh]``, local heads ``[gh:]``, outputs concatenated in that order."""
@@ -154,11 +212,16 @@ class PerformerAttention(nn.Module):
         b, n, _ = x.shape
         return x.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                layer_rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         b, n, _ = x.shape
         q = self._split_heads(_linear(x, self.to_q, self.dtype))
         k = self._split_heads(_linear(x, self.to_k, self.dtype))
         v = self._split_heads(_linear(x, self.to_v, self.dtype))
+        if layer_rotary is not None:
+            sin, cos = layer_rotary
+            q = apply_rotary(q.to(torch.float32), sin[:n], cos[:n]).to(q.dtype)
+            k = apply_rotary(k.to(torch.float32), sin[:n], cos[:n]).to(k.dtype)
         gh = self.heads - self.local_heads
         cd = self.attn_compute_dtype
         outs = []
@@ -178,44 +241,70 @@ class PerformerAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim, mult, gen, device, *, dropout=0.0, dtype=torch.bfloat16):
+    """Dense → GELU (tanh) → dropout → Dense; with ``glu`` the first
+    Dense is 2·inner wide and its halves a, g give a·gelu(g)."""
+
+    def __init__(self, dim, mult, gen, device, *, glu=False, dropout=0.0,
+                 dtype=torch.bfloat16):
         super().__init__()
-        self.dtype = dtype
-        self.w1 = _dense(dim, dim * mult, True, gen, device)
-        self.w2 = _dense(dim * mult, dim, True, gen, device)
+        self.dtype, self.glu = dtype, glu
+        inner = dim * mult
+        self.w1 = _dense(dim, inner * 2 if glu else inner, True, gen, device)
+        self.w2 = _dense(inner, dim, True, gen, device)
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_linear(x, self.w1, self.dtype), approximate="tanh")
+        h = _linear(x, self.w1, self.dtype)
+        if self.glu:
+            a, g = h.chunk(2, dim=-1)
+            h = a * F.gelu(g, approximate="tanh")
+        else:
+            h = F.gelu(h, approximate="tanh")
         return _linear(self.drop(h), self.w2, self.dtype)
 
 
 class PerformerBlock(nn.Module):
     def __init__(self, dim, heads, dim_head, local_heads, nb_features, ff_mult,
-                 use_rezero, gen, device, *, ff_dropout=0.0, dtype=torch.bfloat16,
-                 **attn_kw):
+                 use_rezero, gen, device, *, ff_dropout=0.0, ff_glu=False, use_scalenorm=False,
+                 remat_attention=False, dtype=torch.bfloat16, **attn_kw):
         super().__init__()
-        self.use_rezero, self.dtype = use_rezero, dtype
+        self.use_rezero, self.remat_attention, self.dtype = use_rezero, remat_attention, dtype
         self.attn = PerformerAttention(
             dim, heads, dim_head, local_heads, nb_features, gen, device, dtype=dtype,
             **attn_kw,
         )
-        self.ff = FeedForward(dim, ff_mult, gen, device, dropout=ff_dropout, dtype=dtype)
+        self.ff = FeedForward(dim, ff_mult, gen, device, glu=ff_glu, dropout=ff_dropout,
+                              dtype=dtype)
         if use_rezero:
             # ReZero gains start at zero (identity blocks), as in the
             # reference; shape (1,) and f32, so that they promote
             self.g_attn = nn.Parameter(torch.zeros(1, device=device))
             self.g_ff = nn.Parameter(torch.zeros(1, device=device))
+            self.norm_attn = self.norm_ff = None
+        elif use_scalenorm:
+            self.norm_attn = ScaleNorm(device)
+            self.norm_ff = ScaleNorm(device)
         else:
             self.norm_attn = nn.LayerNorm(dim, eps=1e-6, device=device)
             self.norm_ff = nn.LayerNorm(dim, eps=1e-6, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_rezero:
-            x = x + self.attn(x) * self.g_attn
-            return x + self.ff(x) * self.g_ff
-        x = x + self.attn(_layer_norm(x, self.norm_attn, self.dtype))
-        return x + self.ff(_layer_norm(x, self.norm_ff, self.dtype))
+    def _norm(self, x, norm):
+        if norm is None:  # ReZero
+            return x
+        if isinstance(norm, ScaleNorm):
+            return norm(x)
+        return _layer_norm(x, norm, self.dtype)
+
+    def forward(self, x: torch.Tensor,
+                layer_rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        xa = self._norm(x, self.norm_attn)
+        if self.remat_attention:
+            a = _remat(self.attn, xa, layer_rotary)
+        else:
+            a = self.attn(xa, layer_rotary)
+        x = x + (a * self.g_attn if self.use_rezero else a)
+        f = self.ff(self._norm(x, self.norm_ff))
+        return x + (f * self.g_ff if self.use_rezero else f)
 
 
 class Performer(nn.Module):
@@ -263,23 +352,17 @@ class Performer(nn.Module):
         ff_glu: bool = False,
         reversible: bool = False,
         remat_attention: bool = False,
+        axial_position_shape: Optional[Tuple[int, int]] = None,
         generator: Optional[torch.Generator] = None,
         device="cuda",
     ):
         super().__init__()
-        waiting = {"rotary_position_emb": rotary_position_emb,
-                   "fixed_position_emb": fixed_position_emb,
-                   "axial_position_emb": axial_position_emb,
-                   "use_scalenorm": use_scalenorm, "ff_glu": ff_glu,
-                   "reversible": reversible, "remat_attention": remat_attention}
-        for name, on in waiting.items():
-            if on:
-                raise NotImplementedError(f"{name}=True is {_WAITS}")
-        if spatial_position_emb not in (None, "absolute"):
-            raise NotImplementedError(
-                f"spatial_position_emb={spatial_position_emb!r}: only the learned "
-                f"('absolute') tables are ported; 'fixed' is {_WAITS}"
-            )
+        if rotary_position_emb + fixed_position_emb + axial_position_emb > 1:
+            raise ValueError("rotary_position_emb, fixed_position_emb and axial_position_emb "
+                             "are mutually exclusive")
+        if spatial_position_emb not in (None, "fixed", "absolute"):
+            raise ValueError("spatial_position_emb must be 'fixed' or 'absolute', got "
+                             f"{spatial_position_emb!r}")
         if spatial_position_emb is not None and (spatial_shape is None or ordering is None):
             raise ValueError("spatial_position_emb requires spatial_shape and ordering")
         if conditioning_type not in ("none", "bos_replacement", "prepending"):
@@ -304,19 +387,39 @@ class Performer(nn.Module):
         self.generalized_attention = generalized_attention
         self.no_projection = no_projection
         self.qkv_bias, self.attn_out_bias = qkv_bias, attn_out_bias
+        self.rotary_position_emb, self.fixed_position_emb = rotary_position_emb, fixed_position_emb
+        self.axial_position_emb = axial_position_emb
+        self.use_scalenorm, self.ff_glu = use_scalenorm, ff_glu
+        self.reversible, self.remat_attention = reversible, remat_attention
         self.dtype = dtype
         gen = generator
 
         n_pre = (len(self.conditioning_num_tokens)
                  if conditioning_type == "prepending" else 0)
+        seq = max_seq_len + n_pre
         self.token_emb = _embed(num_tokens, dim, gen, device)
-        self.abs_pos_emb = _embed(max_seq_len + n_pre, dim, gen, device)
+        # the sequence-level positional embedding
+        if rotary_position_emb or fixed_position_emb:
+            self.register_buffer("fixed_pos", torch.from_numpy(_sinusoidal_table(seq, dim)).to(
+                device), persistent=False)
+        elif axial_position_emb:
+            s0, s1 = axial_position_shape or (math.ceil(seq / 64), 64)
+            self.axial_emb_0 = nn.Parameter(torch.randn(s0, 1, dim, generator=gen).to(device))
+            self.axial_emb_1 = nn.Parameter(torch.randn(1, s1, dim, generator=gen).to(device))
+        else:
+            self.abs_pos_emb = _embed(seq, dim, gen, device)
         self._spatial_sequences = []
         if spatial_position_emb is not None:
             self._spatial_sequences = spatial_coordinate_sequences(spatial_shape, ordering)
-            self.spatial_embs = nn.ModuleList(
-                [_embed(len(s), dim, gen, device) for s in self._spatial_sequences]
-            )
+            if spatial_position_emb == "absolute":
+                self.spatial_embs = nn.ModuleList(
+                    [_embed(len(s), dim, gen, device) for s in self._spatial_sequences]
+                )
+            else:
+                for i, s in enumerate(self._spatial_sequences):
+                    table = _sinusoidal_table(int(s.max()) + 1, dim)[s]
+                    self.register_buffer(f"spatial_fixed_{i}", torch.from_numpy(table).to(device),
+                                         persistent=False)
         if self.conditioning_num_tokens:
             self.conditioning_embs = nn.ModuleList(
                 [_embed(n, dim, gen, device) for n in self.conditioning_num_tokens]
@@ -331,7 +434,8 @@ class Performer(nn.Module):
         self.blocks = nn.ModuleList([
             PerformerBlock(dim, heads, dim_head, local_attn_heads, self.nb_features,
                            ff_mult, use_rezero, gen, device, ff_dropout=ff_dropout,
-                           dtype=dtype, **attn_kw)
+                           ff_glu=ff_glu, use_scalenorm=use_scalenorm,
+                           remat_attention=remat_attention, dtype=dtype, **attn_kw)
             for _ in range(depth)
         ])
         self.final_norm = nn.LayerNorm(dim, eps=1e-6, device=device)
@@ -347,35 +451,45 @@ class Performer(nn.Module):
     def position_table(self, n: int) -> torch.Tensor:
         """(n, dim) f32: everything position-dependent added to a decoded
         token's embedding — the positional row plus the BOS-right-shifted
-        spatial coordinate rows (zero row at position 0).  Rows are the
-        bf16 lookups of the JAX model, the spatial axes summed in bf16."""
-        pos = _bf16(self.abs_pos_emb.weight[:n]).float()
-        if self.spatial_position_emb is None:
-            return pos
-        total = None
-        dev = pos.device
-        for emb, seq in zip(self.spatial_embs, self._spatial_sequences):
-            rows = _bf16(emb.weight[torch.as_tensor(seq[:-1], device=dev)])[: n - 1]
-            pad = torch.zeros(n - rows.shape[0], self.dim, dtype=rows.dtype, device=dev)
-            rows = torch.cat([pad[:1], rows, pad[1:]], dim=0)  # BOS shift, pad to n
-            total = rows if total is None else total + rows
-        return pos + total.float()
+        spatial coordinate rows (zero row at position 0), as JAX's
+        ``combined_position_table`` builds it: learned rows are lookups in
+        ``dtype`` (their spatial axes summed in ``dtype``), fixed and axial
+        tables f32."""
+        pos = self._pos_emb(n).float()
+        sp = self._spatial_pos_sum(n)
+        return pos if sp is None else pos + sp[0].float()
 
     # -- full-sequence forward ----------------------------------------------
 
     def _spatial_pos_sum(self, n: int) -> Optional[torch.Tensor]:
-        """(1, n, dim) Σ per-axis coordinate embeddings in ``dtype``,
-        right-shifted for BOS: position 0 gets zeros, position p ≥ 1 the
-        coordinates of grid cell p − 1, positions past the grid zeros."""
+        """(1, n, dim) Σ per-axis coordinate embeddings (in ``dtype`` for
+        the learned tables, f32 for the fixed ones), right-shifted for BOS:
+        position 0 gets zeros, position p ≥ 1 the coordinates of grid cell
+        p − 1, positions past the grid zeros."""
         if self.spatial_position_emb is None:
             return None
         total = None
         dev = self.token_emb.weight.device
-        for emb, seq in zip(self.spatial_embs, self._spatial_sequences):
-            rows = _lookup(emb, torch.as_tensor(seq[:-1], device=dev), self.dtype)[: n - 1]
+        for i, seq in enumerate(self._spatial_sequences):
+            if self.spatial_position_emb == "absolute":
+                rows = _lookup(self.spatial_embs[i], torch.as_tensor(seq[:-1], device=dev),
+                               self.dtype)
+            else:
+                rows = getattr(self, f"spatial_fixed_{i}")[:-1]
+            rows = rows[: n - 1]
             rows = F.pad(rows, (0, 0, 1, n - 1 - rows.shape[0]))
             total = rows if total is None else total + rows
         return total[None]
+
+    def _pos_emb(self, n: int) -> torch.Tensor:
+        """(n, dim) sequence positional rows: the fixed table (f32), the
+        axial sum (f32) or the learned lookup (``dtype``)."""
+        if self.rotary_position_emb or self.fixed_position_emb:
+            return self.fixed_pos[:n]
+        if self.axial_position_emb:
+            return (self.axial_emb_0 + self.axial_emb_1).reshape(-1, self.dim)[:n]
+        return _lookup(self.abs_pos_emb, torch.arange(n, device=self.abs_pos_emb.weight.device),
+                       self.dtype)
 
     def _embed_prefix(self, x, conditionings):
         h = _lookup(self.token_emb, x, self.dtype)
@@ -411,10 +525,14 @@ class Performer(nn.Module):
                              f"{self.max_seq_len}")
         h = self._embed_prefix(x, conditionings)
         n = h.shape[1]
-        pos = _lookup(self.abs_pos_emb, torch.arange(n, device=h.device), self.dtype)
-        h = self.emb_drop(h + pos[None].to(h.dtype))
+        h = self.emb_drop(h + self._pos_emb(n)[None].to(h.dtype))
+        rotary = (rotary_sin_cos(self.dim_head, torch.arange(n, device=h.device))
+                  if self.rotary_position_emb else None)
         for blk in self.blocks:
-            h = blk(h)
+            if self.reversible:
+                h = _remat(blk, h, rotary)
+            else:
+                h = blk(h, rotary)
         h = _layer_norm(h, self.final_norm, self.dtype)
         if conditionings is not None and self.conditioning_type == "prepending":
             h = h[:, len(self.conditioning_embs):]

@@ -97,11 +97,12 @@ class FusedDecodeConfig:
 def supports_fused_decode(model) -> bool:
     """The fused step covers causal softmax-kernel FAVOR heads with a
     projection plus optional local heads, pre-LayerNorm or ReZero blocks,
-    no biases on q/k/v/out, non-GLU FF — at widths the kernels tile (dh
-    64 or 128, dim a multiple of 128)."""
+    no biases on q/k/v/out, non-GLU FF, no per-layer rotary — at widths
+    the kernels tile (dh 64 or 128, dim a multiple of 128)."""
     plain_heads = (model.causal and not model.generalized_attention
                    and not model.no_projection and not model.qkv_bias
-                   and not model.attn_out_bias)
+                   and not model.attn_out_bias and not model.use_scalenorm
+                   and not model.ff_glu and not model.rotary_position_emb)
     return plain_heads and _widths_ok(
         model.heads - model.local_attn_heads, model.dim_head, model.dim,
         model.dim * model.ff_mult,
@@ -197,7 +198,9 @@ def strip_reference_weights(params: Dict[str, torch.Tensor]) -> Dict[str, torch.
     return {k: v for k, v in params.items() if not k.startswith("_")}
 
 
-def init_fused_state(cfg: FusedDecodeConfig, device=None) -> Dict[str, torch.Tensor]:
+def init_fused_state(cfg: FusedDecodeConfig, device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed decode state (S, z and the rings) on ``device``: the card
+    unless the caller asks for the CPU."""
     L, R = cfg.depth, cfg.ring_size
     state = {
         "S": torch.zeros(L, cfg.nb_features, cfg.bg, dtype=torch.bfloat16, device=device),

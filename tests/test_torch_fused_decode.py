@@ -222,3 +222,16 @@ def test_wrapper_rejects_meta_tensors():
     with pytest.raises(ValueError):
         tfd.fused_decode_step({}, {}, torch.empty(B, DIM, device="meta"), 0, cfg_t)
 
+
+
+def test_init_fused_state_defaults_to_the_card():
+    """Like every other entry, the zeroed decode state is allocated on the
+    card unless the caller asks for the CPU."""
+    _, cfg_t = _cfgs(False, "int8", True)
+    st = tfd.init_fused_state(cfg_t, device="cpu")
+    assert all(v.device.type == "cpu" and not v.any() for v in st.values())
+    if torch.cuda.is_available():
+        assert all(v.is_cuda for v in tfd.init_fused_state(cfg_t).values())
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tfd.init_fused_state(cfg_t)

@@ -15,6 +15,7 @@ from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.ops import favor_attention as tfa
 from synthanatomy_tpu_torch.ops import fused_decode as tfd
 from synthanatomy_tpu_torch.ops import local_attention_flash as tlf
+from synthanatomy_tpu_torch.ops import local_attention_splash as tsp
 from synthanatomy_tpu_torch.ops import res_stack as trs
 from synthanatomy_tpu_torch.ops import vq as tvq
 from synthanatomy_tpu_torch.ops.favor import gaussian_orthogonal_random_matrix
@@ -209,6 +210,61 @@ def test_attention_kernels_reject_bad_inputs(cuda):
         tlf.local_attention_flash_core(q, q.cpu(), q, 4)
     with pytest.raises(ValueError):  # the score band does not fit shared memory
         tlf.local_attention_flash_core(q, q, q, 4000)
+
+
+SPLASH_SHAPES = [  # (B, H, L, window, block, dtype)
+    (1, 2, 130, 17, 128, torch.float32),   # padded tail
+    (2, 2, 300, 37, 128, torch.bfloat16),
+    (1, 2, 50, 100, 128, torch.bfloat16),  # L < w
+    (1, 3, 200, 1, 128, torch.float32),    # the diagonal alone
+    (1, 2, 300, 128, 128, torch.bfloat16),  # w a multiple of the kernel's tile
+    (6, 8, 1401, 420, 256, torch.bfloat16),  # the paper shape
+    (6, 8, 1401, 420, 128, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("shape", SPLASH_SHAPES, ids=lambda s: "x".join(map(str, s[:5])))
+def test_splash_kernel_matches_plain(cuda, shape, fused):
+    """o, lse, dq, dk, dv of the splash kernels against the plain version on
+    the same padded inputs; every block visits exactly its tiles of the
+    map; two runs are bit-identical."""
+    b, h, n, w, block, dtype = shape
+    n_pad = -(-n // block) * block
+    q, k, v, g = _inputs((b, h, n_pad, 64), dtype, cuda, seed=n + w)
+    q = (q.float() * 0.125).to(dtype)
+    before = tsp.local_attention_splash.launches
+    got = _fwd_bwd(lambda *x: tsp.splash_attention_core(*x, w, block, block, fused), q, k, v, g)
+    torch.cuda.synchronize()
+    assert tsp.local_attention_splash.launches == before + 3
+    want = _fwd_bwd(lambda *x: tsp.splash_attention_plain(*x, w, block, block, fused), q, k, v, g)
+    for name, a, b_ in zip(("out", "dq", "dk", "dv"), got, want):
+        _assert_kernel_close(f"splash {shape} {name}", a, b_, dtype)
+    visits = torch.zeros(b * h, n_pad // tsp.KERNEL_TILE, dtype=torch.int32, device=cuda)
+    _, lse = tsp._kernel_fwd(q, k, v, w, visits=visits)
+    _, lse_plain = tsp.splash_fwd_plain(q, k, v, w, block, block)
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=1e-4)
+    nnz = tsp._device_map(n_pad, w, q.device)[2]
+    assert int(visits.sum()) == nnz * b * h
+    again = _fwd_bwd(lambda *x: tsp.splash_attention_core(*x, w, block, block, fused), q, k, v, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+@pytest.mark.gpu
+def test_splash_kernel_rejects_bad_inputs(cuda):
+    q = torch.zeros(1, 2, 128, 64, device=cuda)
+    with pytest.raises(TypeError):
+        tsp.splash_attention_core(q.half(), q.half(), q.half(), 4)
+    with pytest.raises(ValueError):  # the kernel is built for head dim 64
+        x = torch.zeros(1, 2, 128, 32, device=cuda)
+        tsp.splash_attention_core(x, x, x, 4)
+    with pytest.raises(ValueError):  # not a whole number of tiles
+        tsp.splash_attention_core(q[:, :, :100], q[:, :, :100], q[:, :, :100], 4)
+    with pytest.raises(ValueError):
+        tsp.splash_attention_core(q, q.cpu(), q, 4)
+    with pytest.raises(ValueError):
+        tsp.splash_attention_core(q, q, q, 0)
 
 
 VQ_SHAPES = [(37, 130, 5), (1000, 300, 64), (4099, 2047, 32), (4200, 2048, 32)]  # (N, K, D)

@@ -300,3 +300,22 @@ def test_entry_points_default_to_the_card():
         create_vqvae_train_state(tm)
     with pytest.raises((RuntimeError, AssertionError)):
         tlpips.init_lpips_params("alex")
+
+
+@pytest.mark.parametrize("module", [
+    "ops/local_attention_splash.py", "models/performer.py", "interop.py",
+    "tools/__init__.py", "tools/bench_transformer.py", "ops/fused_decode.py",
+])
+def test_new_port_modules_import_no_jax(module):
+    """The modules of the splash slice exist and import neither JAX nor the
+    JAX package (the whole-package walk above covers them too)."""
+    path = Path(__file__).resolve().parents[1] / "synthanatomy_tpu_torch" / module
+    banned = {"jax", "flax", "optax", "synthanatomy_tpu"}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not {n.split(".")[0] for n in names} & banned, f"{module} imports {names}"
