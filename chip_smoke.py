@@ -91,7 +91,30 @@ result, without them.  Phases, each fatal on failure:
    gains 0.1); a short run at --attn-dtype float32; then the step with
    splash against the step with row 6 (ms, tok/s), splash fwd+bwd per
    layer against its plain version, row 6 and SDPA with the banded mask,
-   and a torch.profiler breakdown of one splash bench step.
+   and a torch.profiler breakdown of one splash bench step;
+14. the exact decode path (``Performer.decode_step``, ``make_sampler(fused=
+   False)``): (a) on the paper prior in f32 with ReZero gains 0.1,
+   ``decode_step`` over seeded tokens against ``Performer.forward`` at
+   positions 0-63 and 400-520 (the 420-slot ring wraps), replayed from
+   the sampler's CUDA graph, and eagerly over positions 0-63 (graph
+   against eager, and both timed per step), then the fused
+   step with int8 and with int4 weights (int8 rings) against the exact
+   step: per-step max |Δlogit|, mean KL and total variation of the
+   softmax; (b) the exact sampler at B16 in bf16 (0 fused launches, grid
+   shape, codes in [0, 2048), s per call and tok/s beside the fused
+   sampler's); (c) on a small prior, greedy grids of the exact sampler on
+   the card against the CPU and against ``sample_naive``, and
+   ``make_synthesizer`` with a 'prepending' prior, which "auto" routes to
+   the exact path;
+15. the decode-side weight-streaming kernels: ``int8_matmul`` (row 2) at
+   the paper decode GEMV shapes (R 16; K×N 512×1024, 1024×512, 512×2048,
+   2048×512) and at awkward ones against its plain version, two runs
+   bit-identical, timed against the plain version and a dequantised bf16
+   copy through ``torch.matmul``; then the ``main()`` of the three probe
+   tools (``probe_int4``, ``probe_int4_unpack``,
+   ``probe_pallas_overhead``; each checks every variant against its plain
+   version and raises on a failure), and each probe kernel timed against
+   its plain version at the probe's shape.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -114,6 +137,14 @@ GRID = (10, 14, 10)
 SEQ = 1400
 BATCH = 16
 T_CHECK = (0, 1, 447, 448, 1000)
+PAPER = dict(dim=512, depth=24, heads=16, local_heads=8, window=420)
+SMALL = dict(dim=128, depth=2, heads=2, local_heads=1, window=12)
+SMALL_GRID = (2, 3, 4)
+TF_TOKENS = 521  # teacher-forced positions: the 420-slot ring wraps at 420
+TF_CHECK = list(range(64)) + list(range(400, TF_TOKENS))
+TF_EAGER = 64  # positions also stepped eagerly, against the graph replay
+INT8_GEMV = [(16, 512, 1024), (16, 1024, 512), (16, 512, 2048), (16, 2048, 512)]
+INT8_AWKWARD = [(1, 512, 1024), (5, 200, 96), (33, 512, 1000), (16, 200, 1000)]
 TRAIN_BATCH = 6  # the paper batch of tools/bench_transformer.py
 TRAIN_STEPS = 5
 LAUNCHES_PER_STEP = 24 * 3  # per kernel family: forward + two backward launches per layer
@@ -163,7 +194,7 @@ def _random_state(cfg, gen, device):
 
 
 def _performer(rezero, *, dim, depth, heads, local_heads, window, seed, device,
-               grid=GRID):
+               grid=GRID, dtype=None, gains=(0.7, 0.5)):
     import numpy as np
     import torch
 
@@ -175,14 +206,14 @@ def _performer(rezero, *, dim, depth, heads, local_heads, window, seed, device,
         num_tokens=2049, max_seq_len=int(np.prod(grid)) + 1, dim=dim, depth=depth,
         heads=heads, dim_head=64, local_attn_heads=local_heads,
         local_window_size=window, use_rezero=rezero, spatial_position_emb="absolute",
-        spatial_shape=grid, ordering=ordering,
+        spatial_shape=grid, ordering=ordering, dtype=dtype or torch.bfloat16,
         generator=torch.Generator().manual_seed(seed), device="cpu",
     )
     with torch.no_grad():
         for blk in model.blocks:
             if rezero:  # ReZero starts at identity: non-trivial gains
-                blk.g_attn.fill_(0.7)
-                blk.g_ff.fill_(0.5)
+                blk.g_attn.fill_(gains[0])
+                blk.g_ff.fill_(gains[1])
             else:
                 blk.norm_attn.weight.normal_(1.0, 0.1, generator=torch.Generator().manual_seed(seed))
     return model.to(device), ordering
@@ -1154,6 +1185,318 @@ def _check_bench(dev, smi):
     return rec
 
 
+def _greedy_agree(a, b):
+    return float((a.cpu() == b.cpu()).float().mean())
+
+
+def _check_exact_decode(dev, smi, fused_s):
+    """Phase 14: the exact decode path."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from synthanatomy_tpu_torch.models.ordering import Ordering
+    from synthanatomy_tpu_torch.models.performer import Performer
+    from synthanatomy_tpu_torch.models.sampling import (
+        exact_logits_stepper,
+        fused_logits_stepper,
+        make_sampler,
+        sample_naive,
+    )
+    from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.pipeline import make_synthesizer
+
+    # 14a. teacher-forced: decode_step against the batch forward, in f32 at
+    # gains 0.1 (ROADMAP §3: larger gains make a 24-layer random prior
+    # chaotic), B2; then the fused step against the exact step
+    model, _ = _performer(True, seed=60, device=dev, dtype=torch.float32, gains=(0.1, 0.1),
+                          **PAPER)
+    b = 2
+    tokens = torch.as_tensor(np.random.default_rng(61).integers(0, 2048, (b, TF_TOKENS)),
+                             device=dev)
+    tokens[:, 0] = 2048  # BOS
+    with torch.no_grad():
+        batch = model(tokens).float()
+        cache = model.init_cache(b)
+        t0 = time.perf_counter()
+        eager = []
+        for t in range(TF_EAGER):
+            logits, cache = model.decode_step(tokens[:, t], cache, t)
+            eager.append(logits.float())
+        eager = torch.stack(eager, dim=1)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = exact_logits_stepper(model, batch=b)  # replays a CUDA graph from t = 2
+        exact = torch.stack([step(tokens[:, t], t).float() for t in range(TF_TOKENS)], dim=1)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+    # f32 on both sides with the zero key stabilizer: the same math in
+    # other summation orders (~1e-6 relative per layer); a wrong ring slot,
+    # position or mask moves logits by O(1) of their scale
+    scale = batch.abs().amax(dim=(0, 2))
+    per_pos = ((exact - batch).abs().amax(dim=(0, 2)) / scale)[TF_CHECK]
+    tf_err = float(per_pos.max())
+    eager_err = float(((eager - batch[:, :TF_EAGER]).abs().amax(dim=(0, 2))
+                       / scale[:TF_EAGER]).max())
+    graph_vs_eager = float((exact[:, :TF_EAGER] - eager).abs().max() / eager.abs().max())
+    _require(tf_err <= 1e-3, f"decode_step vs forward: max per-position relative error "
+                             f"{tf_err} at position {TF_CHECK[int(per_pos.argmax())]}")
+    _require(eager_err <= 1e-3, f"eager decode_step vs forward: {eager_err}")
+    # the graph replays the eager step's kernels on the same inputs; a stale
+    # position or cache in the replay would move logits by O(1)
+    _require(graph_vs_eager <= 1e-5, f"graph-replayed vs eager decode_step: {graph_vs_eager}")
+    print(f"[check] paper prior f32 (gains 0.1), decode_step vs Performer.forward, "
+          f"teacher-forced: replayed from a CUDA graph over {TF_TOKENS} tokens (ring of 420 "
+          f"slots wraps at 420), positions 0-63 and 400-520: max |Δlogit| / max |logit| per "
+          f"position {tf_err:.3e}; eager over positions 0-{TF_EAGER - 1}: {eager_err:.3e} (tol "
+          f"1e-3); graph vs eager {graph_vs_eager:.3e} (tol 1e-5); logit std "
+          f"{float(batch.std()):.4f}")
+    print(f"[time] exact decode_step B{b} f32 paper width: eager {1e3 * eager_s / TF_EAGER:.2f} "
+          f"ms per step, graph-replayed {1e3 * graph_s / TF_TOKENS:.2f} ms per step (capture "
+          f"included)  [{smi}]")
+    lp = F.log_softmax(exact, dim=-1)
+    for wq in ("int8", "int4"):
+        step = fused_logits_stepper(model, batch=b, ring_quant=True, weight_quant=wq)
+        with torch.no_grad():
+            fused = torch.stack([step(tokens[:, t], t) for t in range(TF_TOKENS)], dim=1)
+        lq = F.log_softmax(fused, dim=-1)
+        dmax = (fused - exact).abs().amax(dim=(0, 2))  # per step
+        kl = float((lp.exp() * (lp - lq)).sum(-1).mean())
+        tv = float(0.5 * (lp.exp() - lq.exp()).abs().sum(-1).mean())
+        agree = _greedy_agree(fused.argmax(-1), exact.argmax(-1))
+        _require(bool(torch.isfinite(fused).all()), f"fused {wq}: non-finite logits")
+        print(f"[quality] fused step, {wq} weights + int8 rings, vs the exact step (f32 "
+              f"exact, {TF_TOKENS} steps x B{b}, random weights, flat logits): per-step max "
+              f"|Δlogit| mean {float(dmax.mean()):.4f}, max {float(dmax.max()):.4f}; mean "
+              f"KL(exact||fused) {kl:.3e}; mean total variation {tv:.3e}; greedy agreement "
+              f"{agree:.4f}")
+    del model, batch, exact, eager, cache, step, lp
+    torch.cuda.empty_cache()
+
+    # 14b. the exact sampler at the paper form, B16, bf16, on its own path
+    performer, ordering = _performer(True, seed=0, device=dev, **PAPER)
+    sampler = make_sampler(performer, ordering, batch=BATCH, fused=False)
+    _require(not sampler.fused, "fused=False built a fused sampler")
+    fd.fused_decode_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grids = sampler(torch.Generator(device=dev).manual_seed(62))
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    _require(fd.fused_decode_step.launches == 0,
+             f"the exact sampler made {fd.fused_decode_step.launches} fused launches")
+    _require(tuple(grids.shape) == (BATCH,) + GRID and int(grids.min()) >= 0
+             and int(grids.max()) < 2048, f"exact sampler grid {tuple(grids.shape)}")
+    print(f"[synth] exact sampler (make_sampler fused=False) B{BATCH}, bf16: grids "
+          f"{tuple(grids.shape)} in [0, 2048), 0 fused launches")
+    print(f"[time] exact sampling B{BATCH}, bf16: {exact_s:.3f} s per call, "
+          f"{BATCH * SEQ / exact_s:.1f} latent tok/s; fused (int8 weights, int8 rings, phase 5) "
+          f"{fused_s['int8']:.3f} s, {BATCH * SEQ / fused_s['int8']:.1f} tok/s: "
+          f"{exact_s / fused_s['int8']:.2f}x  [{smi}]")
+
+    # where an exact token's time goes: one eager decode_step and one graph
+    # replay, timed by CUDA events, then counted under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.full((BATCH,), 5, dtype=torch.long, device=dev)
+    step = exact_logits_stepper(performer, batch=BATCH)
+    for t in range(3):  # t 0 and 1 eagerly, the capture at t 1, t 2 the first replay
+        step(tok, t)
+    cache = performer.init_cache(BATCH)
+    with torch.no_grad():
+        for label, fn in (("eager decode_step", lambda: performer.decode_step(tok, cache, 3)),
+                          ("CUDA-graph replay", lambda: step(tok, 3))):
+            ms = _time_ms(fn, 5)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_cuda_time_total if getattr(e, "self_device_time_total", None)
+                       is None else e.self_device_time_total for e in rows) / 1e3
+            print(f"[profile] exact step B{BATCH} bf16 paper width, {label}: {ms:.2f} ms per "
+                  f"token (CUDA events), {sum(e.count for e in rows)} kernels, device time "
+                  f"{busy:.2f} ms ({100 * busy / ms:.1f}% busy)  [{smi}]")
+    del performer, sampler, step, cache
+    torch.cuda.empty_cache()
+
+    # 14c. greedy agreement on a small prior (f32: the comparisons test the
+    # path, not bf16 rounding)
+    small, order = _performer(True, seed=5, device=dev, grid=SMALL_GRID, dtype=torch.float32,
+                              **SMALL)
+    small_cpu = _performer(True, seed=5, device="cpu", grid=SMALL_GRID, dtype=torch.float32,
+                           **SMALL)[0]
+    g_card = make_sampler(small, order, batch=2, do_sample=False, fused=False)(None)
+    g_cpu = make_sampler(small_cpu, order, batch=2, do_sample=False, fused=False)(None)
+    g_naive = sample_naive(small, order, batch=2, do_sample=False)
+    a_cpu, a_naive = _greedy_agree(g_card, g_cpu), _greedy_agree(g_card, g_naive)
+    _require(a_cpu >= 0.9 and a_naive >= 0.9,
+             f"small prior greedy agreement: card vs CPU {a_cpu}, sample vs naive {a_naive}")
+    print(f"[check] small prior f32 greedy grids, exact sampler: card vs CPU agreement "
+          f"{a_cpu:.4f}, sample vs sample_naive on the card {a_naive:.4f} (tol 0.9) over "
+          f"{g_cpu.numel()} codes")
+
+    pre = Performer(
+        num_tokens=2049, max_seq_len=int(np.prod(SMALL_GRID)) + 1, dim=128, depth=2, heads=2,
+        dim_head=64, local_attn_heads=1, local_window_size=12, use_rezero=True,
+        spatial_position_emb="absolute", spatial_shape=SMALL_GRID, ordering=order,
+        conditioning_num_tokens=(3, 5), conditioning_type="prepending",
+        generator=torch.Generator().manual_seed(63), device="cpu").to(dev)
+    with torch.no_grad():
+        for blk in pre.blocks:
+            blk.g_attn.fill_(0.7)
+            blk.g_ff.fill_(0.5)
+    vq = BaselineVQVAE(
+        n_levels=2, downsample_parameters=((4, 2, 1, 1),) * 2,
+        upsample_parameters=((4, 2, 1, 0, 1),) * 2, n_embed=2048, embed_dim=8, n_channels=16,
+        n_res_channels=16, n_res_layers=1, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(64), device=dev)
+    synth = make_synthesizer(pre, vq, order, batch=2, with_conditionings=True, decode_batch=2)
+    fd.fused_decode_step.launches = 0
+    conds = [torch.tensor([0, 2], device=dev), torch.tensor([1, 4], device=dev)]
+    vols, grids = synth(torch.Generator(device=dev).manual_seed(65), conds)
+    torch.cuda.synchronize()
+    _require(fd.fused_decode_step.launches == 0, "the prepending synthesizer took the fused step")
+    _require(tuple(grids.shape) == (2,) + SMALL_GRID and int(grids.max()) < 2048
+             and tuple(vols.shape) == (2, 1, 8, 12, 16) and bool(torch.isfinite(vols).all()),
+             f"prepending synthesis: grids {tuple(grids.shape)}, volumes {tuple(vols.shape)}")
+    print(f"[synth] make_synthesizer, 'prepending' small prior (auto -> exact path): grids "
+          f"{tuple(grids.shape)}, volumes {tuple(vols.shape)} {vols.dtype}, finite, 0 fused "
+          f"launches")
+
+
+def _check_decode_side(dev, smi):
+    """Phase 15: row 2 and the probes.  Returns {kernel: (launches, max
+    abs err, ms, plain ms, bound, library ms)} for the kernels' line."""
+    import torch
+
+    from synthanatomy_tpu_torch.ops import probes, quant
+    from synthanatomy_tpu_torch.tools import probe_int4, probe_int4_unpack, probe_pallas_overhead
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(70)
+
+    def case(r, k, n):
+        x = torch.randn(r, k, generator=gen, device=dev)
+        return (x, *quant.quantize_int8(torch.randn(k, n, generator=gen, device=dev)))
+
+    # 15a. int8_matmul's entry point at the paper decode GEMV shapes (q/k/v,
+    # out, FF in, FF out; R 16), then awkward shapes
+    paper = [case(*sh) for sh in INT8_GEMV]
+    quant.int8_matmul.launches = 0
+    got = [quant.int8_matmul(*c) for c in paper]
+    torch.cuda.synchronize()
+    launches = quant.int8_matmul.launches
+    _require(launches == len(INT8_GEMV), f"int8_matmul: {launches} launches")
+    errs = {}
+    for label, shapes, cases, outs in (
+            ("paper", INT8_GEMV, paper, got),
+            ("awkward", INT8_AWKWARD, [case(*sh) for sh in INT8_AWKWARD], None)):
+        errs[label] = 0.0
+        for i, c in enumerate(cases):
+            a = outs[i] if outs else quant.int8_matmul(*c)
+            again = quant.int8_matmul(*c)
+            e = _compare_f32(f"int8_matmul {label} {tuple(c[0].shape)}x{tuple(c[1].shape)}",
+                             a, quant.int8_matmul_plain(*c))
+            _require(torch.equal(a, again), f"int8_matmul {label}: two runs differ")
+            errs[label] = max(errs[label], e)
+        print(f"[check] int8_matmul == plain ({label}: R x K x N {shapes}): max abs err "
+              f"{errs[label]:.3e} (tol 1e-4 of max |plain| and in norm: exact bf16 products "
+              f"in f32, other orders); two runs bit-identical")
+    err = errs["paper"]
+    x, w_q, sc = paper[2]  # FF in: R 16, K 512, N 2048
+    w_deq = w_q.to(torch.bfloat16) * sc.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    r, k = x.shape
+    n = w_q.shape[1]
+    bound = _bound(2 * r * k * n, k * n + 4 * (r * k + r * n + n), PEAK_BF16)
+    p1, k1, k2, p2 = (_time_ms(lambda: quant.int8_matmul_plain(x, w_q, sc), 50),
+                      _time_ms(lambda: quant.int8_matmul(x, w_q, sc), 200),
+                      _time_ms(lambda: quant.int8_matmul(x, w_q, sc), 200),
+                      _time_ms(lambda: quant.int8_matmul_plain(x, w_q, sc), 50))
+    y_ms = _time_ms(lambda: torch.matmul(xb, w_deq), 200)
+    out["int8_matmul"] = (launches, err, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
+    print(f"[time] int8_matmul R{r} K{k} N{n}: kernel {(k1 + k2) / 2:.4f} ms ({k1:.4f}, "
+          f"{k2:.4f}), plain {(p1 + p2) / 2:.4f} ms ({p1:.4f}, {p2:.4f}); no single PyTorch call "
+          f"computes it, yardstick (a dequantised bf16 copy through torch.matmul) {y_ms:.4f} "
+          f"ms; bound {bound[0]:.5f} ms ({bound[1]})  [{smi}]")
+
+    # 15b. the probes' own entry points; each raises on a failed check
+    probes.weight_stream.launches = probes.weight_stream.packed_launches = 0
+    probe_int4.main([])
+    torch.cuda.synchronize()
+    ws_int4 = probes.weight_stream.packed_launches
+    ws_int8 = probes.weight_stream.launches - ws_int4
+    probes.int4_unpack.launches = quant.int4_matmul.launches = 0
+    probe_int4_unpack.main([])
+    torch.cuda.synchronize()
+    unpack_launches, i4mm_launches = probes.int4_unpack.launches, quant.int4_matmul.launches
+    probes.tile_steps.launches = 0
+    probe_pallas_overhead.main([])
+    torch.cuda.synchronize()
+    tile_launches = probes.tile_steps.launches
+    _require(min(ws_int8, ws_int4, unpack_launches, i4mm_launches, tile_launches) > 0,
+             f"probe launches: weight stream {ws_int8}/{ws_int4}, unpack {unpack_launches}, "
+             f"int4 product {i4mm_launches}, tile steps {tile_launches}")
+    print(f"[probes] launches: weight_stream int8 {ws_int8}, packed int4 {ws_int4}; int4_unpack "
+          f"{unpack_launches}; int4_matmul (E, F) {i4mm_launches}; tile_steps {tile_launches}")
+
+    # 15c. each probe kernel at its probe's shape against its plain version
+    g = torch.Generator(device=dev).manual_seed(71)
+    B, K, N, L = probe_int4.B, probe_int4.K, probe_int4.N, probe_int4.L
+    xw = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
+    w8 = torch.randint(-7, 8, (L, K, N), generator=g, device=dev).to(torch.int8)
+    s = torch.rand(L, 1, N, generator=g, device=dev) * 0.01 + 0.01
+    w4 = torch.from_numpy(probe_int4.pack(w8.cpu().numpy())).to(dev)
+    for name, w, packed, n_launch in (("weight_stream_int8", w8, False, ws_int8),
+                                      ("weight_stream_int4", w4, True, ws_int4)):
+        e = _compare_f32(name, probes.weight_stream(xw, w, s, packed),
+                         probes.weight_stream_plain(xw, w, s, packed))
+        kern = lambda w=w, packed=packed: probes.weight_stream(xw, w, s, packed)  # noqa: E731
+        plain = lambda w=w, packed=packed: probes.weight_stream_plain(xw, w, s, packed)  # noqa: E731
+        p1, k1, k2, p2 = _time_ms(plain, 3), _time_ms(kern, 50), _time_ms(kern, 50), \
+            _time_ms(plain, 3)
+        bound = _bound(2 * B * K * N * L, _nbytes(xw, w, s) + B * K * 4, PEAK_BF16)
+        ms = (k1 + k2) / 2
+        out[name] = (n_launch, e, ms, (p1 + p2) / 2, bound, None)
+        print(f"[time] {name} (B{B} K{K} N{N} L{L}, {_nbytes(w) / 1e6:.1f} MB of weights): kernel "
+              f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}) = {_nbytes(w) / ms / 1e6:.0f} GB/s, plain "
+              f"{(p1 + p2) / 2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); max abs err "
+              f"{e:.3e}  [{smi}]")
+    pk = torch.randint(-128, 128, (probe_int4_unpack.K2, probe_int4_unpack.N), generator=g,
+                       device=dev).to(torch.int8)
+    e = float((probes.int4_unpack(pk, 0) - probes.unpack_int4_plain(pk, 0)).abs().max())
+    _require(e == 0.0, f"int4_unpack: error {e}")
+    p1, k1, k2, p2 = (_time_ms(lambda: probes.unpack_int4_plain(pk, 0), 50),
+                      _time_ms(lambda: probes.int4_unpack(pk, 0), 200),
+                      _time_ms(lambda: probes.int4_unpack(pk, 0), 200),
+                      _time_ms(lambda: probes.unpack_int4_plain(pk, 0), 50))
+    bound = _bound(0, pk.numel() * 9, PEAK_F32)
+    out["int4_unpack"] = (unpack_launches, e, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
+    print(f"[time] int4_unpack A (K2 {pk.shape[0]}, N {pk.shape[1]}): kernel {(k1 + k2) / 2:.4f} "
+          f"ms, plain {(p1 + p2) / 2:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]})  [{smi}]")
+    M, KD, ND, G = (probe_pallas_overhead.M, probe_pallas_overhead.K_DIM, probe_pallas_overhead.N,
+                    probe_pallas_overhead.G)
+    xt = torch.randn(M, KD, generator=g, device=dev).to(torch.bfloat16)
+    wt = torch.randn(KD, ND, generator=g, device=dev).to(torch.bfloat16)
+    a, b_ = probes.tile_steps(xt, wt, G).float(), probes.tile_steps_plain(xt, wt, G).float()
+    e = float((a - b_).abs().max())
+    _require(e <= 1e-2 * float(b_.abs().max()), f"tile_steps: max abs err {e}")
+    p1, k1, k2, p2 = (_time_ms(lambda: probes.tile_steps_plain(xt, wt, G), 3),
+                      _time_ms(lambda: probes.tile_steps(xt, wt, G), 20),
+                      _time_ms(lambda: probes.tile_steps(xt, wt, G), 20),
+                      _time_ms(lambda: probes.tile_steps_plain(xt, wt, G), 3))
+    bound = _bound(2 * M * KD * ND * G, _nbytes(xt, wt) + M * ND * 2, PEAK_BF16)
+    out["launch_overhead"] = (tile_launches, e, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
+    print(f"[time] launch_overhead tile program, G {G} steps of {M}x{KD}x{ND} bf16: kernel "
+          f"{(k1 + k2) / 2:.4f} ms ({(k1 + k2) / 2 / G * 1e3:.3f} us per step), plain "
+          f"{(p1 + p2) / 2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); max abs err {e:.3e} "
+          f"(bf16 output, tol 1e-2 of max |plain|)  [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1191,13 +1534,11 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     # 3. kernel against plain
-    paper = dict(dim=512, depth=24, heads=16, local_heads=8, window=420)
-    small = dict(dim=128, depth=2, heads=2, local_heads=1, window=12)
     variants = [("int8", False, False), ("int8", False, True),
                 ("int4", True, False), ("int4", True, True)]
     models = {}
     max_err = 0.0
-    for shape_name, shape in (("paper", paper), ("small", small)):
+    for shape_name, shape in (("paper", PAPER), ("small", SMALL)):
         batch = BATCH if shape_name == "paper" else 2
         for wq, rq, rezero in variants:
             key = (shape_name, rezero)
@@ -1222,7 +1563,7 @@ def main() -> int:
     del models
 
     # 4. the paper synthesis through make_synthesizer's defaults
-    performer, ordering = _performer(True, seed=0, device=dev, **paper)
+    performer, ordering = _performer(True, seed=0, device=dev, **PAPER)
     vqvae = BaselineVQVAE(
         n_levels=4, downsample_parameters=((4, 2, 1, 1),) * 4,
         upsample_parameters=((4, 2, 1, 0, 1),) * 4, n_embed=2048, embed_dim=32,
@@ -1260,8 +1601,8 @@ def main() -> int:
           f"{fd.fused_decode_step.launches} kernel launches")
 
     # greedy sampling of a small prior: kernel on the card vs plain on the CPU
-    small_model, small_order = _performer(True, seed=5, device=dev, grid=(2, 3, 4), **small)
-    small_cpu = _performer(True, seed=5, device="cpu", grid=(2, 3, 4), **small)[0]
+    small_model, small_order = _performer(True, seed=5, device=dev, grid=SMALL_GRID, **SMALL)
+    small_cpu = _performer(True, seed=5, device="cpu", grid=SMALL_GRID, **SMALL)[0]
     g_card = make_sampler(small_model, small_order, batch=2, do_sample=False,
                           ring_quant=True)(None).cpu()
     g_cpu = make_sampler(small_cpu, small_order, batch=2, do_sample=False,
@@ -1296,12 +1637,13 @@ def main() -> int:
         print(f"[time] decode step B{BATCH} paper width, {wq} weights, int8 rings: "
               f"kernel {times[wq][0]:.3f} ms ({k1:.3f}, {k2:.3f}), "
               f"plain {times[wq][1]:.3f} ms ({p1:.3f}, {p2:.3f})  [{smi}]")
+    fused_s = {}
     for wq in ("int8", "int4"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         samplers[wq](gen)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt = fused_s[wq] = time.perf_counter() - t0
         print(f"[time] sampling B{BATCH}, {wq} weights, int8 rings: {dt:.3f} s per "
               f"call, {BATCH * SEQ / dt:.1f} latent tok/s  [{smi}]")
     with torch.no_grad():
@@ -1481,10 +1823,16 @@ def main() -> int:
     # 12-13. the splash kernels, then the bench entry point through them
     serr = _check_splash(dev)
     sb = _check_bench(dev, smi)
+    torch.cuda.empty_cache()
+    # 14-15. the exact decode path, then row 2 and the probes
+    _check_exact_decode(dev, smi, fused_s)
+    torch.cuda.empty_cache()
+    ds = _check_decode_side(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
+        path = replaces if replaces.startswith("tools/") else f"synthanatomy_tpu/ops/{replaces}"
         return {"name": name, "route": "cuda", "source": f"synthanatomy_tpu_torch/csrc/{source}",
-                "replaces": f"synthanatomy_tpu/ops/{replaces}", "launches": launches,
+                "replaces": path, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
 
@@ -1510,6 +1858,12 @@ def main() -> int:
         entry("local_attention_splash", "local_attention_splash.cu",
               "local_attention_splash.py:91", sb["launches"], serr, sb["ms"], sb["plain_ms"],
               sb["bound"], sb["sdpa_ms"]),
+        *[entry(name, src, rep_, *ds[name]) for name, src, rep_ in (
+            ("int8_matmul", "int8_matmul.cu", "quant.py:103"),
+            ("weight_stream_int8", "weight_stream.cu", "tools/probe_int4.py:49"),
+            ("weight_stream_int4", "weight_stream.cu", "tools/probe_int4.py:108"),
+            ("int4_unpack", "int4_unpack.cu", "tools/probe_int4_unpack.py:142"),
+            ("launch_overhead", "launch_overhead.cu", "tools/probe_pallas_overhead.py:48"))],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

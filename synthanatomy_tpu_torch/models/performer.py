@@ -29,8 +29,12 @@ take ``attn_compute_dtype`` operands.  With ``use_pallas_favor`` /
 kernels (``ops/favor_attention.py``, ``ops/local_attention_flash.py``)
 for CUDA tensors and their plain versions for CPU tensors.
 
-Not ported yet (ROADMAP §1): the exact ``decode_step`` path (sampling
-runs the fused decode step, ``models/sampling.py``).
+The exact incremental path, as in JAX: ``init_cache`` (per block, the
+FAVOR prefix state (S, z) in ``favor_cache_dtype`` and the local-head
+rings of ``local_window_size`` slots in ``dtype``), ``prime_cache`` for
+'prepending' conditionings and ``decode_step``.  Every block and the
+local rings see ``t_global = t + n_prepend``; the rings are written in
+place.
 """
 
 from __future__ import annotations
@@ -48,11 +52,13 @@ from synthanatomy_tpu_torch.models.ordering import Ordering
 from synthanatomy_tpu_torch.ops.favor import (
     default_nb_features,
     favor_attention,
+    favor_attention_step,
     gaussian_orthogonal_random_matrix,
 )
 from synthanatomy_tpu_torch.ops.local_attention import (
     apply_rotary,
     local_attention,
+    local_attention_step,
     rotary_sin_cos,
 )
 from synthanatomy_tpu_torch.ops.local_attention_flash import local_attention_flash
@@ -114,6 +120,13 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.
 def _lookup(emb: nn.Embedding, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Embed(dtype=dtype)``: the table cast, then indexed."""
     return emb.weight.to(dtype)[idx]
+
+
+def _row(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """table[i] for a 0-d index tensor, read on the device: indexing with a
+    0-d tensor reads its value on the host, which a CUDA graph cannot
+    capture."""
+    return table.index_select(0, i.reshape(1))[0]
 
 
 class Dropout(nn.Module):
@@ -187,10 +200,12 @@ class PerformerAttention(nn.Module):
                  local_window=256, causal=True, generalized=False, no_projection=False,
                  qkv_bias=False, out_bias=False, dropout=0.0, scan_chunk=128,
                  use_pallas_local=False, use_pallas_favor=False,
-                 attn_compute_dtype=torch.float32, dtype=torch.bfloat16):
+                 attn_compute_dtype=torch.float32, favor_cache_dtype=torch.float32,
+                 dtype=torch.bfloat16):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.local_heads = heads, dim_head, local_heads
+        self.nb_features, self.favor_cache_dtype = nb_features, favor_cache_dtype
         self.local_window, self.causal, self.generalized = local_window, causal, generalized
         self.no_projection, self.scan_chunk = no_projection, scan_chunk
         self.use_pallas_local, self.use_pallas_favor = use_pallas_local, use_pallas_favor
@@ -239,6 +254,54 @@ class PerformerAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, n, -1)
         return self.drop(_linear(out, self.to_out, self.dtype))
 
+    # -- incremental decoding -------------------------------------------------
+
+    def init_cache(self, batch: int) -> dict:
+        """Zeroed per-layer cache: S (B, gh, m, dh) and z (B, gh, m) in
+        ``favor_cache_dtype`` (m is dh without a projection), rings ck, cv
+        (B, lh, window, dh) in ``dtype``."""
+        gh = self.heads - self.local_heads
+        m = self.dim_head if self.no_projection else self.nb_features
+        dev = self.to_q.weight.device
+        cache = {}
+        if gh > 0:
+            cache["S"] = torch.zeros(batch, gh, m, self.dim_head, dtype=self.favor_cache_dtype,
+                                     device=dev)
+            cache["z"] = torch.zeros(batch, gh, m, dtype=self.favor_cache_dtype, device=dev)
+        if self.local_heads > 0:
+            shape = (batch, self.local_heads, self.local_window, self.dim_head)
+            cache["ck"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+            cache["cv"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+        return cache
+
+    def step(self, x_t: torch.Tensor, cache: dict, t: torch.Tensor,
+             layer_rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """x_t (B, dim) at position ``t`` (0-d tensor) → (out_t (B, dim),
+        cache), the cache updated in place; FAVOR heads first, then local
+        heads, as in the forward.  ``layer_rotary`` is the (sin, cos) row
+        at ``t``, each (1, dh)."""
+        b = x_t.shape[0]
+        q, k, v = (_linear(x_t, lin, self.dtype).reshape(b, self.heads, self.dim_head)
+                   for lin in (self.to_q, self.to_k, self.to_v))
+        if layer_rotary is not None:
+            sin, cos = layer_rotary
+            q = apply_rotary(q.to(torch.float32)[..., None, :], sin, cos)[..., 0, :].to(q.dtype)
+            k = apply_rotary(k.to(torch.float32)[..., None, :], sin, cos)[..., 0, :].to(k.dtype)
+        gh = self.heads - self.local_heads
+        outs = []
+        if gh > 0:
+            o, _ = favor_attention_step(
+                q[:, :gh], k[:, :gh], v[:, :gh], (cache["S"], cache["z"]),
+                None if self.no_projection else self.projection, generalized=self.generalized)
+            outs.append(o)
+        if self.local_heads > 0:
+            o, _, _ = local_attention_step(
+                q[:, gh:], k[:, gh:], v[:, gh:], cache["ck"], cache["cv"], t,
+                window=self.local_window)
+            outs.append(o)
+        out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        return _linear(out.reshape(b, -1), self.to_out, self.dtype), cache
+
 
 class FeedForward(nn.Module):
     """Dense → GELU (tanh) → dropout → Dense; with ``glu`` the first
@@ -253,14 +316,14 @@ class FeedForward(nn.Module):
         self.w2 = _dense(inner, dim, True, gen, device)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = False) -> torch.Tensor:
         h = _linear(x, self.w1, self.dtype)
         if self.glu:
             a, g = h.chunk(2, dim=-1)
             h = a * F.gelu(g, approximate="tanh")
         else:
             h = F.gelu(h, approximate="tanh")
-        return _linear(self.drop(h), self.w2, self.dtype)
+        return _linear(h if deterministic else self.drop(h), self.w2, self.dtype)
 
 
 class PerformerBlock(nn.Module):
@@ -305,6 +368,17 @@ class PerformerBlock(nn.Module):
         x = x + (a * self.g_attn if self.use_rezero else a)
         f = self.ff(self._norm(x, self.norm_ff))
         return x + (f * self.g_ff if self.use_rezero else f)
+
+    def init_cache(self, batch: int) -> dict:
+        return self.attn.init_cache(batch)
+
+    def step(self, x_t: torch.Tensor, cache: dict, t: torch.Tensor,
+             layer_rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """x_t (B, dim) → (x_t after the block, cache), no dropout."""
+        a, cache = self.attn.step(self._norm(x_t, self.norm_attn), cache, t, layer_rotary)
+        x_t = x_t + (a * self.g_attn if self.use_rezero else a)
+        f = self.ff(self._norm(x_t, self.norm_ff), deterministic=True)
+        return x_t + (f * self.g_ff if self.use_rezero else f), cache
 
 
 class Performer(nn.Module):
@@ -353,6 +427,7 @@ class Performer(nn.Module):
         reversible: bool = False,
         remat_attention: bool = False,
         axial_position_shape: Optional[Tuple[int, int]] = None,
+        favor_cache_dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         device="cuda",
     ):
@@ -415,6 +490,9 @@ class Performer(nn.Module):
                 self.spatial_embs = nn.ModuleList(
                     [_embed(len(s), dim, gen, device) for s in self._spatial_sequences]
                 )
+                for i, s in enumerate(self._spatial_sequences):  # for the decode step
+                    self.register_buffer(f"spatial_coords_{i}",
+                                         torch.from_numpy(s).long().to(device), persistent=False)
             else:
                 for i, s in enumerate(self._spatial_sequences):
                     table = _sinusoidal_table(int(s.max()) + 1, dim)[s]
@@ -430,6 +508,7 @@ class Performer(nn.Module):
             no_projection=no_projection, qkv_bias=qkv_bias, out_bias=attn_out_bias,
             dropout=attn_dropout, scan_chunk=scan_chunk, use_pallas_local=use_pallas_local,
             use_pallas_favor=use_pallas_favor, attn_compute_dtype=attn_compute_dtype,
+            favor_cache_dtype=favor_cache_dtype,
         )
         self.blocks = nn.ModuleList([
             PerformerBlock(dim, heads, dim_head, local_attn_heads, self.nb_features,
@@ -538,9 +617,103 @@ class Performer(nn.Module):
             h = h[:, len(self.conditioning_embs):]
         if return_encodings:
             return h
+        return self._head(h)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         if self.tie_embed:
             return h @ self.token_emb.weight.T.to(h.dtype)
         return _linear(h, self.to_out, self.dtype)
+
+    # -- incremental decoding -------------------------------------------------
+
+    @property
+    def n_prepend(self) -> int:
+        """Positions the 'prepending' conditionings take before the tokens."""
+        return len(self.conditioning_num_tokens) if self.conditioning_type == "prepending" else 0
+
+    def init_cache(self, batch: int) -> list:
+        """One zeroed cache per block (``PerformerAttention.init_cache``)."""
+        return [blk.init_cache(batch) for blk in self.blocks]
+
+    def _run_blocks_step(self, h: torch.Tensor, cache: list, t_global: torch.Tensor):
+        rotary = (rotary_sin_cos(self.dim_head, t_global.reshape(1))
+                  if self.rotary_position_emb else None)
+        for blk, blk_cache in zip(self.blocks, cache):
+            h, _ = blk.step(h, blk_cache, t_global, rotary)
+        return h, cache
+
+    def prime_cache(self, cache: list, conditionings: Sequence[torch.Tensor]) -> list:
+        """'prepending': push the conditioning embeddings through the
+        stack as positions 0 .. n_prepend − 1, each with its positional
+        row and no spatial row; their logits are dropped, as the batch
+        path strips them.  The cache is updated in place."""
+        pos = self._pos_emb(self.max_seq_len + self.n_prepend)
+        for idx, (emb, c) in enumerate(zip(self.conditioning_embs, conditionings)):
+            h = _lookup(emb, torch.as_tensor(c, device=pos.device), self.dtype).reshape(-1, self.dim)
+            self._run_blocks_step(h + pos[idx].to(h.dtype), cache,
+                                  torch.tensor(idx, device=pos.device))
+        return cache
+
+    def _pos_emb_at(self, t_global: torch.Tensor) -> torch.Tensor:
+        """(dim,) sequence positional row at one position: the sinusoid
+        computed in f32 at ``t_global`` (as JAX does in the step), the
+        axial sum, or the learned row in ``dtype``."""
+        if self.rotary_position_emb or self.fixed_position_emb:
+            exps = torch.arange(0, self.dim, 2, dtype=torch.float32, device=t_global.device)
+            s = t_global.to(torch.float32) * (1.0 / torch.pow(10000.0, exps / self.dim))
+            return torch.cat([torch.sin(s), torch.cos(s)])
+        if self.axial_position_emb:
+            s1 = self.axial_emb_1.shape[1]
+            return _row(self.axial_emb_0[:, 0], t_global // s1) + _row(self.axial_emb_1[0],
+                                                                       t_global % s1)
+        return _row(self.abs_pos_emb.weight, t_global).to(self.dtype)
+
+    def _spatial_pos_at(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """(dim,) Σ per-axis coordinate rows at token position ``t``: zeros
+        at 0 (BOS), the coordinates of grid cell t − 1 (clamped to the
+        grid) after."""
+        if self.spatial_position_emb is None:
+            return None
+        total = None
+        for i, seq in enumerate(self._spatial_sequences):
+            src = torch.clamp(t - 1, 0, len(seq) - 1)
+            if self.spatial_position_emb == "absolute":
+                coord = _row(getattr(self, f"spatial_coords_{i}"), src)
+                row = _row(self.spatial_embs[i].weight, coord).to(self.dtype)
+            else:
+                row = _row(getattr(self, f"spatial_fixed_{i}"), src)
+            total = row if total is None else total + row
+        return torch.where(t == 0, torch.zeros_like(total), total)
+
+    def decode_step(
+        self,
+        token_t: torch.Tensor,
+        cache: list,
+        t,
+        conditionings: Optional[Sequence[torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, list]:
+        """token_t (B,) at token position ``t`` (0 = BOS; an int or a 0-d
+        integer tensor on the model's device) → (logits (B, num_tokens) in
+        ``dtype``, cache), the cache updated in place.  'bos_replacement'
+        replaces the whole t = 0 embedding (spatial row included) by the
+        conditioning sum; 'prepending' needs :meth:`prime_cache` first.
+        With t a device tensor the step reads no host value, so a CUDA
+        graph can capture it (``models/sampling.py``)."""
+        t = torch.as_tensor(t, device=token_t.device)
+        h = _lookup(self.token_emb, token_t, self.dtype)
+        sp = self._spatial_pos_at(t)
+        if sp is not None:
+            h = h + sp.to(h.dtype)
+        if conditionings is not None and self.conditioning_type == "bos_replacement":
+            c = torch.zeros_like(h)
+            for emb, cond in zip(self.conditioning_embs, conditionings):
+                c = c + _lookup(emb, torch.as_tensor(cond, device=h.device),
+                                self.dtype).reshape(h.shape)
+            h = torch.where(t == 0, c, h)
+        t_global = t + self.n_prepend
+        h, cache = self._run_blocks_step(h + self._pos_emb_at(t_global).to(h.dtype), cache,
+                                         t_global)
+        return self._head(_layer_norm(h, self.final_norm, self.dtype)), cache
 
 
 @torch.no_grad()

@@ -1,15 +1,25 @@
-"""Autoregressive sampling for the stage-2 prior, fused engine.
+"""Autoregressive sampling for the stage-2 prior.
 
 Port of ``synthanatomy_tpu/models/sampling.py``: ``top_k_logits``,
 ``sample_next_index``, ``_grid_from_sequence``,
-``combined_position_table``, ``sample_fused``, ``_fused_ok`` and
-``make_sampler`` (fused engine).  Each token runs the whole-depth decode
-step once (``ops/fused_decode.py``: the CUDA kernel on a card, its plain
-version on the CPU); the ring write, the final LayerNorm, the head
-product and the draw are plain torch around it, as they are plain XLA
-around the TPU kernel.  Random draws come from an explicit
-``torch.Generator`` and do not reproduce JAX's streams: parity is
-checked with greedy decoding.
+``combined_position_table``, the exact cached sampler ``sample``, the
+fused-engine sampler ``sample_fused``, the reference-shaped
+``sample_naive``, ``_fused_ok`` and ``make_sampler`` with its
+``fused="auto" | True | False`` engine choice.
+
+- ``sample`` runs ``Performer.decode_step`` once per token: FAVOR prefix
+  state and local-head rings, exact in the model's precision; on a card
+  the steps replay one captured CUDA graph (``exact_logits_stepper``).
+- ``sample_fused`` runs the whole-depth fused step once per token
+  (``ops/fused_decode.py``: the CUDA kernel on a card, its plain version
+  on the CPU) with int8 or packed-int4 weights and a bf16 FAVOR state;
+  the ring write, the final LayerNorm, the head product and the draw are
+  plain torch around it, as they are plain XLA around the TPU kernel.
+- ``sample_naive`` re-runs the full forward over the prefix each step.
+
+The multi-device ``make_dp_sampler`` waits for the multi-GPU slice.
+Random draws come from an explicit ``torch.Generator`` and do not
+reproduce JAX's streams: parity is checked with greedy decoding.
 """
 
 from __future__ import annotations
@@ -34,8 +44,12 @@ from synthanatomy_tpu_torch.ops.fused_decode import (
 __all__ = [
     "top_k_logits",
     "sample_next_index",
+    "sample",
+    "exact_logits_stepper",
     "combined_position_table",
+    "fused_logits_stepper",
     "sample_fused",
+    "sample_naive",
     "make_sampler",
 ]
 
@@ -88,6 +102,152 @@ def _config(model, batch, ring_quant, weight_quant) -> FusedDecodeConfig:
     )
 
 
+def _mask_bos_and_draw(logits, bos, temperature, top_k, do_sample, generator):
+    logits = logits.to(torch.float32)
+    logits[:, bos] = -math.inf  # never emit BOS
+    return sample_next_index(logits, temperature=temperature, top_k=top_k, sample=do_sample,
+                             generator=generator)
+
+
+def exact_logits_stepper(
+    model,
+    *,
+    batch: int,
+    conditionings: Optional[Sequence[torch.Tensor]] = None,
+):
+    """The exact engine as ``step(tok (B,), t) -> logits (B, V)`` in the
+    model's dtype, steps taken in order from t = 0: ``decode_step`` on a
+    cache made here (and primed for 'prepending' conditionings), with t
+    as a device scalar.
+
+    On a card, steps t >= 2 replay one CUDA graph of ``decode_step``, the
+    counterpart of JAX's jit-compiled scan: eagerly, every token costs
+    some 110 small launches per layer, issued one by one from the host.
+    Step 0 (BOS, 'bos_replacement') runs eagerly; step 1 runs eagerly on
+    the capture stream, to set up its library handles, and the capture
+    follows (a capture records kernels and runs none).  On the CPU every
+    step runs eagerly."""
+    device = model.token_emb.weight.device
+    cache = model.init_cache(batch)
+    if conditionings is not None and model.conditioning_type == "prepending":
+        cache = model.prime_cache(cache, conditionings)
+    positions = torch.arange(model.max_seq_len, device=device)
+
+    def eager(tok: torch.Tensor, t: int) -> torch.Tensor:
+        # conditionings act at t = 0 only ('prepending' is in the cache)
+        return model.decode_step(tok, cache, positions[t], conditionings if t == 0 else None)[0]
+
+    if device.type != "cuda":
+        return eager
+    stream = torch.cuda.Stream(device)
+    static_tok = torch.zeros(batch, dtype=torch.long, device=device)
+    static_t = torch.zeros((), dtype=torch.long, device=device)
+    graph, out = None, None
+
+    def step(tok: torch.Tensor, t: int) -> torch.Tensor:
+        nonlocal graph, out
+        if t == 0:
+            return eager(tok, t)
+        if graph is None:
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                logits = eager(tok, t)
+            current.wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                out = model.decode_step(static_tok, cache, static_t)[0]
+            return logits.clone()
+        static_tok.copy_(tok)
+        static_t.copy_(positions[t])
+        graph.replay()
+        return out.clone()
+
+    return step
+
+
+@torch.no_grad()
+def sample(
+    model,
+    ordering: Ordering,
+    *,
+    batch: int = 1,
+    conditionings: Optional[Sequence[torch.Tensor]] = None,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    do_sample: bool = True,
+    generator: Optional[torch.Generator] = None,
+    bos_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Exact cached sampling → (B, *ordering.dimensions) int32 grid on the
+    model's device: ``decode_step`` per token (see
+    :func:`exact_logits_stepper`), after ``prime_cache`` for 'prepending'
+    conditionings."""
+    device = model.token_emb.weight.device
+    seq_len = int(np.prod(ordering.dimensions))
+    bos = model.num_tokens - 1 if bos_token is None else bos_token
+    step = exact_logits_stepper(model, batch=batch, conditionings=conditionings)
+    tok = torch.full((batch,), bos, dtype=torch.long, device=device)
+    tokens = []
+    for t in range(seq_len):
+        tok = _mask_bos_and_draw(step(tok, t), bos, temperature, top_k, do_sample, generator)
+        tokens.append(tok)
+    return _grid_from_sequence(torch.stack(tokens, dim=1).to(torch.int32), ordering)
+
+
+def fused_logits_stepper(
+    model,
+    *,
+    batch: int,
+    conditionings: Optional[Sequence[torch.Tensor]] = None,
+    ring_quant: bool = False,
+    weight_quant: str = "int8",
+):
+    """The fused engine as ``step(tok (B,), t) -> logits (B, V) f32``:
+    each call embeds the token, runs the whole-depth fused step, writes
+    the rings and applies the final LayerNorm and the head.  Weights are
+    packed (int8 or packed int4) once, here; the FAVOR state is bf16,
+    the rings bf16 or int8 (``ring_quant``)."""
+    device = model.token_emb.weight.device
+    vocab = model.num_tokens
+    cfg = _config(model, batch, ring_quant, weight_quant)
+    params = strip_reference_weights(pack_fused_params(model, weight_quant=weight_quant))
+    emb_t = model.token_emb.weight.to(torch.bfloat16)
+    fn_s = model.final_norm.weight.to(torch.float32)
+    fn_b = model.final_norm.bias.to(torch.float32)
+    # head product in f32 on bf16-rounded operands (the TPU path's bf16
+    # dot with f32 accumulation); TF32 stays off for matmuls by default
+    if model.tie_embed:
+        head_w = emb_t.to(torch.float32).T
+        head_b = torch.zeros(vocab, device=device)
+    else:
+        head_w = model.to_out.weight.T.to(torch.bfloat16).to(torch.float32)
+        head_b = model.to_out.bias.to(torch.float32)
+    pos_table = combined_position_table(model, model.max_seq_len)
+
+    cond_sum = None
+    if conditionings is not None and model.conditioning_type == "bos_replacement":
+        cond_sum = torch.zeros(batch, model.dim, device=device)
+        for emb, c in zip(model.conditioning_embs, conditionings):
+            cond_sum = cond_sum + emb.weight.to(torch.float32)[
+                torch.as_tensor(c, device=device).reshape(batch).long()
+            ]
+    state = init_fused_state(cfg, device=device)
+
+    def step(tok: torch.Tensor, t: int) -> torch.Tensor:
+        emb = emb_t[tok].to(torch.float32)
+        if cond_sum is not None and t == 0:
+            emb = cond_sum
+        h, _, k_all, v_all = fused_decode_step(params, state, emb + pos_table[t], t, cfg)
+        update_rings(state, k_all, v_all, t, cfg)
+        mu = h.mean(-1, keepdim=True)
+        var = (h - mu).square().mean(-1, keepdim=True)
+        hn = (h - mu) * torch.rsqrt(var + 1e-6) * fn_s + fn_b
+        return hn.to(torch.bfloat16).to(torch.float32) @ head_w + head_b
+
+    return step
+
+
 @torch.no_grad()
 def sample_fused(
     model,
@@ -104,58 +264,45 @@ def sample_fused(
     weight_quant: str = "int8",
 ) -> torch.Tensor:
     """Fused-step sampling → (B, *ordering.dimensions) int32 grid, on
-    the model's device.  Weights are packed (int8 or packed int4) at each
-    call, FAVOR state is bf16, rings bf16 or int8 (``ring_quant``)."""
+    the model's device (see :func:`fused_logits_stepper`)."""
     device = model.token_emb.weight.device
     seq_len = int(np.prod(ordering.dimensions))
-    vocab = model.num_tokens
-    bos = vocab - 1 if bos_token is None else bos_token
-    cfg = _config(model, batch, ring_quant, weight_quant)
-    params = strip_reference_weights(pack_fused_params(model, weight_quant=weight_quant))
-
-    emb_t = model.token_emb.weight.to(torch.bfloat16)
-    fn_s = model.final_norm.weight.to(torch.float32)
-    fn_b = model.final_norm.bias.to(torch.float32)
-    # head product in f32 on bf16-rounded operands (the TPU path's bf16
-    # dot with f32 accumulation); TF32 stays off for matmuls by default
-    if model.tie_embed:
-        head_w = emb_t.to(torch.float32).T
-        head_b = torch.zeros(vocab, device=device)
-    else:
-        head_w = model.to_out.weight.T.to(torch.bfloat16).to(torch.float32)
-        head_b = model.to_out.bias.to(torch.float32)
-    pos_table = combined_position_table(model, seq_len)
-
-    cond_sum = None
-    if conditionings is not None and model.conditioning_type == "bos_replacement":
-        cond_sum = torch.zeros(batch, model.dim, device=device)
-        for emb, c in zip(model.conditioning_embs, conditionings):
-            cond_sum = cond_sum + emb.weight.to(torch.float32)[
-                torch.as_tensor(c, device=device).reshape(batch).long()
-            ]
-
-    state = init_fused_state(cfg, device=device)
+    bos = model.num_tokens - 1 if bos_token is None else bos_token
+    step = fused_logits_stepper(model, batch=batch, conditionings=conditionings,
+                                ring_quant=ring_quant, weight_quant=weight_quant)
     tok = torch.full((batch,), bos, dtype=torch.long, device=device)
     tokens = []
     for t in range(seq_len):
-        emb = emb_t[tok].to(torch.float32)
-        if cond_sum is not None and t == 0:
-            emb = cond_sum
-        h = emb + pos_table[t]
-        h, state, k_all, v_all = fused_decode_step(params, state, h, t, cfg)
-        update_rings(state, k_all, v_all, t, cfg)
-        mu = h.mean(-1, keepdim=True)
-        var = (h - mu).square().mean(-1, keepdim=True)
-        hn = (h - mu) * torch.rsqrt(var + 1e-6) * fn_s + fn_b
-        logits = hn.to(torch.bfloat16).to(torch.float32) @ head_w + head_b
-        logits[:, bos] = -math.inf
-        tok = sample_next_index(
-            logits, temperature=temperature, top_k=top_k, sample=do_sample,
-            generator=generator,
-        )
+        tok = _mask_bos_and_draw(step(tok, t), bos, temperature, top_k, do_sample, generator)
         tokens.append(tok)
     seq = torch.stack(tokens, dim=1).to(torch.int32)
     return _grid_from_sequence(seq, ordering)
+
+
+@torch.no_grad()
+def sample_naive(
+    model,
+    ordering: Ordering,
+    *,
+    batch: int = 1,
+    conditionings: Optional[Sequence[torch.Tensor]] = None,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    do_sample: bool = True,
+    generator: Optional[torch.Generator] = None,
+    bos_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Reference-shaped sampler: the full forward over the whole padded
+    prefix each step (O(L) full forwards), kept for parity checks."""
+    device = model.token_emb.weight.device
+    seq_len = int(np.prod(ordering.dimensions))
+    bos = model.num_tokens - 1 if bos_token is None else bos_token
+    tokens = torch.full((batch, seq_len + 1), bos, dtype=torch.long, device=device)
+    for t in range(seq_len):
+        logits = model(tokens[:, :-1], conditionings)[:, t]
+        tokens[:, t + 1] = _mask_bos_and_draw(logits, bos, temperature, top_k, do_sample,
+                                              generator)
+    return _grid_from_sequence(tokens[:, 1:].to(torch.int32), ordering)
 
 
 def _fused_ok(model, with_conditionings: bool) -> bool:
@@ -176,18 +323,28 @@ def make_sampler(
     do_sample: bool = True,
     bos_token: Optional[int] = None,
     with_conditionings: bool = False,
+    fused="auto",
     ring_quant: bool = False,
     weight_quant: str = "int8",
 ):
-    """Return ``sampler(generator=None[, conditionings])`` over the fused
-    engine.  A configuration the fused step does not cover raises
-    ``NotImplementedError``: the exact ``decode_step`` path is the next
-    module to port (ROADMAP.md)."""
-    if not _fused_ok(model, with_conditionings):
-        raise NotImplementedError(
-            "this prior configuration needs the exact decode_step sampling "
-            "path, which is not ported yet (see ROADMAP.md, modules to port)"
-        )
+    """Return ``sampler(generator=None[, conditionings])``.
+
+    ``fused`` picks the engine: ``"auto"`` takes the fused step
+    (quantized weights, bf16 FAVOR state) where ``_fused_ok`` holds and
+    the exact :func:`sample` elsewhere; ``True`` demands the fused step
+    and raises ``ValueError`` for a configuration it does not cover;
+    ``False`` takes the exact path."""
+    if fused == "auto":
+        use_fused = _fused_ok(model, with_conditionings)
+    elif fused:
+        if not _fused_ok(model, with_conditionings):
+            raise ValueError("fused=True: the fused decode step does not cover this prior "
+                             "configuration; use fused='auto' or fused=False")
+        use_fused = True
+    else:
+        use_fused = False
+    extra = dict(ring_quant=ring_quant, weight_quant=weight_quant) if use_fused else {}
+    engine = sample_fused if use_fused else sample
 
     def sampler(generator=None, conditionings=None):
         if with_conditionings and conditionings is None:
@@ -197,11 +354,11 @@ def make_sampler(
                 "conditionings passed to a sampler built with "
                 "with_conditionings=False would be ignored"
             )
-        return sample_fused(
+        return engine(
             model, ordering, batch=batch, conditionings=conditionings,
             temperature=temperature, top_k=top_k, do_sample=do_sample,
-            generator=generator, bos_token=bos_token, ring_quant=ring_quant,
-            weight_quant=weight_quant,
+            generator=generator, bos_token=bos_token, **extra,
         )
 
+    sampler.fused = use_fused
     return sampler

@@ -8,7 +8,8 @@ softmax-kernel attention with a projection and the zero key stabilizer
 goes to the fused kernel (``ops/favor_attention.py``) when
 ``use_pallas_scan`` is set; generalized features, ``no_projection``,
 non-causal attention and ``stabilize_keys=True`` always take the plain
-path here, as they take XLA's in JAX.
+path here, as they take XLA's in JAX.  ``favor_attention_step`` is the
+single-token incremental form of the exact decode path.
 
 Random draws come from a ``torch.Generator`` and do not reproduce
 JAX's bits; weights that must match are carried across by
@@ -19,7 +20,7 @@ products take operands in ``compute_dtype`` and accumulate in f32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -33,6 +34,7 @@ __all__ = [
     "generalized_kernel_features",
     "causal_linear_attention_chunked",
     "favor_attention",
+    "favor_attention_step",
 ]
 
 
@@ -202,3 +204,49 @@ def favor_attention(
     else:
         out = _noncausal_linear_attention(q_p, k_p, v32, compute_dtype)
     return out.to(in_dtype)
+
+
+def favor_attention_step(
+    q_t: torch.Tensor,
+    k_t: torch.Tensor,
+    v_t: torch.Tensor,
+    state: Tuple[torch.Tensor, torch.Tensor],
+    projection: Optional[torch.Tensor],
+    *,
+    generalized: bool = False,
+    kernel_fn: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One causal FAVOR+ token: q_t, k_t, v_t (B, H, d) and the prefix
+    state (S (B, H, m, d), z (B, H, m)) → (out_t (B, H, d) in v's dtype,
+    state).
+
+    S and z are updated IN PLACE (JAX returns new arrays; in place, the
+    state keeps its storage across steps, as the local rings do): they
+    accumulate in f32 and are rounded to their own dtype after the
+    update, and the output reads the unrounded f32 sums.  The key
+    stabilizer is 0, so the step equals the batch path up to that
+    cancelled constant and rounding."""
+    S, z = state
+    if generalized:
+        q_p = generalized_kernel_features(q_t[..., None, :], projection, kernel_fn=kernel_fn)
+        k_p = generalized_kernel_features(k_t[..., None, :], projection, kernel_fn=kernel_fn)
+        q_p, k_p = q_p[..., 0, :], k_p[..., 0, :]
+    elif projection is None:
+        q_p = torch.softmax(q_t.to(torch.float32), dim=-1)
+        k_p = torch.exp(k_t.to(torch.float32))
+    else:
+        zero = torch.zeros((), device=k_t.device)
+        q_p = softmax_kernel_features(q_t[..., None, :], projection, is_query=True)[..., 0, :]
+        k_p = softmax_kernel_features(k_t[..., None, :], projection, is_query=False,
+                                      stabilizer=zero)[..., 0, :]
+    kv = torch.einsum("bhm,bhd->bhmd", k_p, v_t.to(torch.float32))
+    if S.dtype == torch.float32:
+        S32, z32 = S.add_(kv), z.add_(k_p)
+    else:
+        S32, z32 = S.to(torch.float32) + kv, z.to(torch.float32) + k_p
+        S.copy_(S32)
+        z.copy_(z32)
+    num = torch.einsum("bhm,bhmd->bhd", q_p, S32)
+    den = torch.clamp(torch.einsum("bhm,bhm->bh", q_p, z32), min=1e-12)
+    out = num / den[..., None]
+    return out.to(v_t.dtype), (S, z)

@@ -9,9 +9,10 @@ phases and the softmax run in f32; the two products take operands in
 f32, so a f32 product of bf16-rounded operands is the TPU's bf16
 matmul with f32 accumulation).
 
-The incremental ``local_attention_step`` and the sequence-parallel
-variant are not ported yet (ROADMAP §1).  The banded kernel for the
-training path is ``ops/local_attention_flash.py``.
+``local_attention_step`` is the ring-buffer form of the exact decode
+path.  The sequence-parallel variant is not ported yet (ROADMAP §1).
+The banded kernel for the training path is
+``ops/local_attention_flash.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["rotary_sin_cos", "apply_rotary", "local_attention", "rounded"]
+__all__ = ["rotary_sin_cos", "apply_rotary", "local_attention", "local_attention_step",
+           "rounded"]
 
 
 def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -33,7 +35,7 @@ def rotary_sin_cos(dim: int, positions: torch.Tensor) -> Tuple[torch.Tensor, tor
     """(L, dim) sin and cos tables, GPT-NeoX layout (frequencies
     duplicated across the two halves)."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(10000.0, device=positions.device), exps)
+    inv_freq = 1.0 / torch.pow(10000.0, exps)  # a Python base: no host-to-card copy
     freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.sin(emb), torch.cos(emb)
@@ -96,3 +98,45 @@ def local_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhnij,bhnjd->bhnid", rounded(probs, cd), v2)
     return out.reshape(b, h, n + pad, d)[:, :, :n].to(in_dtype)
+
+
+def local_attention_step(
+    q_t: torch.Tensor,
+    k_t: torch.Tensor,
+    v_t: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    t,
+    *,
+    window: int,
+    use_rotary: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One token at position ``t`` (an int or a 0-d integer tensor on the
+    rings' device) over a ring of the last ``window`` keys.
+
+    q_t, k_t, v_t: (B, H, d); cache_k, cache_v: (B, H, window, d) rings,
+    written IN PLACE at slot ``t mod window`` (JAX returns new arrays;
+    a copy of both rings per layer and token would dominate the step).
+    Returns ``(out_t, cache_k, cache_v)``.  The query attends to
+    positions (t − window, t], as :func:`local_attention` does; rotary at
+    ``t`` is applied here, on top of any layer rotary.  Scores and the
+    softmax are f32; the rings keep their own dtype."""
+    d = q_t.shape[-1]
+    in_dtype = v_t.dtype
+    t = torch.as_tensor(t, device=cache_k.device)
+    if use_rotary:
+        sin, cos = rotary_sin_cos(d, t.reshape(1))
+        q_t = apply_rotary(q_t.to(torch.float32)[..., None, :], sin, cos)[..., 0, :]
+        k_t = apply_rotary(k_t.to(torch.float32)[..., None, :], sin, cos)[..., 0, :]
+    slot = t % window
+    cache_k.index_copy_(2, slot.reshape(1), k_t.to(cache_k.dtype)[:, :, None])
+    cache_v.index_copy_(2, slot.reshape(1), v_t.to(cache_v.dtype)[:, :, None])
+    # slots <= slot hold t - (slot - j); slots > slot a window earlier
+    slots = torch.arange(window, device=q_t.device)
+    k_pos = t - (slot - slots) - torch.where(slots > slot, window, 0)
+    valid = (k_pos >= 0) & (k_pos > t - window) & (k_pos <= t)
+    scores = torch.einsum("bhd,bhjd->bhj", q_t.to(torch.float32),
+                          cache_k.to(torch.float32)) * d ** -0.5
+    probs = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
+    out = torch.einsum("bhj,bhjd->bhd", probs, cache_v.to(torch.float32))
+    return out.to(in_dtype), cache_k, cache_v

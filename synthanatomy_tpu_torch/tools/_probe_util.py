@@ -1,0 +1,43 @@
+"""What the probe tools share: the device choice and a chain timer."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def probe_device(cpu: bool) -> torch.device:
+    """The card, or the host with ``--cpu`` (the plain versions run
+    there); no card and no ``--cpu`` raises."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card visible: pass --cpu for a sanity run on the host")
+    return torch.device("cuda", 0)
+
+
+def device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu (plain versions)"
+
+
+def elapsed_s(fn, dev: torch.device) -> float:
+    """Seconds one call of ``fn`` takes: CUDA events on the card, the host
+    clock on the CPU."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / 1e3
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-9)

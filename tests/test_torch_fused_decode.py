@@ -235,3 +235,94 @@ def test_init_fused_state_defaults_to_the_card():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             tfd.init_fused_state(cfg_t)
+
+
+# ---------------------------------------------------------------------------
+# guards of the fused engine against the exact decode path
+# ---------------------------------------------------------------------------
+
+
+def _teacher_forced(tm, tokens, step):
+    """Logits (B, T, V) f32 of ``step(tok, t)`` over the given tokens."""
+    with torch.no_grad():
+        return torch.stack([step(torch.from_numpy(tokens[:, t]).long(), t).float()
+                            for t in range(tokens.shape[1])], dim=1)
+
+
+def _token_seq():
+    return np.random.default_rng(7).integers(0, VOCAB - 1, (B, 24)).astype(np.int32)
+
+
+def test_int8_rings_close_to_bf16_rings(models):
+    """Quality guard (tests/test_fused_decode.py:364): the fused engine
+    with int8 rings against bf16 rings on the same tokens, past the
+    12-token window — logit perturbation small, greedy picks kept."""
+    from synthanatomy_tpu_torch.models.sampling import fused_logits_stepper
+
+    rezero, jm, variables, tm = models
+    tokens = _token_seq()
+    lb = _teacher_forced(tm, tokens, fused_logits_stepper(tm, batch=B, ring_quant=False))
+    li = _teacher_forced(tm, tokens, fused_logits_stepper(tm, batch=B, ring_quant=True))
+    rel = float((lb - li).abs().max() / (lb.std() + 1e-9))
+    assert rel < 0.1, rel
+    agree = float((lb.argmax(-1) == li.argmax(-1)).float().mean())
+    assert agree >= 0.9, agree
+
+
+def test_int4_weights_bounded_perturbation_against_exact(models):
+    """int4 packed weights through the fused engine against the exact
+    decode_step path (tests/test_fused_decode.py:154): finite, mean
+    perturbation under 0.3 of the logit std, greedy agreement ≥ 0.5 on
+    this untrained random prior, whose flat logits flip easily."""
+    from synthanatomy_tpu_torch.models.sampling import exact_logits_stepper, fused_logits_stepper
+
+    rezero, jm, variables, tm = models
+    tokens = _token_seq()
+    exact = _teacher_forced(tm, tokens, exact_logits_stepper(tm, batch=B))
+    q4 = _teacher_forced(tm, tokens, fused_logits_stepper(tm, batch=B, weight_quant="int4"))
+    assert torch.isfinite(q4).all()
+    rel = float((q4 - exact).abs().mean() / exact.std())
+    assert rel < 0.3, f"mean perturbation {rel:.3f} of logit std"
+    agree = float((q4.argmax(-1) == exact.argmax(-1)).float().mean())
+    assert agree >= 0.5, f"greedy agreement {agree}"
+
+
+@pytest.mark.parametrize("paper_form", [False, True], ids=["preln", "rezero+spatial"])
+def test_trained_model_fused_int8_greedy_matches_exact(paper_form):
+    """Quality guard on a TRAINED prior (tests/test_fused_decode.py:520),
+    trained with the port's own train step: fit a deterministic pattern to
+    low CE, then the fused sampler with int8 weights AND int8 rings must
+    agree greedily with the exact sampler, everywhere."""
+    from synthanatomy_tpu_torch.models.ordering import Ordering
+    from synthanatomy_tpu_torch.models.performer import Performer
+    from synthanatomy_tpu_torch.models.sampling import make_sampler
+    from synthanatomy_tpu_torch.runners.transformer import prepare_batch
+    from synthanatomy_tpu_torch.train.transformer_steps import (
+        create_transformer_train_state,
+        make_transformer_train_step,
+    )
+
+    grid, vocab = (2, 3, 2), 16
+    seq = int(np.prod(grid))
+    ordering = Ordering("raster_scan", 3, grid)
+    pattern = (5 * np.arange(seq)) % vocab
+    latents = np.broadcast_to(pattern.reshape(grid), (8,) + grid)
+    extra = (dict(use_rezero=True, spatial_position_emb="absolute", spatial_shape=grid,
+                  ordering=ordering) if paper_form else {})
+    model = Performer(vocab + 1, seq + 1, 128, 2, heads=2, dim_head=64, local_attn_heads=1,
+                      local_window_size=4, nb_features=64, dtype=torch.float32, scan_chunk=8,
+                      generator=torch.Generator().manual_seed(0), device="cpu", **extra)
+    assert tfd.supports_fused_decode(model)
+    state = create_transformer_train_state(model, 0, learning_rate=3e-3)
+    step = make_transformer_train_step(model)
+    inputs, targets = (torch.from_numpy(a).long() for a in prepare_batch(latents, ordering, vocab))
+    for _ in range(120):
+        state, metrics = step(state, inputs, targets, None, {"lr": 3e-3})
+    ce = float(metrics["Loss"])
+    assert ce < 0.2, f"tiny model failed to fit (CE={ce})"
+
+    exact = make_sampler(model, ordering, batch=2, do_sample=False, fused=False)(None)
+    fused = make_sampler(model, ordering, batch=2, do_sample=False, fused=True,
+                         ring_quant=True)(None)
+    assert float((exact == fused).float().mean()) == 1.0
+    np.testing.assert_array_equal(exact[0].numpy(), pattern.reshape(grid))

@@ -16,6 +16,8 @@ from synthanatomy_tpu_torch.ops import favor_attention as tfa
 from synthanatomy_tpu_torch.ops import fused_decode as tfd
 from synthanatomy_tpu_torch.ops import local_attention_flash as tlf
 from synthanatomy_tpu_torch.ops import local_attention_splash as tsp
+from synthanatomy_tpu_torch.ops import probes as tpr
+from synthanatomy_tpu_torch.ops import quant as tq
 from synthanatomy_tpu_torch.ops import res_stack as trs
 from synthanatomy_tpu_torch.ops import vq as tvq
 from synthanatomy_tpu_torch.ops.favor import gaussian_orthogonal_random_matrix
@@ -377,3 +379,142 @@ def test_stage1_kernels_reject_bad_inputs(cuda):
         trs.fused_residual_layer(v, torch.zeros(600, 4, 3, 3, 3, device=cuda),
                                  torch.zeros(600, device=cuda),
                                  torch.zeros(4, 600, 1, 1, 1, device=cuda), b2)
+
+
+# ---------------------------------------------------------------------------
+# decode-side weight streaming: int8_matmul (row 2), the packed-int4
+# product, the weight-stream chain, the unpack formulations and the
+# launch-overhead tile program (rows 9a-9c)
+# ---------------------------------------------------------------------------
+
+
+def _int8_weights(k, n, gen, device):
+    w = torch.randn(k, n, generator=gen, device=device)
+    return tq.quantize_int8(w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,k,n", [(16, 512, 1024), (16, 2048, 512), (1, 200, 96),
+                                   (5, 64, 1000), (33, 128, 256), (7, 30, 17)])
+def test_int8_matmul_kernel_matches_plain(cuda, r, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(r * k + n)
+    x = torch.randn(r, k, generator=gen, device=cuda)
+    w_q, scale = _int8_weights(k, n, gen, cuda)
+    before = tq.int8_matmul.launches
+    got = tq.int8_matmul(x, w_q, scale)
+    again = tq.int8_matmul(x, w_q, scale)
+    want = tq.int8_matmul_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul.launches == before + 2
+    assert torch.equal(got, again)  # fixed summation order
+    # exact bf16 products summed in f32 in another order
+    _assert_kernel_close("int8_matmul", got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,n", [(1, 512), (4, 512), (2, 100)])
+def test_int4_matmul_kernel_matches_plain(cuda, layers, n):
+    gen = torch.Generator(device=cuda).manual_seed(layers + n)
+    x = torch.randn(16, 256, generator=gen, device=cuda)
+    packed, scale = zip(*(tq.quantize_int4_packed(torch.randn(256, n, generator=gen,
+                                                              device=cuda))
+                          for _ in range(layers)))
+    packed, scale = torch.stack(packed), torch.stack(scale)
+    got = tq.int4_matmul(x, packed, scale)
+    want = tq.int4_matmul_plain(x, packed[-1], scale[-1])
+    torch.cuda.synchronize()
+    _assert_kernel_close("int4_matmul", got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed-int4"])
+def test_weight_stream_kernel_matches_plain(cuda, packed):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, k, n, layers = 16, 128, 512, 5
+    x = torch.randn(b, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randint(-7, 8, (layers, k // 2 if packed else k, n), generator=gen,
+                      device=cuda).to(torch.int8)
+    s = torch.rand(layers, 1, n, generator=gen, device=cuda) * 0.01 + 0.01
+    got = tpr.weight_stream(x, w, s, packed)
+    again = tpr.weight_stream(x, w, s, packed)
+    want = tpr.weight_stream_plain(x, w, s, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_kernel_close("weight_stream", got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", range(4))
+def test_int4_unpack_kernel_is_exact(cuda, variant):
+    packed = torch.arange(256, dtype=torch.int32, device=cuda).to(torch.uint8).view(
+        torch.int8).reshape(16, 16)
+    lo, hi = tq.unpack_int4(packed)
+    want = torch.cat([lo, hi]).float()
+    assert torch.equal(tpr.int4_unpack(packed, variant), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,steps", [(256, 512, 512, 3), (64, 48, 128, 1)])
+def test_tile_steps_kernel_matches_plain(cuda, m, k, n, steps):
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen, device=cuda).to(torch.bfloat16)
+    got = tpr.tile_steps(x, w, steps).float()
+    want = tpr.tile_steps_plain(x, w, steps).float()
+    torch.cuda.synchronize()
+    # bf16 output: one rounding of f32 sums taken in other orders
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_decode_side_kernels_reject_bad_inputs(cuda):
+    x = torch.zeros(4, 32, device=cuda)
+    with pytest.raises(TypeError):
+        tq.int8_matmul(x, torch.zeros(32, 16, device=cuda), torch.ones(1, 16, device=cuda))
+    with pytest.raises(ValueError):
+        tq.int8_matmul(x, torch.zeros(32, 16, dtype=torch.int8), torch.ones(1, 16))
+    with pytest.raises(ValueError):
+        tpr.tile_steps(torch.zeros(60, 32, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(32, 64, device=cuda, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError):  # N not a multiple of K
+        tpr.weight_stream(x, torch.zeros(2, 32, 48, dtype=torch.int8, device=cuda),
+                          torch.ones(2, 1, 48, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the exact sampler's CUDA graph (models/sampling.exact_logits_stepper)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [{}, dict(rotary_position_emb=True, local_attn_heads=2),
+                                   dict(axial_position_emb=True, spatial_position_emb="fixed")],
+                         ids=["rezero-spatial", "rotary-all-local", "axial-fixed-spatial"])
+def test_exact_stepper_graph_matches_eager(cuda, extra):
+    """Steps replayed from the captured graph equal eager ``decode_step``
+    on the same tokens (the same kernels, in f32), across a ring wrap."""
+    from synthanatomy_tpu_torch.models.ordering import Ordering
+    from synthanatomy_tpu_torch.models.sampling import exact_logits_stepper
+
+    grid = (2, 3, 4)
+    kw = dict(num_tokens=33, max_seq_len=25, dim=64, depth=2, heads=2, dim_head=32,
+              local_attn_heads=1, local_window_size=5, use_rezero=True,
+              spatial_position_emb="absolute", spatial_shape=grid,
+              ordering=Ordering("raster_scan", 3, grid), dtype=torch.float32,
+              generator=torch.Generator().manual_seed(0), device="cpu")
+    kw.update(extra)
+    model = Performer(**kw).to(cuda)
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.g_attn.fill_(0.5)
+            blk.g_ff.fill_(0.5)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 32, (2, 24)), device=cuda)
+    tokens[:, 0] = 32
+    with torch.no_grad():
+        step = exact_logits_stepper(model, batch=2)
+        got = torch.stack([step(tokens[:, t], t) for t in range(24)], dim=1)
+        cache = model.init_cache(2)
+        want = torch.stack([model.decode_step(tokens[:, t], cache, t)[0] for t in range(24)],
+                           dim=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

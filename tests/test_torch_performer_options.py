@@ -183,9 +183,14 @@ def test_position_embeddings_are_mutually_exclusive():
 @pytest.mark.parametrize("flag", ["rotary_position_emb", "use_scalenorm", "ff_glu"])
 def test_fused_sampler_refuses_what_it_does_not_cover(flag):
     """The fused decode step covers neither per-layer rotary, ScaleNorm
-    nor the GLU feed-forward; such a prior needs the exact decode_step
-    path, which the sampler names instead of running something else."""
+    nor the GLU feed-forward: ``fused=True`` refuses such a prior, and
+    ``"auto"`` samples it through the exact decode_step path."""
     model = Performer(VOCAB, L + 1, 128, 1, heads=2, dim_head=64, local_attn_heads=1,
                       local_window_size=6, device="cpu", **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sampler(model, Ordering("raster_scan", 3, GRID))
+    ordering = Ordering("raster_scan", 3, GRID)
+    with pytest.raises(ValueError, match="fused"):
+        make_sampler(model, ordering, fused=True)
+    sampler = make_sampler(model, ordering, do_sample=False)
+    assert not sampler.fused
+    grid = sampler(None)
+    assert grid.shape == (1,) + GRID and int(grid.max()) < VOCAB - 1

@@ -60,6 +60,40 @@ def test_make_synthesizer_matches_jax():
                                rtol=1e-4, atol=1e-4)
 
 
+def test_make_synthesizer_prepending_takes_exact_path():
+    """A 'prepending'-conditioned prior is not the fused step's: "auto"
+    routes it to the exact path, whose greedy grids equal JAX's."""
+    ordering = Ordering("raster_scan", 3, GRID)
+    seq = int(np.prod(GRID))
+    perf_kw = dict(heads=2, dim_head=64, local_attn_heads=1, local_window_size=6,
+                   nb_features=128, conditioning_num_tokens=(3,),
+                   conditioning_type="prepending")
+    conds = [np.asarray([0, 2], np.int32)]
+    jp = JPerformer(num_tokens=N_EMBED + 1, max_seq_len=seq + 1, dim=128, depth=2,
+                    dtype=jnp.float32, **perf_kw)
+    pvars = jax.device_get(jax.jit(jp.init)(
+        {"params": jax.random.key(0), "favor": jax.random.key(1)},
+        jnp.zeros((1, 8), jnp.int32), [jnp.zeros((1,), jnp.int32)]))
+    jv = JVQVAE(n_levels=2, downsample_parameters=DOWN, upsample_parameters=UP,
+                n_embed=N_EMBED, embed_dim=8, n_channels=16, n_res_channels=16,
+                n_res_layers=1, dtype=jnp.float32)
+    vvars = jax.device_get(jax.jit(jv.init)(jax.random.key(2), jnp.zeros((1, 4, 4, 4, 1))))
+    j_synth = j_make_synthesizer(jp, jv, ordering, batch=B, do_sample=False,
+                                 with_conditionings=True, decode_batch=1)
+    _, j_grids = j_synth(pvars, vvars, jax.random.key(3), [jnp.asarray(c) for c in conds])
+
+    tp = performer_from_jax(pvars["params"], pvars["favor"], 2, device="cpu",
+                            dtype=torch.float32, **perf_kw)
+    tv = vqvae_from_jax(vvars["params"], vvars["vq"], 2, 1,
+                        downsample_parameters=DOWN, upsample_parameters=UP,
+                        dtype=torch.float32, device="cpu")
+    synth = make_synthesizer(tp, tv, ordering, batch=B, do_sample=False,
+                             with_conditionings=True, decode_batch=1)
+    vols, grids = synth(None, [torch.from_numpy(c) for c in conds])
+    np.testing.assert_array_equal(grids.numpy(), np.asarray(j_grids))
+    assert vols.shape == (B, 1, 8, 12, 8) and torch.isfinite(vols).all()
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"

@@ -16,6 +16,7 @@ from synthanatomy_tpu.models.performer import Performer as JPerformer
 from synthanatomy_tpu_torch.interop import performer_from_jax
 from synthanatomy_tpu_torch.models import sampling as ts
 from synthanatomy_tpu_torch.models.ordering import Ordering
+from synthanatomy_tpu_torch.models.performer import Performer as ts_performer
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -110,13 +111,19 @@ def test_top_k_and_greedy_policy_match_jax():
     )
 
 
-def test_unsupported_configuration_raises(paper_form):
-    ordering, _, _, tm = paper_form
-    with pytest.raises(NotImplementedError, match="decode_step"):
-        tm.local_attn_heads = HEADS  # no global head left
-        try:
-            ts.make_sampler(tm, ordering, batch=B)
-        finally:
-            tm.local_attn_heads = LH
+def test_unsupported_configuration_raises():
+    """An all-local prior has no FAVOR head for the fused step: "auto"
+    samples it through the exact path, ``fused=True`` refuses it, and a
+    conditioning passed to a sampler built without them is refused."""
+    ordering = Ordering("raster_scan", 3, GRID)
+    tm = ts_performer(num_tokens=VOCAB, max_seq_len=int(np.prod(GRID)) + 1, dim=DIM, depth=1,
+                      heads=HEADS, dim_head=DH, local_attn_heads=HEADS, local_window_size=WIN,
+                      generator=torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        ts.make_sampler(tm, ordering, batch=B, fused=True)
+    sampler = ts.make_sampler(tm, ordering, batch=B, do_sample=False)
+    assert not sampler.fused
+    grid = sampler(None)
+    assert grid.shape == (B,) + GRID and int(grid.max()) < VOCAB - 1
     with pytest.raises(ValueError):
-        ts.make_sampler(tm, ordering, batch=B)(None, [torch.zeros(B)] * 2)
+        sampler(None, [torch.zeros(B)] * 2)

@@ -247,9 +247,9 @@ def test_unported_options_raise(flag):
     """These options once raised at construction; they are ported now
     (each is held against JAX in tests/test_torch_performer_options.py),
     so the model builds and runs a finite forward.  What stays unported
-    behind them is the exact decode_step sampler: a prior the fused step
-    does not cover (per-layer rotary, ScaleNorm, GLU) makes the sampler
-    raise and name the ROADMAP."""
+    behind them was the exact decode_step sampler; it is ported too, so a
+    prior the fused step does not cover (per-layer rotary, ScaleNorm, GLU)
+    makes ``fused=True`` raise and ``"auto"`` take the exact path."""
     model = Performer(VOCAB, L + 1, 128, 1, heads=2, dim_head=64, local_attn_heads=1,
                       local_window_size=6, device="cpu", dtype=torch.float32, **{flag: True})
     inputs, _, _ = _batch(None)
@@ -258,8 +258,9 @@ def test_unported_options_raise(flag):
     if flag in ("rotary_position_emb", "use_scalenorm", "ff_glu"):
         from synthanatomy_tpu_torch.models.sampling import make_sampler
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_sampler(model, Ordering("raster_scan", 3, GRID))
+        with pytest.raises(ValueError, match="fused"):
+            make_sampler(model, Ordering("raster_scan", 3, GRID), fused=True)
+        assert not make_sampler(model, Ordering("raster_scan", 3, GRID)).fused
 
 
 def test_dropout_draws_from_the_generator():
