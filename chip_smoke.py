@@ -114,7 +114,22 @@ result, without them.  Phases, each fatal on failure:
    tools (``probe_int4``, ``probe_int4_unpack``,
    ``probe_pallas_overhead``; each checks every variant against its plain
    version and raises on a failure), and each probe kernel timed against
-   its plain version at the probe's shape.
+   its plain version at the probe's shape;
+16. row 9d, the kernel-body probe (``tools/probe_kernel_body.main`` with
+   every row): the ablated bodies of the FAVOR+ and banded local-attention
+   kernels (``ops/kernel_body.py``) at the paper shape (B6 x 8 heads x L
+   1401 x d 64, w 420, m 256, chunk 128, bf16), each held against its
+   plain twin at a small shape in bf16 and f32 and at the paper shape,
+   the production-equal bodies (local forward ``foldscale``, local
+   backward ``full``, FAVOR ``full``) against the production kernels bit
+   for bit; then the full bodies timed against their plain versions and,
+   for the local forward, SDPA with the banded mask;
+17. ``tools/validate_fused_decode`` at its defaults with int8 and with
+   int4 weights: a 6L/d256 prior (window 64, m 128) trained 400 steps
+   through rows 5 and 6 on structured latents, then greedy agreement of
+   the fused step with the exact path (bf16 and int8 rings), the
+   teacher-forced logit perturbation, KL and total variation, with the
+   fused kernel step held against its plain version at these widths.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -160,6 +175,7 @@ BENCH_SPLASH = ["--splash-local", "--pallas-favor", "--use-rezero", "--spatial-e
                 "--attn-dtype", "bfloat16"]
 BENCH_BANDED = ["--pallas-local"] + BENCH_SPLASH[1:]
 BENCH_STEPS = ["--steps", "4", "--warmup", "1"]  # + the first step: 6 steps a run
+PROBE_REPS = 20  # launches per measurement of the kernel-body probe (min of 5)
 SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two backward launches
 
 
@@ -1497,6 +1513,117 @@ def _check_decode_side(dev, smi):
     return out
 
 
+def _check_kernel_body(dev, smi):
+    """Phase 16: row 9d, the kernel-body probe's own entry point, then its
+    production-equal bodies timed against their plain versions.  Returns
+    {kernel: (launches, max abs err, ms, plain ms, bound, library ms)}."""
+    import torch
+
+    from synthanatomy_tpu_torch.ops import kernel_body as kb
+    from synthanatomy_tpu_torch.tools import probe_kernel_body as pkb
+
+    counters = (kb.local_fwd_body, kb.local_bwd_body, kb.favor_fwd_body, kb.favor_bwd_body)
+    for c in counters:
+        c.launches = 0
+    # every row (not --quick): each is held against its plain twin, the
+    # production-equal bodies against the production kernels; raises
+    res = pkb.main(["--reps", str(PROBE_REPS)])
+    torch.cuda.synchronize()
+    lf_n, lb_n, ff_n, fb_n = (c.launches for c in counters)
+    _require(min(lf_n, lb_n, ff_n, fb_n) > 0,
+             f"kernel-body launches: local fwd {lf_n}, local bwd {lb_n}, favor fwd {ff_n}, "
+             f"favor bwd {fb_n}")
+    print(f"[probe] kernel-body launches: local fwd {lf_n}, local bwd {lb_n}, favor fwd {ff_n}, "
+          f"favor bwd sweeps {fb_n}")
+
+    B, H, L, D, W, M, CH = pkb.B, pkb.H, pkb.L, pkb.D, pkb.W, pkb.M_FEAT, pkb.CHUNK
+    g = torch.Generator(device=dev).manual_seed(80)
+    q, k, v, gy = (torch.randn(B, H, L, D, generator=g, device=dev).mul(0.5).to(torch.bfloat16)
+                   for _ in range(4))
+    proj = torch.full((M, D), 0.05, device=dev)
+    bhld = B * H * L * D
+    pairs = sum(min(i + 1, W) for i in range(L))
+    i_, j_ = torch.arange(L, device=dev)[:, None], torch.arange(L, device=dev)[None, :]
+    band = (j_ <= i_) & (j_ > i_ - W)
+    rows = {
+        "local_fwd": res["local_fwd"]["full body"],
+        "local_bwd": res["local_bwd"]["full, bf16 outputs, bt=1"],
+    }
+    favor_full = [res["favor"][label] for label, _, body in pkb.FAVOR_ROWS if body == "full"]
+    favor_s = sum(r["s"] for r in favor_full)  # forward, dq sweep, dk/dv sweep
+    favor_err = max(r["err"] for r in favor_full)
+
+    def favor_plain():
+        out, den = kb.favor_fwd_body_plain(q, k, v, proj, CH)
+        return (kb.favor_bwd_body_plain(q, k, v, proj, gy, out, den, CH, sweep="dq"),
+                kb.favor_bwd_body_plain(q, k, v, proj, gy, out, den, CH, sweep="dkv"))
+
+    plain = {
+        "local_fwd": lambda: kb.local_fwd_body_plain(q, k, v, W, "full"),
+        "local_bwd": lambda: kb.local_bwd_body_plain(q, k, v, gy, W, "full"),
+        "favor": favor_plain,
+    }
+    plain_ms = {name: (_time_ms(fn, 2) + _time_ms(fn, 2)) / 2 for name, fn in plain.items()}
+    sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=band), 10)
+    io = _nbytes(q)  # one (B, H, L, d) bf16 tensor
+    bounds = {
+        # the two products of the band (4 FLOP per pair and feature) over
+        # q, k, v read and out written
+        "local_fwd": _bound(4 * B * H * pairs * D, 4 * io, PEAK_BF16),
+        # five products (scores, dP, dq, dk, dv) over q, k, v, g read and
+        # dq, dk, dv written
+        "local_bwd": _bound(10 * B * H * pairs * D, 7 * io, PEAK_BF16),
+        # row 5's count at this shape (phase 8): q, k, v, g read, out, den,
+        # dq, dk, dv written in f32
+        "favor": _bound(24 * bhld * M, 4 * io + _nbytes(proj) + 8 * io + B * H * L * 4,
+                        PEAK_BF16),
+    }
+    out = {
+        "kernel_body_local_fwd": (lf_n, rows["local_fwd"]["err"], rows["local_fwd"]["s"] * 1e3,
+                                  plain_ms["local_fwd"], bounds["local_fwd"], sdpa_ms),
+        "kernel_body_local_bwd": (lb_n, rows["local_bwd"]["err"], rows["local_bwd"]["s"] * 1e3,
+                                  plain_ms["local_bwd"], bounds["local_bwd"], None),
+        "kernel_body_favor": (ff_n + fb_n, favor_err, favor_s * 1e3, plain_ms["favor"],
+                              bounds["favor"], None),
+    }
+    for name, (n, err, ms, pms, bound, lib) in out.items():
+        print(f"[time] {name} (full body, B{B} x {H} heads x L{L} x d{D}, bf16): kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}); "
+              f"library {'none' if lib is None else f'{lib:.4f} ms (SDPA, banded mask, fwd)'}; "
+              f"max abs err vs plain at this shape {err:.3e}  [{smi}]")
+    return out
+
+
+def _check_validation(dev, smi):
+    """Phase 17: ``tools/validate_fused_decode`` at its defaults with int8
+    and with int4 weights: a 6L/d256 prior trained through rows 5 and 6,
+    then the fused step (row 1, at widths no other phase gives it)
+    against the exact path."""
+    import torch
+
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.tools import validate_fused_decode
+
+    for wq in ("int8", "int4"):
+        fd.fused_decode_step.launches = 0
+        fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+        t0 = time.perf_counter()
+        rec = validate_fused_decode.main(["--weight-quant", wq])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = (fd.fused_decode_step.launches, fa.favor_attention_fused.launches,
+             lf.local_attention_flash.launches)
+        _require(min(n) > 0, f"validate_fused_decode ({wq}) launches: fused step {n[0]}, "
+                             f"favor {n[1]}, local {n[2]}")
+        _require(rec["trained_ce"] < 2.0, f"validation prior did not train: CE "
+                                          f"{rec['trained_ce']}")
+        print(f"[validate] {wq} weights: {json.dumps(rec)}; launches: fused step {n[0]}, favor "
+              f"{n[1]}, local {n[2]}; {dt:.1f} s  [{smi}]")
+
+
 def main() -> int:
     import torch
 
@@ -1828,6 +1955,12 @@ def main() -> int:
     _check_exact_decode(dev, smi, fused_s)
     torch.cuda.empty_cache()
     ds = _check_decode_side(dev, smi)
+    torch.cuda.empty_cache()
+    # 16-17. row 9d through the kernel-body probe; the fused step validated
+    # on a trained prior
+    ds.update(_check_kernel_body(dev, smi))
+    torch.cuda.empty_cache()
+    _check_validation(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
         path = replaces if replaces.startswith("tools/") else f"synthanatomy_tpu/ops/{replaces}"
@@ -1863,7 +1996,10 @@ def main() -> int:
             ("weight_stream_int8", "weight_stream.cu", "tools/probe_int4.py:49"),
             ("weight_stream_int4", "weight_stream.cu", "tools/probe_int4.py:108"),
             ("int4_unpack", "int4_unpack.cu", "tools/probe_int4_unpack.py:142"),
-            ("launch_overhead", "launch_overhead.cu", "tools/probe_pallas_overhead.py:48"))],
+            ("launch_overhead", "launch_overhead.cu", "tools/probe_pallas_overhead.py:48"),
+            ("kernel_body_local_fwd", "local_attention.cu", "tools/probe_kernel_body.py:93"),
+            ("kernel_body_local_bwd", "local_attention.cu", "tools/probe_kernel_body.py:168"),
+            ("kernel_body_favor", "favor_attention.cu", "tools/probe_kernel_body.py:264"))],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

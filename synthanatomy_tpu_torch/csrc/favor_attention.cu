@@ -28,6 +28,11 @@
 // in L2.  Products are f32 FMAs over staged tiles (block_gemm.cuh), so
 // the kernel runs on 48 of 132 SMs and off the tensor cores; wgmma, TMA
 // and splitting a head across blocks are later work.
+//
+// probe_*_kernel are the same bodies under compile-time ablations: they
+// replace the TPU probe tools/probe_kernel_body.py::favor_variant
+// (:264), which patches _features and _tri of favor_pallas.py; wrappers
+// in ops/kernel_body.py.
 
 #include <stdint.h>
 
@@ -46,6 +51,17 @@ constexpr int kThreads = G::kThreads;  // 256
 constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-4f;  // the feature map's epsilon
 
+// Bodies of the kernel-body probe (ops/kernel_body.py), compile-time
+// ablations of the three kernels; the production kernels instantiate
+// kFull.  kIdFeat: the features are the raw products U = x·rnd(P)ᵀ (the
+// TPU probe's patched _features: no d^-1/4 scale and no diag/max/exp
+// chain, so query_exp and key_exp are skipped; the backward's chain
+// through φ runs with e = U, as that patch hands it); kNoMask: the
+// causal j <= i selects are unconditional.
+namespace FavorBody {
+enum { kFull = 0, kIdFeat, kNoMask };
+}
+
 struct Dims {
   int n, d, m, chunk;
   float dn, half_dn2, dn2, r;  // d^-1/4, dn²/2, dn², m^-1/2 (from the host, in f32)
@@ -62,14 +78,18 @@ __host__ __device__ inline int stage_offset(int d, int m, int chunk, int rows) {
   return (m * d + m + rows * chunk + 3) / 4 * 4;
 }
 
-// U (c x m) = rnd(x·dn) · rnd(P)ᵀ, x the chunk's c rows
-template <class T>
+// U (c x m) = rnd(x·dn) · rnd(P)ᵀ, x the chunk's c rows (kIdFeat: x · rnd(P)ᵀ)
+template <class T, int Body>
 __device__ void feature_dash(const Dims& D, int c, const T* x, const float* P, float* U,
                              float* stage) {
   const int d = D.d, m = D.m;
   const float dn = D.dn;
   G::run<true, true>(
-      c, m, d, [&](int i, int k) { return rnd<T>(to_f(x[i * d + k]) * dn); },
+      c, m, d,
+      [&](int i, int k) {
+        if constexpr (Body == FavorBody::kIdFeat) return to_f(x[i * d + k]);
+        else return rnd<T>(to_f(x[i * d + k]) * dn);
+      },
       [&](int k, int f) { return rnd<T>(P[f * d + k]); },
       [&](int i, int f, float acc) { U[i * m + f] = acc; }, stage);
 }
@@ -135,14 +155,17 @@ __device__ void out_cotangent(const Dims& D, int c, const T* g, const float* out
 }
 
 // DS (c x c) = tril(rnd(dnum)·vᵀ + gd)
-template <class T>
+template <class T, int Body>
 __device__ void dscores(const Dims& D, int c, const float* DNUM, const T* v, const float* gd,
                         float* DS, float* stage) {
   const int d = D.d, ch = D.chunk;
   G::run<true, true>(
       c, c, d, [&](int i, int e) { return rnd<T>(DNUM[i * d + e]); },
       [&](int e, int j) { return to_f(v[j * d + e]); },
-      [&](int i, int j, float acc) { DS[i * ch + j] = j <= i ? acc + gd[i] : 0.f; }, stage);
+      [&](int i, int j, float acc) {
+        DS[i * ch + j] = (Body == FavorBody::kNoMask || j <= i) ? acc + gd[i] : 0.f;
+      },
+      stage);
 }
 
 // S += rnd(kp)ᵀ·v and z += Σ_rows kp (kp in f32)
@@ -162,18 +185,19 @@ __device__ void prefix_update(const Dims& D, int c, const float* KP, const T* v,
   __syncthreads();
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-favor_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ P, float* out, float* den,
-                 float* work) {
-  extern __shared__ float smem[];
+// One block's forward sweep over the (batch·head) row bh.
+template <class T, int Body>
+__device__ __forceinline__ void favor_fwd_body(const Dims& D, long long bh,
+                                               const T* __restrict__ q,
+                                               const T* __restrict__ k,
+                                               const T* __restrict__ v,
+                                               const float* __restrict__ P, float* out,
+                                               float* den, float* work, float* smem) {
   const int n = D.n, d = D.d, m = D.m, ch = D.chunk;
   float* S = smem;           // m x d
   float* z = S + m * d;      // m
   float* inv = z + m;        // chunk
   float* stage = smem + stage_offset(d, m, ch, 1);
-  const long long bh = blockIdx.x;
   q += bh * n * d;
   k += bh * n * d;
   v += bh * n * d;
@@ -192,15 +216,20 @@ favor_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
     const T* qc = q + c0 * d;
     const T* kc = k + c0 * d;
     const T* vc = v + c0 * d;
-    feature_dash<T>(D, c, qc, P, U, stage);
-    feature_dash<T>(D, c, kc, P, KP, stage);
-    query_exp<T, true>(D, c, qc, U, U);
-    key_exp<T, true>(D, c, kc, KP);
+    feature_dash<T, Body>(D, c, qc, P, U, stage);
+    feature_dash<T, Body>(D, c, kc, P, KP, stage);
+    if constexpr (Body != FavorBody::kIdFeat) {
+      query_exp<T, true>(D, c, qc, U, U);
+      key_exp<T, true>(D, c, kc, KP);
+    }
     __syncthreads();
     G::run<true, true>(
         c, c, m, [&](int i, int f) { return rnd<T>(U[i * m + f]); },
         [&](int f, int j) { return rnd<T>(KP[j * m + f]); },
-        [&](int i, int j, float acc) { SC[i * ch + j] = j <= i ? acc : 0.f; }, stage);
+        [&](int i, int j, float acc) {
+          SC[i * ch + j] = (Body == FavorBody::kNoMask || j <= i) ? acc : 0.f;
+        },
+        stage);
     // den = Σ_j scores + rnd(qp)·rnd(z)
     for (int i = threadIdx.x >> 5; i < c; i += kWarps) {
       const int lane = threadIdx.x & 31;
@@ -228,20 +257,23 @@ favor_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-favor_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ P,
-                    const T* __restrict__ g, const float* __restrict__ out,
-                    const float* __restrict__ den, float* dq, float* work) {
-  extern __shared__ float smem[];
+// One block's dq sweep over row bh.
+template <class T, int Body>
+__device__ __forceinline__ void favor_bwd_dq_body(const Dims& D, long long bh,
+                                                  const T* __restrict__ q,
+                                                  const T* __restrict__ k,
+                                                  const T* __restrict__ v,
+                                                  const float* __restrict__ P,
+                                                  const T* __restrict__ g,
+                                                  const float* __restrict__ out,
+                                                  const float* __restrict__ den, float* dq,
+                                                  float* work, float* smem) {
   const int n = D.n, d = D.d, m = D.m, ch = D.chunk;
   float* S = smem;          // m x d
   float* z = S + m * d;     // m
   float* gd = z + m;        // chunk
   float* wr = gd + ch;      // chunk
   float* stage = smem + stage_offset(d, m, ch, 2);
-  const long long bh = blockIdx.x;
   q += bh * n * d;
   k += bh * n * d;
   v += bh * n * d;
@@ -250,8 +282,8 @@ favor_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
   den += bh * n;
   dq += bh * n * d;
   float* U = work + bh * work_per_bh(ch, d, m);  // q dash (kept: the tie mask)
-  float* E = U + ch * m;                           // e_q
-  float* KP = E + ch * m;                          // kp
+  float* E = Body == FavorBody::kIdFeat ? U : U + ch * m;  // e_q
+  float* KP = U + 2 * ch * m;                      // kp
   float* DQ = KP + ch * m;                         // dq_p, then du
   float* DS = DQ + ch * m;                         // chunk x chunk
   float* DNUM = DS + ch * ch;                      // chunk x d
@@ -264,13 +296,15 @@ favor_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
     const T* qc = q + c0 * d;
     const T* kc = k + c0 * d;
     const T* vc = v + c0 * d;
-    feature_dash<T>(D, c, qc, P, U, stage);
-    feature_dash<T>(D, c, kc, P, KP, stage);
-    query_exp<T, false>(D, c, qc, U, E);
-    key_exp<T, true>(D, c, kc, KP);
+    feature_dash<T, Body>(D, c, qc, P, U, stage);
+    feature_dash<T, Body>(D, c, kc, P, KP, stage);
+    if constexpr (Body != FavorBody::kIdFeat) {
+      query_exp<T, false>(D, c, qc, U, E);
+      key_exp<T, true>(D, c, kc, KP);
+    }
     out_cotangent<T>(D, c, g + c0 * d, out + c0 * d, den + c0, DNUM, gd);
     __syncthreads();
-    dscores<T>(D, c, DNUM, vc, gd, DS, stage);
+    dscores<T, Body>(D, c, DNUM, vc, gd, DS, stage);
     // dq_p = rnd(ds)·rnd(kp) + rnd(dnum)·rnd(S)ᵀ + gd·z
     G::run<true, false>(
         c, m, c, [&](int i, int j) { return rnd<T>(DS[i * ch + j]); },
@@ -313,20 +347,23 @@ favor_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-favor_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ P,
-                     const T* __restrict__ g, const float* __restrict__ out,
-                     const float* __restrict__ den, float* dk, float* dv, float* work) {
-  extern __shared__ float smem[];
+// One block's reverse dk/dv sweep over row bh.
+template <class T, int Body>
+__device__ __forceinline__ void favor_bwd_dkv_body(const Dims& D, long long bh,
+                                                   const T* __restrict__ q,
+                                                   const T* __restrict__ k,
+                                                   const T* __restrict__ v,
+                                                   const float* __restrict__ P,
+                                                   const T* __restrict__ g,
+                                                   const float* __restrict__ out,
+                                                   const float* __restrict__ den, float* dk,
+                                                   float* dv, float* work, float* smem) {
   const int n = D.n, d = D.d, m = D.m, ch = D.chunk;
   float* dS = smem;          // m x d: Σ over later chunks of rnd(qp)ᵀ·rnd(dnum)
   float* dz = dS + m * d;    // m: Σ over later chunks of qp·gd
   float* gd = dz + m;        // chunk
   float* wr = gd + ch;       // chunk
   float* stage = smem + stage_offset(d, m, ch, 2);
-  const long long bh = blockIdx.x;
   q += bh * n * d;
   k += bh * n * d;
   v += bh * n * d;
@@ -352,18 +389,26 @@ favor_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
     const T* kc = k + c0 * d;
     const T* vc = v + c0 * d;
     const T* gc = g + c0 * d;
-    feature_dash<T>(D, c, qc, P, QP, stage);
-    feature_dash<T>(D, c, kc, P, EK, stage);
-    query_exp<T, true>(D, c, qc, QP, QP);
-    key_exp<T, false>(D, c, kc, EK);
+    feature_dash<T, Body>(D, c, qc, P, QP, stage);
+    feature_dash<T, Body>(D, c, kc, P, EK, stage);
+    if constexpr (Body != FavorBody::kIdFeat) {
+      query_exp<T, true>(D, c, qc, QP, QP);
+      key_exp<T, false>(D, c, kc, EK);
+    }
     out_cotangent<T>(D, c, gc, out + c0 * d, den + c0, DNUM, gd);
     __syncthreads();
-    auto kp = [&](int j, int f) { return rnd<T>(r * (EK[j * m + f] + kEps)); };
+    auto kp = [&](int j, int f) {
+      if constexpr (Body == FavorBody::kIdFeat) return rnd<T>(EK[j * m + f]);
+      else return rnd<T>(r * (EK[j * m + f] + kEps));
+    };
     G::run<true, true>(
         c, c, m, [&](int i, int f) { return rnd<T>(QP[i * m + f]); },
         [&](int f, int j) { return kp(j, f); },
-        [&](int i, int j, float acc) { SC[i * ch + j] = j <= i ? acc : 0.f; }, stage);
-    dscores<T>(D, c, DNUM, vc, gd, DS, stage);
+        [&](int i, int j, float acc) {
+          SC[i * ch + j] = (Body == FavorBody::kNoMask || j <= i) ? acc : 0.f;
+        },
+        stage);
+    dscores<T, Body>(D, c, DNUM, vc, gd, DS, stage);
     // dk_p = rnd(ds)ᵀ·rnd(qp) + v·rnd(dS)ᵀ + dz  (suffix of later chunks)
     G::run<false, false>(
         c, m, c, [&](int j, int i) { return rnd<T>(DS[i * ch + j]); },
@@ -416,6 +461,67 @@ favor_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+favor_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ P, float* out, float* den,
+                 float* work) {
+  extern __shared__ float smem[];
+  favor_fwd_body<T, FavorBody::kFull>(D, blockIdx.x, q, k, v, P, out, den, work, smem);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+favor_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ P,
+                    const T* __restrict__ g, const float* __restrict__ out,
+                    const float* __restrict__ den, float* dq, float* work) {
+  extern __shared__ float smem[];
+  favor_bwd_dq_body<T, FavorBody::kFull>(D, blockIdx.x, q, k, v, P, g, out, den, dq, work,
+                                         smem);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+favor_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ P,
+                     const T* __restrict__ g, const float* __restrict__ out,
+                     const float* __restrict__ den, float* dk, float* dv, float* work) {
+  extern __shared__ float smem[];
+  favor_bwd_dkv_body<T, FavorBody::kFull>(D, blockIdx.x, q, k, v, P, g, out, den, dk, dv,
+                                          work, smem);
+}
+
+// The probe's kernels: the same bodies under a FavorBody ablation.
+template <class T, int Body>
+__global__ void __launch_bounds__(kThreads)
+probe_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ P, float* out, float* den,
+                 float* work) {
+  extern __shared__ float smem[];
+  favor_fwd_body<T, Body>(D, blockIdx.x, q, k, v, P, out, den, work, smem);
+}
+
+template <class T, int Body>
+__global__ void __launch_bounds__(kThreads)
+probe_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ P,
+                    const T* __restrict__ g, const float* __restrict__ out,
+                    const float* __restrict__ den, float* dq, float* work) {
+  extern __shared__ float smem[];
+  favor_bwd_dq_body<T, Body>(D, blockIdx.x, q, k, v, P, g, out, den, dq, work, smem);
+}
+
+template <class T, int Body>
+__global__ void __launch_bounds__(kThreads)
+probe_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ P,
+                     const T* __restrict__ g, const float* __restrict__ out,
+                     const float* __restrict__ den, float* dk, float* dv, float* work) {
+  extern __shared__ float smem[];
+  favor_bwd_dkv_body<T, Body>(D, blockIdx.x, q, k, v, P, g, out, den, dk, dv, work, smem);
+}
+
 size_t smem_bytes(int d, int m, int chunk, int rows) {
   return sizeof(float) * (stage_offset(d, m, chunk, rows) + G::kSmemFloats);
 }
@@ -438,6 +544,52 @@ Dims make_dims(int n, int d, int m, int chunk, float dn, float half_dn2, float d
   D.dn2 = dn2;
   D.r = r;
   return D;
+}
+
+// The probe's launches: which 0 = forward (o1 = out, o2 = den), 1 = dq
+// sweep (o1 = dq), 2 = dk/dv sweep (o1 = dk, o2 = dv).
+template <class T, int Body>
+int probe(int which, const Dims& D, int bh, const void* q, const void* k, const void* v,
+          const float* P, const void* g, const float* out, const float* den, float* o1,
+          float* o2, float* work, cudaStream_t s) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tg = static_cast<const T*>(g);
+  if (which == 0) {
+    const size_t smem = smem_bytes(D.d, D.m, D.chunk, 1);
+    auto kern = probe_fwd_kernel<T, Body>;
+    if (int e = allow_smem(kern, smem)) return e;
+    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, o1, o2, work);
+  } else if (which == 1) {
+    const size_t smem = smem_bytes(D.d, D.m, D.chunk, 2);
+    auto kern = probe_bwd_dq_kernel<T, Body>;
+    if (int e = allow_smem(kern, smem)) return e;
+    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, tg, out, den, o1, work);
+  } else {
+    const size_t smem = smem_bytes(D.d, D.m, D.chunk, 2);
+    auto kern = probe_bwd_dkv_kernel<T, Body>;
+    if (int e = allow_smem(kern, smem)) return e;
+    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, tg, out, den, o1, o2, work);
+  }
+  return int(cudaGetLastError());
+}
+
+template <class T>
+int probe(int body, int which, const Dims& D, int bh, const void* q, const void* k,
+          const void* v, const float* P, const void* g, const float* out, const float* den,
+          float* o1, float* o2, float* work, cudaStream_t s) {
+  switch (body) {
+    case FavorBody::kFull:
+      return probe<T, FavorBody::kFull>(which, D, bh, q, k, v, P, g, out, den, o1, o2, work, s);
+    case FavorBody::kIdFeat:
+      return probe<T, FavorBody::kIdFeat>(which, D, bh, q, k, v, P, g, out, den, o1, o2, work,
+                                          s);
+    case FavorBody::kNoMask:
+      return probe<T, FavorBody::kNoMask>(which, D, bh, q, k, v, P, g, out, den, o1, o2, work,
+                                          s);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -526,6 +678,22 @@ int favor_bwd_dkv(int bh, int n, int d, int m, int chunk, int dtype, float dn, f
                                     den, dk, dv, work);
   }
   return int(cudaGetLastError());
+}
+
+// The kernel-body probe (ops/kernel_body.py): body 0-2 = full (the
+// production kernels' body), idfeat, nomask; which and o1/o2 as for
+// probe() above.  Same workspace and shared memory as the production
+// launches.
+int favor_probe(int body, int which, int bh, int n, int d, int m, int chunk, int dtype,
+                float dn, float half_dn2, float dn2, float r, const void* q, const void* k,
+                const void* v, const float* P, const void* g, const float* out,
+                const float* den, float* o1, float* o2, float* work, void* stream) {
+  const Dims D = make_dims(n, d, m, chunk, dn, half_dn2, dn2, r);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? probe<__nv_bfloat16>(body, which, D, bh, q, k, v, P, g, out, den, o1,
+                                           o2, work, s)
+                    : probe<float>(body, which, D, bh, q, k, v, P, g, out, den, o1, o2, work,
+                                   s);
 }
 
 }  // extern "C"

@@ -59,19 +59,34 @@ def _features(q, k, proj, cd):
     return r * (e_q + _EPS), r * (e_k + _EPS), e_q, e_k, u_q
 
 
+def _id_features(q, k, proj, cd):
+    """The kernel-body probe's identity features (``body="idfeat"``):
+    the raw products u = x·rnd(P)ᵀ stand for the features and for e_q,
+    e_k, as the TPU probe's patched ``_features`` returns them (no
+    d^-1/4 scale)."""
+    p = rounded(proj, cd)
+    u_q = rounded(q, cd) @ p.T
+    u_k = rounded(k, cd) @ p.T
+    return u_q, u_k, u_q, u_k, u_q
+
+
 def _chunks(n, chunk, reverse=False):
     starts = list(range(0, n, chunk))
     for c0 in reversed(starts) if reverse else starts:
         yield slice(c0, min(c0 + chunk, n))
 
 
-def _tri(c, device):
-    return torch.tril(torch.ones(c, c, dtype=torch.bool, device=device))
+def _tri(c, device, body="full"):
+    ones = torch.ones(c, c, dtype=torch.bool, device=device)
+    return ones if body == "nomask" else torch.tril(ones)
 
 
-def favor_fwd_plain(q, k, v, proj, chunk):
+def favor_fwd_plain(q, k, v, proj, chunk, body="full"):
     """q, k, v: (N, L, d) in the compute dtype → (out (N, L, d) f32,
-    den (N, L) f32)."""
+    den (N, L) f32).  ``body`` other than "full" is an ablation of the
+    kernel-body probe (``ops/kernel_body.py``): "idfeat" (identity
+    features) or "nomask" (no causal select)."""
+    features = _id_features if body == "idfeat" else _features
     cd = q.dtype
     q, k, v = q.float(), k.float(), v.float()
     n_bh, n, d = q.shape
@@ -80,10 +95,10 @@ def favor_fwd_plain(q, k, v, proj, chunk):
     z = q.new_zeros(n_bh, m)
     out, den = torch.empty_like(q), q.new_empty(n_bh, n)
     for sl in _chunks(n, chunk):
-        qp, kp, _, _, _ = _features(q[:, sl], k[:, sl], proj, cd)
+        qp, kp, _, _, _ = features(q[:, sl], k[:, sl], proj, cd)
         qc, kc = rounded(qp, cd), rounded(kp, cd)
         c = qc.shape[1]
-        scores = torch.where(_tri(c, q.device), qc @ kc.transpose(1, 2), 0.0)
+        scores = torch.where(_tri(c, q.device, body), qc @ kc.transpose(1, 2), 0.0)
         num = rounded(scores, cd) @ v[:, sl] + qc @ rounded(S, cd)
         dn_ = scores.sum(-1) + (qc * rounded(z, cd)[:, None, :]).sum(-1)
         out[:, sl] = num * (1.0 / torch.clamp(dn_, min=1e-12))[..., None]
@@ -98,9 +113,11 @@ def _out_cotangent(g, out, den):
     return g * inv, -(g * out).sum(-1, keepdim=True) * inv
 
 
-def favor_bwd_plain(q, k, v, proj, g, out, den, chunk):
+def favor_bwd_plain(q, k, v, proj, g, out, den, chunk, body="full"):
     """The two backward sweeps.  g: (N, L, d) in the compute dtype; out,
-    den: the forward's f32 results → (dq, dk, dv) f32."""
+    den: the forward's f32 results → (dq, dk, dv) f32.  ``body`` as for
+    :func:`favor_fwd_plain`."""
+    features = _id_features if body == "idfeat" else _features
     cd = q.dtype
     q, k, v, g = q.float(), k.float(), v.float(), g.float()
     n_bh, n, d = q.shape
@@ -112,12 +129,12 @@ def favor_bwd_plain(q, k, v, proj, g, out, den, chunk):
     S = q.new_zeros(n_bh, m, d)
     z = q.new_zeros(n_bh, m)
     for sl in _chunks(n, chunk):
-        qp, kp, e_q, _, u_q = _features(q[:, sl], k[:, sl], proj, cd)
+        qp, kp, e_q, _, u_q = features(q[:, sl], k[:, sl], proj, cd)
         kc = rounded(kp, cd)
         dnum, gd = _out_cotangent(g[:, sl], out[:, sl], den[:, sl])
         c = kc.shape[1]
-        ds = torch.where(_tri(c, q.device), rounded(dnum, cd) @ v[:, sl].transpose(1, 2) + gd,
-                         0.0)
+        ds = torch.where(_tri(c, q.device, body),
+                         rounded(dnum, cd) @ v[:, sl].transpose(1, 2) + gd, 0.0)
         dqp = (rounded(ds, cd) @ kc + rounded(dnum, cd) @ rounded(S, cd).transpose(1, 2)
                + gd * z[:, None, :])
         # through φ_q; the row max's cotangent −w splits evenly over ties
@@ -132,10 +149,10 @@ def favor_bwd_plain(q, k, v, proj, g, out, den, chunk):
     dS = q.new_zeros(n_bh, m, d)
     dz = q.new_zeros(n_bh, m)
     for sl in _chunks(n, chunk, reverse=True):
-        qp, kp, _, e_k, _ = _features(q[:, sl], k[:, sl], proj, cd)
+        qp, kp, _, e_k, _ = features(q[:, sl], k[:, sl], proj, cd)
         qc, kc = rounded(qp, cd), rounded(kp, cd)
         dnum, gd = _out_cotangent(g[:, sl], out[:, sl], den[:, sl])
-        tri = _tri(qc.shape[1], q.device)
+        tri = _tri(qc.shape[1], q.device, body)
         scores = torch.where(tri, qc @ kc.transpose(1, 2), 0.0)
         ds = torch.where(tri, rounded(dnum, cd) @ v[:, sl].transpose(1, 2) + gd, 0.0)
         dkp = (rounded(ds, cd).transpose(1, 2) @ qc

@@ -1,0 +1,337 @@
+"""The kernel-body probe's kernels: ablated bodies of rows 5 and 6, with their plain twins.
+
+Port of the Pallas kernels of ``tools/probe_kernel_body.py``
+(``local_fwd_variant`` :93, ``local_bwd_variant`` :168,
+``favor_variant`` :264), whose CLI is
+``synthanatomy_tpu_torch/tools/probe_kernel_body.py``.  The TPU probe
+rebuilds the bodies of the banded local-attention kernels and patches
+the FAVOR+ kernels' ``_features`` and ``_tri``; here the ablations are
+compile-time template parameters of the port's own bodies
+(``csrc/local_attention.cu``, ``csrc/favor_attention.cu``), so the
+production kernels keep their instantiations.
+
+- :func:`local_fwd_body` — the banded forward with body one of
+  ``LOCAL_FWD_BODIES``: "foldscale" (the production forward: d^-1/2
+  folded into q, Σe divided after P·V), "full" (scores scaled, P
+  normalised before P·V), "defer" (scores scaled, Σe divided after
+  P·V), "nomax" (as "full" without the row max), "matmuls" (P = the
+  scaled scores, 0 outside the band: out = rnd(S ⊙ band)·v);
+- :func:`local_bwd_body` — the two backward launches with body "full"
+  (the production backward) or "matmuls" (P = S ⊙ band and dS = dP ⊙
+  band, S = q·kᵀ·d^-1/2, dP = g·vᵀ: dq = rnd(dS)·k·d^-1/2, dk =
+  rnd(dS)ᵀ·q·d^-1/2, dv = rnd(P)ᵀ·g), gradients written in the compute
+  dtype or in f32;
+- :func:`favor_fwd_body` / :func:`favor_bwd_body` — the FAVOR+ forward
+  and the dq or dk/dv sweep with body "full" (production), "idfeat"
+  (the raw products u = x·rnd(P)ᵀ, without the d^-1/4 scale, stand for
+  the features and for exp(u − diag − stab) in the backward's chain, as
+  the TPU probe's patched ``_features`` hands them) or "nomask" (the
+  causal selects of the chunk's scores and dscores are unconditional).
+
+Both local kernels take ``heads_per_block``: the (batch·head) rows one
+block walks in turn with the same shared memory, the counterpart of the
+TPU kernels' batch·head tile ``bt``.  Each wrapper launches its kernel
+for CUDA tensors (raising for anything it cannot take, and raising
+:class:`DoesNotFit` before the launch for a variant whose shared memory
+exceeds ``SMEM_PER_BLOCK``) and takes the plain twin (``*_plain``) for
+CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from synthanatomy_tpu_torch._build import SMEM_PER_BLOCK, load_library
+from synthanatomy_tpu_torch.ops import favor_attention as fa
+from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+from synthanatomy_tpu_torch.ops.local_attention import rounded
+
+__all__ = [
+    "DoesNotFit",
+    "FAVOR_BODIES",
+    "FAVOR_SWEEPS",
+    "LOCAL_BWD_BODIES",
+    "LOCAL_FWD_BODIES",
+    "favor_bwd_body",
+    "favor_bwd_body_plain",
+    "favor_fwd_body",
+    "favor_fwd_body_plain",
+    "favor_production",
+    "local_bwd_body",
+    "local_bwd_body_plain",
+    "local_fwd_body",
+    "local_fwd_body_plain",
+    "local_production",
+]
+
+# in the order of the kernels' template arguments
+LOCAL_FWD_BODIES = ("foldscale", "full", "defer", "nomax", "matmuls")
+LOCAL_BWD_BODIES = ("full", "matmuls")
+FAVOR_BODIES = ("full", "idfeat", "nomask")
+FAVOR_SWEEPS = ("dq", "dkv")
+
+
+class DoesNotFit(ValueError):
+    """A variant whose shared memory exceeds the card's per-block limit."""
+
+    def __init__(self, name: str, nbytes: int):
+        self.nbytes = nbytes
+        super().__init__(f"{name}: does not fit: {nbytes} bytes of shared memory per block "
+                         f"(the card has {SMEM_PER_BLOCK})")
+
+
+def _body_index(body, bodies):
+    if body not in bodies:
+        raise ValueError(f"body must be one of {bodies}, got {body!r}")
+    return bodies.index(body)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+
+def local_fwd_body_plain(q, k, v, window, body="foldscale"):
+    """q, k, v: (..., L, d) post-rotary in the compute dtype → (..., L,
+    d) in the compute dtype, by forward body ``body``."""
+    if body == "foldscale":
+        return lf.local_fwd_plain(q, k, v, window)
+    _body_index(body, LOCAL_FWD_BODIES)
+    cd = q.dtype
+    band = lf._band(q.shape[-2], window, q.device)
+    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if body == "matmuls":
+        return (rounded(s.masked_fill(~band, 0.0), cd) @ v.float()).to(cd)
+    s = s.masked_fill(~band, float("-inf"))
+    e = torch.exp(s if body == "nomax" else s - s.amax(-1, keepdim=True))
+    if body == "defer":
+        return ((rounded(e, cd) @ v.float()) / e.sum(-1, keepdim=True)).to(cd)
+    return (rounded(e / e.sum(-1, keepdim=True), cd) @ v.float()).to(cd)
+
+
+def local_bwd_body_plain(q, k, v, g, window, body="full", out_f32=False):
+    """The backward by body ``body``: g in the compute dtype → (dq, dk,
+    dv) in the compute dtype, or in f32 with ``out_f32``."""
+    od = torch.float32 if out_f32 else q.dtype
+    if body == "full":
+        return lf.local_bwd_plain(q, k, v, g, window, out_dtype=od)
+    _body_index(body, LOCAL_BWD_BODIES)
+    cd = q.dtype
+    scale = q.shape[-1] ** -0.5
+    band = lf._band(q.shape[-2], window, q.device)
+    q, k, v, g = q.float(), k.float(), v.float(), g.float()
+    p = ((q @ k.transpose(-1, -2)) * scale).masked_fill(~band, 0.0)
+    ds = (g @ v.transpose(-1, -2)).masked_fill(~band, 0.0)
+    dq = (rounded(ds, cd) @ k) * scale
+    dk = (rounded(ds, cd).transpose(-1, -2) @ q) * scale
+    dv = rounded(p, cd).transpose(-1, -2) @ g
+    return dq.to(od), dk.to(od), dv.to(od)
+
+
+def favor_fwd_body_plain(q, k, v, proj, chunk=128, body="full"):
+    """q, k, v (B, H, L, d) in the compute dtype, proj (m, d) → (out (B,
+    H, L, d) f32, den (B·H, L) f32) by body ``body``."""
+    _body_index(body, FAVOR_BODIES)
+    out, den = fa.favor_fwd_plain(fa._flat(q), fa._flat(k), fa._flat(v), proj.float(), chunk,
+                                  body)
+    return out.view(q.shape), den
+
+
+def favor_bwd_body_plain(q, k, v, proj, g, out, den, chunk=128, body="full", sweep="dq"):
+    """One backward sweep by body ``body``: dq (``sweep="dq"``) or (dk,
+    dv) (``sweep="dkv"``), f32 (B, H, L, d); g in the compute dtype, out
+    and den the forward's."""
+    _body_index(body, FAVOR_BODIES)
+    _body_index(sweep, FAVOR_SWEEPS)
+    dq, dk, dv = (x.view(q.shape) for x in fa.favor_bwd_plain(
+        fa._flat(q), fa._flat(k), fa._flat(v), proj.float(), fa._flat(g), fa._flat(out), den,
+        chunk, body))
+    return dq if sweep == "dq" else (dk, dv)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name):
+    lib = load_library(name)
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    if name == "local_attention":
+        lib.local_fwd_probe.argtypes = [i] * 7 + [f] + [p] * 5
+        lib.local_bwd_probe.argtypes = [i] * 8 + [f] + [p] * 11
+        lib.local_fwd_probe.restype = lib.local_bwd_probe.restype = i
+        lib.local_smem_bytes.argtypes = [i] * 2
+        lib.local_smem_bytes.restype = ctypes.c_longlong
+    else:
+        lib.favor_probe.argtypes = [i] * 8 + [f] * 4 + [p] * 11
+        lib.favor_probe.restype = i
+        lib.favor_work_floats.argtypes = [i] * 4
+        lib.favor_work_floats.restype = ctypes.c_longlong
+        lib.favor_smem_bytes.argtypes = [i] * 3
+        lib.favor_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _require_cuda(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {q.device}")
+
+
+def _local_checks(name, q, k, v, window, heads_per_block):
+    _require_cuda(name, q)
+    if heads_per_block < 1:
+        raise ValueError(f"heads_per_block must be positive, got {heads_per_block}")
+    smem = _lib("local_attention").local_smem_bytes(q.shape[-1], window)
+    if smem > SMEM_PER_BLOCK:
+        raise DoesNotFit(name, smem)
+    lf._check_kernel_inputs(q, k, v, window)
+
+
+def local_fwd_body(q, k, v, window, body="foldscale", heads_per_block=1):
+    """The forward by body ``body`` (see the module docstring): q, k, v
+    (B, H, L, d) post-rotary in the compute dtype → (B, H, L, d) in the
+    compute dtype.  One launch."""
+    if q.device.type == "cpu":
+        return local_fwd_body_plain(q, k, v, window, body)
+    idx = _body_index(body, LOCAL_FWD_BODIES)
+    _local_checks("local_fwd_body", q, k, v, window, heads_per_block)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, h, n, d = q.shape
+    out = torch.empty_like(q)
+    err = _lib("local_attention").local_fwd_probe(
+        idx, heads_per_block, b * h, n, d, window, int(q.dtype == torch.bfloat16), d ** -0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _stream(q))
+    if err:
+        raise RuntimeError(f"local_fwd_probe ({body}): CUDA error {err}")
+    local_fwd_body.launches += 1
+    return out
+
+
+local_fwd_body.launches = 0
+
+
+def local_bwd_body(q, k, v, g, window, body="full", heads_per_block=1, out_f32=False):
+    """The backward by body ``body``: (dq, dk, dv) in the compute dtype,
+    or in f32 with ``out_f32``.  Two launches (dq with the row
+    statistics, then dk/dv)."""
+    if q.device.type == "cpu":
+        return local_bwd_body_plain(q, k, v, g, window, body, out_f32)
+    idx = _body_index(body, LOCAL_BWD_BODIES)
+    _local_checks("local_bwd_body", q, k, v, window, heads_per_block)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must match q ({q.dtype}, {tuple(q.shape)}); got {g.dtype}, "
+                         f"{tuple(g.shape)} on {g.device}")
+    q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
+    b, h, n, d = q.shape
+    od = torch.float32 if out_f32 else q.dtype
+    dq, dk, dv = (torch.empty(q.shape, dtype=od, device=q.device) for _ in range(3))
+    stats = torch.empty(3, b * h, n, dtype=torch.float32, device=q.device)
+    err = _lib("local_attention").local_bwd_probe(
+        idx, heads_per_block, int(out_f32), b * h, n, d, window,
+        int(q.dtype == torch.bfloat16), d ** -0.5, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), stats[2].data_ptr(), _stream(q))
+    if err:
+        raise RuntimeError(f"local_bwd_probe ({body}): CUDA error {err}")
+    local_bwd_body.launches += 2
+    return dq, dk, dv
+
+
+local_bwd_body.launches = 0
+
+
+def _favor_launch(which, body, q, k, v, proj, chunk, g=None, out=None, den=None):
+    """One launch of a FAVOR probe kernel: which 0 forward → (out, den),
+    1 dq sweep → dq, 2 dk/dv sweep → (dk, dv)."""
+    name = ("favor_fwd_body", "favor_bwd_body", "favor_bwd_body")[which]
+    _require_cuda(name, q)
+    lib = _lib("favor_attention")
+    smem = lib.favor_smem_bytes(q.shape[-1], proj.shape[0], chunk)
+    if smem > SMEM_PER_BLOCK:
+        raise DoesNotFit(name, smem)
+    fa._check_kernel_inputs(q, k, v, proj, chunk)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    proj = proj.to(torch.float32).contiguous()
+    b, h, n, d = q.shape
+    m, bh = proj.shape[0], b * h
+    if which:
+        if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+            raise ValueError(f"g must match q ({q.dtype}, {tuple(q.shape)}); got {g.dtype}, "
+                             f"{tuple(g.shape)} on {g.device}")
+        if out.shape != q.shape or out.dtype != torch.float32 or den.shape != (bh, n) \
+                or den.dtype != torch.float32:
+            raise ValueError(f"out must be f32 {tuple(q.shape)} and den f32 {(bh, n)}; got "
+                             f"{out.dtype} {tuple(out.shape)}, {den.dtype} {tuple(den.shape)}")
+        g, out, den = g.contiguous(), out.contiguous(), den.contiguous()
+    o1 = torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
+    o2 = (torch.empty(bh, n, dtype=torch.float32, device=q.device) if which == 0 else
+          torch.empty_like(o1) if which == 2 else None)
+    work = torch.empty(lib.favor_work_floats(bh, chunk, d, m), dtype=torch.float32,
+                       device=q.device)
+    err = lib.favor_probe(
+        _body_index(body, FAVOR_BODIES), which, bh, n, d, m, chunk,
+        int(q.dtype == torch.bfloat16), *fa._consts(d, m), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), proj.data_ptr(), None if g is None else g.data_ptr(),
+        None if out is None else out.data_ptr(), None if den is None else den.data_ptr(),
+        o1.data_ptr(), None if o2 is None else o2.data_ptr(), work.data_ptr(), _stream(q))
+    if err:
+        raise RuntimeError(f"{name} ({body}): CUDA error {err}")
+    return o1 if which == 1 else (o1, o2)
+
+
+def favor_fwd_body(q, k, v, proj, chunk=128, body="full"):
+    """The FAVOR+ forward by body ``body`` → (out (B, H, L, d) f32, den
+    (B·H, L) f32).  One launch."""
+    if q.device.type == "cpu":
+        return favor_fwd_body_plain(q, k, v, proj, chunk, body)
+    res = _favor_launch(0, body, q, k, v, proj, chunk)
+    favor_fwd_body.launches += 1
+    return res
+
+
+favor_fwd_body.launches = 0
+
+
+def favor_bwd_body(q, k, v, proj, g, out, den, chunk=128, body="full", sweep="dq"):
+    """One backward sweep by body ``body``: dq (``sweep="dq"``) or (dk,
+    dv) (``sweep="dkv"``), f32; out and den from :func:`favor_fwd_body`
+    of the same body.  One launch."""
+    if q.device.type == "cpu":
+        return favor_bwd_body_plain(q, k, v, proj, g, out, den, chunk, body, sweep)
+    res = _favor_launch(1 + _body_index(sweep, FAVOR_SWEEPS), body, q, k, v, proj, chunk,
+                        g, out, den)
+    favor_bwd_body.launches += 1
+    return res
+
+
+favor_bwd_body.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the production kernels, for the bit-for-bit checks
+# ---------------------------------------------------------------------------
+
+
+def local_production(q, k, v, g, window):
+    """Row 6's production launches (the plain version on the CPU): (out,
+    dq, dk, dv) in the compute dtype."""
+    impl = lf._Kernel if q.device.type == "cuda" else lf._Plain
+    return (impl.fwd(q, k, v, window), *impl.bwd(q, k, v, g, window))
+
+
+def favor_production(q, k, v, proj, g, chunk=128):
+    """Row 5's production launches (the plain version on the CPU): (out,
+    den, dq, dk, dv), f32."""
+    impl = fa._Kernel if q.device.type == "cuda" else fa._Plain
+    proj = proj.to(torch.float32)
+    out, den = impl.fwd(q, k, v, proj, chunk)
+    return (out, den, *impl.bwd(q, k, v, proj, g, out, den, chunk))

@@ -68,10 +68,11 @@ def local_fwd_plain(q, k, v, window):
     return ((rounded(e, cd) @ v.float()) / e.sum(-1, keepdim=True)).to(cd)
 
 
-def local_bwd_plain(q, k, v, g, window):
+def local_bwd_plain(q, k, v, g, window, out_dtype=None):
     """Recomputing backward; g in the compute dtype → (dq, dk, dv) in the
-    compute dtype."""
+    compute dtype (or in ``out_dtype``)."""
     cd = q.dtype
+    od = out_dtype or cd
     scale = q.shape[-1] ** -0.5
     q, k, v, g = q.float(), k.float(), v.float(), g.float()
     s = (q @ k.transpose(-1, -2)) * scale
@@ -83,7 +84,7 @@ def local_bwd_plain(q, k, v, g, window):
     dq = (rounded(ds, cd) @ k) * scale
     dk = (rounded(ds, cd).transpose(-1, -2) @ q) * scale
     dv = rounded(p, cd).transpose(-1, -2) @ g
-    return dq.to(cd), dk.to(cd), dv.to(cd)
+    return dq.to(od), dk.to(od), dv.to(od)
 
 
 # ---------------------------------------------------------------------------

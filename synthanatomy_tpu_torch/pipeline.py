@@ -29,7 +29,6 @@ def make_synthesizer(
     with_conditionings: bool = False,
     decode_batch: int = 8,
     ring_quant: bool = True,
-    weight_quant: str = "int8",
 ):
     """Return ``synthesize(generator=None, conditionings=None) ->
     (volumes (B, 1, D, H, W), grids (B, *dims))``."""
@@ -37,7 +36,6 @@ def make_synthesizer(
         performer, ordering, batch=batch, temperature=temperature,
         top_k=top_k, do_sample=do_sample,
         with_conditionings=with_conditionings, ring_quant=ring_quant,
-        weight_quant=weight_quant,
     )
     db = min(decode_batch, batch)
     while batch % db != 0:

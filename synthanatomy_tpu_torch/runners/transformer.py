@@ -2,7 +2,7 @@
 
 Port of ``prepare_batch`` from ``synthanatomy_tpu/runners/transformer.py``
 (numpy).  The runner itself (data loading, checkpoints, logging, the CLI
-switch) is not ported yet (ROADMAP §1, module 5).
+switch) is not ported yet (ROADMAP §1, "Runners and CLIs").
 """
 
 from __future__ import annotations

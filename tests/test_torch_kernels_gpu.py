@@ -14,6 +14,7 @@ import torch
 from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.ops import favor_attention as tfa
 from synthanatomy_tpu_torch.ops import fused_decode as tfd
+from synthanatomy_tpu_torch.ops import kernel_body as tkb
 from synthanatomy_tpu_torch.ops import local_attention_flash as tlf
 from synthanatomy_tpu_torch.ops import local_attention_splash as tsp
 from synthanatomy_tpu_torch.ops import probes as tpr
@@ -21,6 +22,7 @@ from synthanatomy_tpu_torch.ops import quant as tq
 from synthanatomy_tpu_torch.ops import res_stack as trs
 from synthanatomy_tpu_torch.ops import vq as tvq
 from synthanatomy_tpu_torch.ops.favor import gaussian_orthogonal_random_matrix
+from synthanatomy_tpu_torch.tools import probe_kernel_body as pkb
 
 B, DIM, HEADS, DH, LH, WIN, M, DEPTH, VOCAB = 2, 128, 2, 64, 1, 12, 128, 2, 33
 
@@ -212,6 +214,52 @@ def test_attention_kernels_reject_bad_inputs(cuda):
         tlf.local_attention_flash_core(q, q.cpu(), q, 4)
     with pytest.raises(ValueError):  # the score band does not fit shared memory
         tlf.local_attention_flash_core(q, q, q, 4000)
+
+
+@pytest.mark.gpu
+def test_kernel_body_variants_match_plain(cuda):
+    """Every ablated body of rows 5 and 6 (ops/kernel_body.py) against its
+    plain twin at the probe's small shape, in bf16 and f32, at 1 and 4
+    heads per block (check_small raises on a mismatch; tolerance 2e-2 of
+    max |plain| in bf16, 1e-4 in f32)."""
+    before = (tkb.local_fwd_body.launches, tkb.local_bwd_body.launches,
+              tkb.favor_fwd_body.launches, tkb.favor_bwd_body.launches)
+    assert pkb.check_small(cuda) <= 2e-2
+    torch.cuda.synchronize()
+    after = (tkb.local_fwd_body.launches, tkb.local_bwd_body.launches,
+             tkb.favor_fwd_body.launches, tkb.favor_bwd_body.launches)
+    assert all(a > b_ for a, b_ in zip(after, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,w,m,chunk", [((2, 3, 300, 64), 100, 64, 128),
+                                             ((1, 2, 37, 16), 12, 16, 16)],
+                         ids=["2x3x300x64", "1x2x37x16"])
+def test_kernel_body_production_bodies_are_bit_equal(cuda, monkeypatch, shape, w, m, chunk):
+    """The local forward's foldscale, the local backward's full (bf16
+    outputs, and f32 outputs rounded) and FAVOR's full equal the
+    production kernels bit for bit (check_production raises otherwise)."""
+    monkeypatch.setattr(pkb, "W", w)
+    monkeypatch.setattr(pkb, "CHUNK", chunk)
+    q, k, v, g = _inputs(shape, torch.bfloat16, cuda, seed=shape[2])
+    proj = gaussian_orthogonal_random_matrix(
+        m, shape[-1], generator=torch.Generator().manual_seed(1)).to(cuda)
+    pkb.check_production(q, k, v, g.to(torch.bfloat16), proj)
+
+
+@pytest.mark.gpu
+def test_kernel_body_refuses_what_does_not_fit(cuda):
+    q = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16, device=cuda)
+    before = tkb.local_fwd_body.launches
+    with pytest.raises(tkb.DoesNotFit) as err:  # a 32 x 4031 score band
+        tkb.local_fwd_body(q, q, q, 4000)
+    assert err.value.nbytes > 232448 and tkb.local_fwd_body.launches == before
+    with pytest.raises(tkb.DoesNotFit):  # S of 1024 x 64 f32
+        tkb.favor_fwd_body(q, q, q, torch.zeros(1024, 64, device=cuda))
+    with pytest.raises(ValueError):
+        tkb.local_fwd_body(q, q, q, 4, body="nosuch")
+    with pytest.raises(ValueError):
+        tkb.local_bwd_body(q, q, q, q.float(), 4)
 
 
 SPLASH_SHAPES = [  # (B, H, L, window, block, dtype)

@@ -2,6 +2,7 @@
 end against the JAX package's make_synthesizer, and the port's import
 boundary (no JAX)."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -92,6 +93,15 @@ def test_make_synthesizer_prepending_takes_exact_path():
     vols, grids = synth(None, [torch.from_numpy(c) for c in conds])
     np.testing.assert_array_equal(grids.numpy(), np.asarray(j_grids))
     assert vols.shape == (B, 1, 8, 12, 8) and torch.isfinite(vols).all()
+
+
+def test_make_synthesizer_takes_jax_keywords():
+    """The port's make_synthesizer has JAX's parameters, no more and no
+    fewer, with the same defaults."""
+    def params(fn):
+        return {n: (p.kind, p.default) for n, p in inspect.signature(fn).parameters.items()}
+
+    assert params(make_synthesizer) == params(j_make_synthesizer)
 
 
 def test_port_imports_no_jax():
