@@ -8,7 +8,11 @@ Needs one CUDA card and the CUDA toolkit; exits non-zero, printing no
 result, without them.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed);
+2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed),
+   then the SASS of rows 6 and 8 (``cuobjdump -sass``): HMMA or HGMMA in
+   every bf16 instantiation of their kernels, with each kernel's
+   registers, spills and stack (``ptxas -v``) and the dynamic shared
+   memory of their launches;
 3. the fused decode kernel against its plain PyTorch version, at paper
    width and at the small test shape, for int8 weights + bf16 rings and
    int4 weights + int8 rings, pre-LayerNorm and ReZero, at t in
@@ -30,8 +34,9 @@ result, without them.  Phases, each fatal on failure:
    the same seeded inputs, at the paper shape (B6, 8 + 8 heads, L 1400,
    d 64, m 256, w 420, bf16) and at awkward small shapes (L not a
    multiple of the chunk or block, L < w, w not a multiple of the
-   block): output, dq, dk and dv (``_compare_grad``), and two backward
-   runs bit-identical;
+   block; for local attention also L one off a 64-row tile, w 1, 64, 65
+   and ≥ L, d 16 to 128 and d 200): output, dq, dk and dv
+   (``_compare_grad``), and two backward runs bit-identical;
 7. the paper training path: ``create_transformer_train_state`` +
    ``make_transformer_train_step`` on the 24L/d512/16h prior (8 local
    heads, window 420, ReZero with non-zero gains, learned spatial tables,
@@ -42,7 +47,10 @@ result, without them.  Phases, each fatal on failure:
    a projection redraw: finite losses, a lower loss after than at step 0,
    and exactly 24 layers x 3 launches of each kernel per step;
 8. timings on the card: train step kernels vs plain (ms, tokens/s, peak
-   memory), forward + backward of each kernel vs its plain version, and a
+   memory), forward + backward of each kernel vs its plain version (row 6
+   also forward and backward alone, each in turns with SDPA with the
+   banded mask, read as elapsed time and as device time, beside its
+   bound and useful TFLOP/s), and a
    torch.profiler breakdown of one kernel step;
 9. the stage-1 kernels against their plain versions on the same seeded
    inputs: the VQ argmin and argmin + EMA statistics at the paper shape
@@ -79,7 +87,8 @@ result, without them.  Phases, each fatal on failure:
    inputs: at the paper shape (B6 x 8 heads x L 1401 x d 64, w 420) in
    bf16 and f32, blocks 256 and 128, fused and unfused backward, and at
    awkward shapes (L 130 with w 17; L 300 with w 37; L < w; w 1; w a
-   multiple of the kernel's 64-row tile): o, lse, dq, dk and dv, two
+   multiple of the kernel's 64-row tile; L one off a tile; w 64, 65 and
+   ≥ L): o, lse, dq, dk and dv, two
    backward runs bit-identical, and the tiles every kernel visited
    against the tile map;
 13. the port's prior-training bench at paper form
@@ -90,8 +99,9 @@ result, without them.  Phases, each fatal on failure:
    step through the banded kernel (row 6) from the same weights (ReZero
    gains 0.1); a short run at --attn-dtype float32; then the step with
    splash against the step with row 6 (ms, tok/s), splash fwd+bwd per
-   layer against its plain version, row 6 and SDPA with the banded mask,
-   and a torch.profiler breakdown of one splash bench step;
+   layer against its plain version, row 6 and SDPA with the banded mask
+   (elapsed time; then splash, row 6 and SDPA again in device time), and
+   a torch.profiler breakdown of one splash bench step;
 14. the exact decode path (``Performer.decode_step``, ``make_sampler(fused=
    False)``): (a) on the paper prior in f32 with ReZero gains 0.1,
    ``decode_step`` over seeded tokens against ``Performer.forward`` at
@@ -170,6 +180,7 @@ VOLUME = (160, 224, 160)
 # at the last level) x (forward + remat recompute), 6 backward, 1 argmin
 RES_FWD_PER_STEP, RES_BWD_PER_STEP, ARGMIN_PER_STEP = 12, 6, 1
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM dense peaks (FLOP/s, B/s)
+SPIN_HZ = 2.0e9  # cycles a second of torch.cuda._sleep's spin (above the H100's SM clock)
 # the bench's paper form through splash, and the same through row 6
 BENCH_SPLASH = ["--splash-local", "--pallas-favor", "--use-rezero", "--spatial-emb", "absolute",
                 "--attn-dtype", "bfloat16"]
@@ -177,11 +188,50 @@ BENCH_BANDED = ["--pallas-local"] + BENCH_SPLASH[1:]
 BENCH_STEPS = ["--steps", "4", "--warmup", "1"]  # + the first step: 6 steps a run
 PROBE_REPS = 20  # launches per measurement of the kernel-body probe (min of 5)
 SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two backward launches
+# the row 6 and row 8 kernels whose bf16 instantiations must hold
+# tensor-core instructions (phase 2b)
+TENSOR_CORE_KERNELS = {
+    "local_attention": ("local_fwd_kernel", "local_bwd_dq_kernel", "local_bwd_dkv_kernel"),
+    "local_attention_splash": ("splash_fwd_kernel", "splash_dq_kernel", "splash_dkv_kernel"),
+}
 
 
 def _require(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def _check_sass():
+    """Phase 2b: every bf16 instantiation of the row 6 (tile form) and row 8
+    kernels runs its products on the tensor cores: HMMA or HGMMA in its
+    SASS (``cuobjdump -sass``).  Prints each kernel's tensor-core
+    instructions, registers, spills and stack from ``ptxas -v``, and the
+    dynamic shared memory the launches ask for.  Row 6's band form (d >
+    128, the earlier FMA kernels) and splash's dq reduction (no product)
+    are listed without the requirement."""
+    from synthanatomy_tpu_torch import _build
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.ops import local_attention_splash as ls
+
+    for lib, kernels in TENSOR_CORE_KERNELS.items():
+        regs = _build.ptxas_kernels(lib)
+        held = 0
+        for mangled, (label, body) in sorted(_build.sass(lib).items(), key=lambda kv: kv[1][0]):
+            hmma, hgmma = body.count("HMMA"), body.count("HGMMA")
+            must = label.split("<")[0] in kernels and "__nv_bfloat16" in label
+            if must:
+                _require(hmma + hgmma > 0, f"{lib}: {label} has no tensor-core instruction")
+                held += 1
+            r = regs.get(mangled, {})
+            print(f"[sass] {label}: HMMA {hmma}, HGMMA {hgmma}{' (required)' if must else ''}; "
+                  f"{r.get('registers')} registers, spills {r.get('spill_stores')}/"
+                  f"{r.get('spill_loads')} bytes, stack {r.get('stack')} bytes")
+        _require(held > 0, f"{lib}: no bf16 kernel found in the SASS")
+        print(f"[sass] {lib}: tensor-core instructions in all {held} bf16 instantiations")
+    for dtype, code in (("bfloat16", 1), ("float32", 0)):
+        print(f"[smem] {dtype} at d 64, w 420: row 6's largest kernel "
+              f"{lf._lib().local_smem_bytes(64, 420, code)} B of dynamic shared memory, splash's "
+              f"{ls._lib().splash_smem_bytes(code)} B")
 
 
 def _random_state(cfg, gen, device):
@@ -347,7 +397,20 @@ def _check_training_kernels(dev):
     local_shapes = [("paper", (6, 8, 1400, 64), 420, bf16),
                     ("L < w", (1, 2, 20, 16), 40, bf16),
                     ("w % block != 0", (2, 2, 100, 64), 45, bf16),
-                    ("L % block != 0, f32", (1, 2, 37, 16), 12, f32)]
+                    ("L % block != 0, f32", (1, 2, 37, 16), 12, f32),
+                    # the tile walk's edges: L one off a 64-row tile, w 1, 64,
+                    # 65 and ≥ L, d 16, 32, 48, 100 and 128 (zero-padded in the
+                    # staged tiles), and d 200 (the band form)
+                    ("L 2 tiles - 1, w 64, d 16", (1, 2, 127, 16), 64, bf16),
+                    ("L 2 tiles + 1, w 65, d 32", (1, 2, 129, 32), 65, bf16),
+                    ("w 1, d 128", (2, 2, 191, 128), 1, bf16),
+                    ("w >= L, d 128, f32", (1, 2, 193, 128), 300, f32),
+                    ("w 64, f32", (1, 3, 65, 64), 64, f32),
+                    ("w 1000 >= L", (1, 2, 129, 32), 1000, bf16),
+                    ("L 1 tile - 1, w 65, f32", (1, 2, 63, 16), 65, f32),
+                    ("d 100", (1, 2, 255, 100), 65, bf16),
+                    ("d 48, f32", (1, 2, 200, 48), 77, f32),
+                    ("d 200 (band form)", (1, 1, 100, 200), 37, bf16)]
     errs = {"favor": 0.0, "local": 0.0}
     for label, shape, m, chunk, dtype in favor_shapes:
         q, k, v, g = _attention_inputs(shape, dtype, shape[2], dev)
@@ -470,6 +533,99 @@ def _time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps):
+    """Device ms per call of fn: as ``_time_ms``, but the calls are queued
+    behind a GPU spin as long as 1.5x their host time, so a call whose host
+    side (autograd, allocations) is slower than its kernels times its
+    kernels, not the host's gaps between them.  Used beside ``_time_ms``
+    for rows 6 and 8 against SDPA only."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * SPIN_HZ))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _turns(kernel, plain, library, reps):
+    """plain, kernel, library, library, kernel, plain (the card may drift
+    within a call), read by ``_time_ms`` (the host's gaps included, as
+    every other row) and then by ``_device_ms``: {"ms", "plain_ms",
+    "library_ms", "each"} and the same keys prefixed "dev_", the means of
+    each pair and the six single times."""
+    out = {}
+    for pre, timer in (("", _time_ms), ("dev_", _device_ms)):
+        p1, k1, y1 = timer(plain, max(1, reps // 3)), timer(kernel, reps), timer(library, reps)
+        y2, k2, p2 = timer(library, reps), timer(kernel, reps), timer(plain, max(1, reps // 3))
+        out.update({pre + "ms": (k1 + k2) / 2, pre + "plain_ms": (p1 + p2) / 2,
+                    pre + "library_ms": (y1 + y2) / 2, pre + "each": (p1, k1, y1, y2, k2, p2)})
+    return out
+
+
+def _time_local(dev, smi, q, k, v, g, fwd_bwd_pair):
+    """Phase 8's row 6 at the paper shape: forward, backward and both, each
+    in turns with its plain version and SDPA with the banded mask, read as
+    elapsed time (``_time_ms``) and as device time (``_device_ms``), beside
+    its bound and the useful TFLOP/s (the band's products as the bounds
+    count them: 4, 10 and 14 FLOP per visible pair and feature).  SDPA's
+    backward alone is its forward+backward less its forward."""
+    import torch
+    import torch.nn.functional as F
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+
+    w, d = 420, q.shape[-1]
+    gb = g.to(q.dtype)
+    i_, j_ = torch.arange(SEQ, device=dev)[:, None], torch.arange(SEQ, device=dev)[None, :]
+    band = (j_ <= i_) & (j_ > i_ - w)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band)
+
+    def sdpa():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=band)
+        return torch.autograd.grad(o, leaves, gb)
+
+    fb_kernel, fb_plain = fwd_bwd_pair
+    bh, pairs = q.shape[0] * q.shape[1], sum(min(i + 1, w) for i in range(SEQ))
+    io1 = _nbytes(q)
+    # 30 calls a reading: the elapsed readings are host-paced, and a host
+    # stall in 10 calls moved one of them by 2x
+    res = {
+        "fwd": _turns(lambda: lf._kernel_fwd(q, k, v, w), lambda: lf.local_fwd_plain(q, k, v, w),
+                      sdpa_fwd, 30),
+        "bwd": _turns(lambda: lf._kernel_bwd(q, k, v, gb, w),
+                      lambda: lf.local_bwd_plain(q, k, v, gb, w), sdpa, 30),
+        "fwd+bwd": _turns(fb_kernel, fb_plain, sdpa, 30),
+    }
+    for pre in ("", "dev_"):
+        res["bwd"][pre + "library_ms"] -= res["fwd"][pre + "library_ms"]
+    for name, flop, nbytes in (("fwd", 4, 4 * io1), ("bwd", 10, 7 * io1), ("fwd+bwd", 14, 8 * io1)):
+        r = res[name]
+        r["flops"] = flop * bh * pairs * d
+        r["bound"] = _bound(r["flops"], nbytes, PEAK_BF16)
+        for pre, how in (("", "elapsed"), ("dev_", "device time")):
+            p1, k1, y1, y2, k2, p2 = r[pre + "each"]
+            lib_note = "SDPA fwd+bwd less SDPA fwd" if name == "bwd" else \
+                f"SDPA banded mask ({y1:.4f}, {y2:.4f})"
+            print(f"[time] row 6 {name} ({how}), B{q.shape[0]} x {q.shape[1]} heads x L{SEQ} x "
+                  f"d{d}, w {w}, bf16: kernel {r[pre + 'ms']:.4f} ms ({k1:.4f}, {k2:.4f}), "
+                  f"{r['flops'] / r[pre + 'ms'] / 1e9:.1f} useful TFLOP/s "
+                  f"({r['flops'] / 1e9:.2f} GFLOP); plain {r[pre + 'plain_ms']:.3f} ms "
+                  f"({p1:.3f}, {p2:.3f}); library {r[pre + 'library_ms']:.4f} ms ({lib_note}); "
+                  f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  [{smi}]")
+    return res
 
 
 def _bound(flops, nbytes, peak):
@@ -990,7 +1146,12 @@ def _check_splash(dev):
                    ("L 300, w 37", (2, 2, 300, 64), 37, bf16),
                    ("L < w", (1, 2, 50, 64), 100, bf16),
                    ("w 1", (1, 3, 200, 64), 1, f32),
-                   ("w = 2 tiles", (1, 2, 300, 64), 128, bf16))]
+                   ("w = 2 tiles", (1, 2, 300, 64), 128, bf16),
+                   ("L 2 tiles - 1, w 64", (1, 2, 127, 64), 64, bf16),
+                   ("L 2 tiles + 1, w 65, f32", (1, 2, 129, 64), 65, f32),
+                   ("w 2, L 3 tiles - 1", (1, 2, 191, 64), 2, bf16),
+                   ("w >= L", (1, 2, 193, 64), 400, bf16),
+                   ("w 64, f32", (1, 3, 65, 64), 64, f32))]
     err_main = None
     for label, shape, w, block, dtype, fused in shapes:
         b, h, n, d = shape
@@ -1188,6 +1349,9 @@ def _check_bench(dev, smi):
 
     p1, k1, b1, y1 = _time_ms(plain, 3), _time_ms(splash, 10), _time_ms(banded, 5), _time_ms(sdpa, 10)
     y2, b2, k2, p2 = _time_ms(sdpa, 10), _time_ms(banded, 5), _time_ms(splash, 10), _time_ms(plain, 3)
+    # the same in device time (_device_ms), in the same turns
+    dk1, db1, dy1 = _device_ms(splash, 10), _device_ms(banded, 10), _device_ms(sdpa, 10)
+    dy2, db2, dk2 = _device_ms(sdpa, 10), _device_ms(banded, 10), _device_ms(splash, 10)
     pairs = sum(min(i + 1, w) for i in range(n))
     io = _nbytes(qs, k, v, g) * 2 + TRAIN_BATCH * 8 * n * 4  # + lse
     rec["bound"] = _bound(14 * TRAIN_BATCH * 8 * pairs * 64, io, PEAK_BF16)
@@ -1198,6 +1362,18 @@ def _check_bench(dev, smi):
           f"{rec['plain_ms']:.3f} ({p1:.3f}, {p2:.3f}), row 6 {rec['banded_ms']:.3f} ({b1:.3f}, "
           f"{b2:.3f}), SDPA banded mask {rec['sdpa_ms']:.3f} ({y1:.3f}, {y2:.3f}); bound "
           f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})  [{smi}]")
+    dev = {"splash": (dk1 + dk2) / 2, "row 6": (db1 + db2) / 2, "SDPA banded mask": (dy1 + dy2) / 2}
+    rec["dev_ms"], rec["dev_banded_ms"], rec["dev_sdpa_ms"] = dev.values()
+    print(f"[time] the same in device time (queued behind a GPU spin): splash "
+          f"{dev['splash']:.4f} ms ({dk1:.4f}, {dk2:.4f}), row 6 {dev['row 6']:.4f} ({db1:.4f}, "
+          f"{db2:.4f}), SDPA banded mask {dev['SDPA banded mask']:.4f} ({dy1:.4f}, {dy2:.4f})  "
+          f"[{smi}]")
+    flops = 14 * TRAIN_BATCH * 8 * pairs * 64
+    elapsed = {"splash": rec["ms"], "row 6": rec["banded_ms"], "SDPA banded mask": rec["sdpa_ms"]}
+    print(f"[time] useful TFLOP/s of local attention fwd+bwd ({flops / 1e9:.2f} GFLOP of band "
+          f"products), elapsed / device time: "
+          + ", ".join(f"{k} {flops / elapsed[k] / 1e9:.1f} / {flops / dev[k] / 1e9:.1f}"
+                      for k in dev) + f"  [{smi}]")
     return rec
 
 
@@ -1659,6 +1835,7 @@ def main() -> int:
     for line in _build.ptxas_report().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    _check_sass()
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),
@@ -1892,13 +2069,14 @@ def main() -> int:
                                    q, k, v, g)),
     }
     ktimes = {}
-    for name, (kern, plain) in pairs.items():
-        p1, k1, k2, p2 = (_time_ms(plain, 3), _time_ms(kern, 5), _time_ms(kern, 5),
-                          _time_ms(plain, 3))
-        ktimes[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[time] {name} fwd+bwd, B{TRAIN_BATCH} x 8 heads x L{SEQ} x d64 bf16 (one "
-              f"layer): kernel {ktimes[name][0]:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
-              f"{ktimes[name][1]:.3f} ms ({p1:.3f}, {p2:.3f})  [{smi}]")
+    kern, plain = pairs["favor"]
+    p1, k1, k2, p2 = _time_ms(plain, 3), _time_ms(kern, 5), _time_ms(kern, 5), _time_ms(plain, 3)
+    ktimes["favor"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    print(f"[time] favor fwd+bwd, B{TRAIN_BATCH} x 8 heads x L{SEQ} x d64 bf16 (one layer): "
+          f"kernel {ktimes['favor'][0]:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+          f"{ktimes['favor'][1]:.3f} ms ({p1:.3f}, {p2:.3f})  [{smi}]")
+    local = _time_local(dev, smi, q, k, v, g, pairs["local"])
+    ktimes["local"] = (local["fwd+bwd"]["ms"], local["fwd+bwd"]["plain_ms"])
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1922,19 +2100,8 @@ def main() -> int:
     bhld = TRAIN_BATCH * 8 * SEQ * 64
     io = _nbytes(q, k, v, g) * 2  # q, k, v, g read; out, dq, dk, dv written
     favor_bound = _bound(24 * bhld * 256, io + _nbytes(proj), PEAK_BF16)
-    pairs_in_band = sum(min(i + 1, 420) for i in range(SEQ))
-    local_bound = _bound(14 * TRAIN_BATCH * 8 * pairs_in_band * 64, io, PEAK_BF16)
-    i_, j_ = torch.arange(SEQ, device=dev)[:, None], torch.arange(SEQ, device=dev)[None, :]
-    band = (j_ <= i_) & (j_ > i_ - 420)
-
-    def sdpa():
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=band)
-        return torch.autograd.grad(o, leaves, g.to(o.dtype))
-
-    sdpa_ms = _time_ms(sdpa, 5)
-    print(f"[time] library: scaled_dot_product_attention with the banded causal mask, fwd+bwd, "
-          f"same shape: {sdpa_ms:.3f} ms; bounds: favor {favor_bound[0]:.4f} ms, local "
+    local_bound, sdpa_ms = local["fwd+bwd"]["bound"], local["fwd+bwd"]["library_ms"]
+    print(f"[time] bounds: favor {favor_bound[0]:.4f} ms ({favor_bound[1]}), local "
           f"{local_bound[0]:.4f} ms ({local_bound[1]})  [{smi}]")
     del state, model, train_step, q, k, v, g, prof
     torch.cuda.empty_cache()

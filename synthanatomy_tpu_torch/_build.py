@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["SMEM_PER_BLOCK", "build_all", "load_library", "ptxas_report", "sources"]
+__all__ = ["SMEM_PER_BLOCK", "build_all", "load_library", "ptxas_report", "sass", "sources"]
 
 # bytes of dynamic shared memory one block may take on Hopper (sm_90)
 SMEM_PER_BLOCK = 232448
@@ -56,7 +56,7 @@ def sources() -> list:
 def _library_path(name: str) -> Path:
     """Where the library built from the current source, headers and flags lives."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
+    for src in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh")), *sorted(_CSRC.glob("*.h"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
@@ -104,3 +104,46 @@ def ptxas_report() -> str:
     (registers, shared memory and spills per kernel)."""
     reports = [_library_path(n).with_suffix(".ptxas.txt") for n in sources()]
     return "".join(r.read_text() for r in reports if r.exists())
+
+
+def ptxas_kernels(name: str) -> dict:
+    """Per kernel of ``csrc/<name>.cu``'s library: {mangled name: {"registers",
+    "spill_stores", "spill_loads", "stack"}} from what ``ptxas -v`` said."""
+    import re
+
+    report = _library_path(name).with_suffix(".ptxas.txt")
+    out, cur = {}, None
+    for line in report.read_text().splitlines() if report.exists() else []:
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass(name: str) -> dict:
+    """{mangled kernel name: (demangled name, its SASS)} of ``csrc/<name>.cu``'s
+    library, by the toolkit's ``cuobjdump -sass`` and ``cu++filt`` (built
+    first if missing)."""
+    build_all([name])
+    bin_dir = os.path.dirname(_nvcc())
+    text = subprocess.run([os.path.join(bin_dir, "cuobjdump"), "-sass", str(_library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    parts = [part.partition("\n") for part in text.split("Function : ")[1:]]
+    names = [head.strip() for head, _, _ in parts]
+    plain = subprocess.run([os.path.join(bin_dir, "cu++filt")], input="\n".join(names),
+                           capture_output=True, text=True, check=True).stdout.splitlines()
+    labels = [(p[:p.rfind("(")] if p.endswith(")") else p).replace("void ", "", 1)
+              .replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+              .replace("(int)", "") for p in plain]
+    return {n: (label, body) for n, label, (_, _, body) in zip(names, labels, parts)}

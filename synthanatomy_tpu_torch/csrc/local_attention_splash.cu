@@ -31,36 +31,40 @@
 // form, by the partials' rounding, which the comparison's tolerance
 // covers.  Nothing is added with atomics: two runs give identical bits.
 //
-// Products.  One warp owns 16 rows of a tile and computes 16 x 8·NB
-// products with the mma.sync m16n8k16 accumulator layout.  In bf16 the
-// products run on the tensor cores (mma.sync bf16 → f32); every operand
-// is already a bf16 value, except p in the forward's P·V, which splash
-// keeps in f32: it is split into p = hi + lo (both bf16, |p − hi − lo| ≤
-// 2^-17·p) and multiplied in two products.  In f32 the same layout runs
-// on FMAs, so the f32 instantiation stays exact f32 (no TF32).
+// The tile core (band_attention.cuh), shared with row 6.  A block is one
+// warpgroup on one 64-row tile; each warp owns 16 of its rows.  In bf16
+// every product runs on the tensor cores (mma.sync m16n8k16, bf16 → f32
+// sums) with fragments loaded by ldmatrix, and a computed operand (p, ds)
+// passes from the accumulators to the A fragments in registers.  Every
+// operand is a bf16 value already, except p in the forward's P·V, which
+// splash keeps in f32: it is split into p = hi + lo (both bf16, |p − hi −
+// lo| ≤ 2^-17·p) and multiplied in two products.  In f32 the same layout
+// runs on FMAs, so the f32 instantiation stays exact f32 (no TF32).  The
+// visited K/V (or Q/do) tiles stream through a 2-slot cp.async ring: the
+// next tile of the map is copied while the current one is multiplied.
 //
-// Kernels (128 threads, 4 warps, one block per tile and head):
+// Kernels (128 threads, one block per tile and head):
 //   splash_fwd_kernel     per query tile: o and lse;
 //   splash_dq_kernel      per query tile: dq (the unfused backward);
 //   splash_dkv_kernel     per key tile: dk and dv, and in the fused form
-//                         the dq partial of every visited pair;
+//                         the dq partial of every visited pair (its rnd(ds)
+//                         tile staged in shared memory, read transposed);
 //   splash_dq_reduce_kernel  sums the dq partials (fused form).
 //
 // What bounds it on the card.  At the paper shape (B6 x 8 heads, L 1401
-// padded to 1536, d 64, w 420) a head visits 180 of 576 tile pairs; the
+// padded to 1536, d 64, w 420) a head visits 164 of 576 tile pairs; the
 // forward is ~7 GFLOP of useful work and the backward twice that, against
 // ~11 MB of q/k/v/o read per pass, so the bf16 tensor-core rate bounds it
-// (~7 µs forward at 989 TFLOP/s), far below what a simple kernel reaches.
-// What keeps it from that bound: mma.sync fragments gathered element by
-// element from shared memory, a synchronous load of each tile, and the
-// extra product for p's low half.  wgmma with TMA-staged tiles is later
-// work.
+// (~7 µs forward at 989 TFLOP/s).  What keeps it from that bound: every
+// warp loads its own B fragments from shared memory (mma.sync), the
+// forward's second product for p's low half, and the f32 softmax (exp on
+// the SFU, masks on the partial tiles) on the same warps; wgmma with
+// TMA-staged tiles and a producer warp is later work (PERF.md §6 has the
+// times).
 
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "block_gemm.cuh"
+#include "band_attention.cuh"
 
 using sa::from_f;
 using sa::rnd;
@@ -68,24 +72,25 @@ using sa::to_f;
 
 namespace {
 
-constexpr int kTile = 64;  // rows of a query or key tile
-constexpr int kD = 64;     // head dim
-constexpr int kThreads = 128;
-constexpr int kNB = kTile / 8;  // 8-column blocks of a tile-wide product
+using band::kThreads;
+using band::kTile;
+using band::kNT;
+constexpr int kD = 64;          // head dim
 constexpr int kDB = kD / 8;     // 8-column blocks of a head-wide product
 constexpr float kMask = -0.7f * 3.40282346638528859812e+38f;  // splash DEFAULT_MASK_VALUE
-constexpr int kPld = kTile + 4;                               // f32 score rows in shared memory
 
-// row stride (elements) of a q/k/v/do tile in shared memory: 16-byte
-// aligned rows, offset by 4 banks from the row above
 template <class T>
-__host__ __device__ constexpr int tile_ld() {
-  return kD + (sizeof(T) == 2 ? 8 : 4);
-}
+using Rows = band::TileRows<T, kD, true>;
 
 template <class T>
 __host__ __device__ constexpr int tile_elems() {
-  return kTile * tile_ld<T>();
+  return band::tile_elems<T, kD>();
+}
+
+// the fused form's rnd(ds) tile, (key, query), rows padded by 16 bytes
+template <class T>
+__host__ __device__ constexpr int ds_ld() {
+  return kTile + 16 / int(sizeof(T));
 }
 
 struct Map {
@@ -112,118 +117,26 @@ struct Args {
   int* visits;  // optional: tiles visited per block
 };
 
-__device__ __forceinline__ bool visible(int i, int j, int w) { return j <= i && j > i - w; }
-
-// 64 rows of kD elements, contiguous in device memory, into shared memory
-template <class T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src) {
-  constexpr int ld = tile_ld<T>(), vec = 16 / sizeof(T), per_row = kD / vec;
-  for (int e = threadIdx.x; e < kTile * per_row; e += kThreads) {
-    const int r = e / per_row, c = (e % per_row) * vec;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(src + r * kD + c);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float bf16_part(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[nb] += A (16 x K) · B (K x 8·NB) for one warp.  a(i, k) and b(k, j)
-// return f32 operands.  Lane (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8, columns 8·nb + 2t and 8·nb + 2t + 1 (acc[nb][0..1] row g,
-// acc[nb][2..3] row g + 8), the mma.sync m16n8 accumulator layout, in both
-// instantiations; sums run over k in a fixed order.  With SPLIT (bf16
-// only) A is taken as f32 and multiplied as hi + lo.
-template <class T, int NB, bool SPLIT = false, class FA, class FB>
-__device__ __forceinline__ void warp_product(float (&acc)[NB][4], int K, FA a, FB b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll 2
-    for (int k = 0; k < K; ++k) {
-      const float a0 = a(g, k), a1 = a(g + 8, k);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const float b0 = b(k, nb * 8 + 2 * t), b1 = b(k, nb * 8 + 2 * t + 1);
-        acc[nb][0] = fmaf(a0, b0, acc[nb][0]);
-        acc[nb][1] = fmaf(a0, b1, acc[nb][1]);
-        acc[nb][2] = fmaf(a1, b0, acc[nb][2]);
-        acc[nb][3] = fmaf(a1, b1, acc[nb][3]);
-      }
-    }
-  } else {
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const int ka = k0 + 2 * t, kb = ka + 8;
-      const float av[4][2] = {{a(g, ka), a(g, ka + 1)},
-                              {a(g + 8, ka), a(g + 8, ka + 1)},
-                              {a(g, kb), a(g, kb + 1)},
-                              {a(g + 8, kb), a(g + 8, kb + 1)}};
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        hi[r] = pack_bf16(av[r][0], av[r][1]);
-        if (SPLIT)
-          lo[r] = pack_bf16(av[r][0] - bf16_part(av[r][0]), av[r][1] - bf16_part(av[r][1]));
-      }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int j = nb * 8 + g;
-        const uint32_t bf[2] = {pack_bf16(b(ka, j), b(ka + 1, j)), pack_bf16(b(kb, j), b(kb + 1, j))};
-        mma_bf16(acc[nb], hi, bf);
-        if (SPLIT) mma_bf16(acc[nb], lo, bf);
-      }
-    }
-  }
-}
-
-template <int NB>
-__device__ __forceinline__ void zero(float (&acc)[NB][4]) {
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[nb][r] = 0.f;
-}
-
-// the row (r >> 1) and column (r & 1) offsets of accumulator element r
-__device__ __forceinline__ int acc_row(int r) { return (threadIdx.x & 31) / 4 + (r >> 1) * 8; }
-__device__ __forceinline__ int acc_col(int nb, int r) {
-  return nb * 8 + 2 * ((threadIdx.x & 31) & 3) + (r & 1);
-}
-
-// a warp's 16 x kD accumulator, rounded to T, into rows [row0, row0 + 16)
-// of a (·, kD) tensor
-template <class T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, int row0, const float (&acc)[kDB][4],
-                                           float scale0, float scale1) {
-#pragma unroll
-  for (int nb = 0; nb < kDB; ++nb)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      dst[(long long)(row0 + acc_row(r)) * kD + acc_col(nb, r)] =
-          from_f<T>(acc[nb][r] * ((r >> 1) ? scale1 : scale0));
-}
-
+// shared memory (bytes): forward Q + 2 x (K, V); dq Q, do + 2 x (K, V);
+// dk/dv K, V + 2 x (Q, do, lse, di) + the rnd(ds) tile
 template <class T>
 __host__ __device__ constexpr long long fwd_smem() {
-  return 3LL * tile_elems<T>() * sizeof(T) + 4LL * kTile * kPld;
+  return 5LL * tile_elems<T>() * sizeof(T);
 }
 template <class T>
 __host__ __device__ constexpr long long dq_smem() {
-  return 4LL * tile_elems<T>() * sizeof(T) + 4LL * kTile * kPld;
+  return 6LL * tile_elems<T>() * sizeof(T);
 }
 template <class T>
 __host__ __device__ constexpr long long dkv_smem() {
-  return 4LL * tile_elems<T>() * sizeof(T) + 4LL * (2 * kTile * kPld + 2 * kTile);
+  return 6LL * tile_elems<T>() * sizeof(T) + 2LL * 2 * kTile * sizeof(float) +
+         1LL * kTile * ds_ld<T>() * sizeof(T);
+}
+
+// a 64 x kD tile of a (·, kD) tensor from row `row`: every row is real
+template <class T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, long long row) {
+  band::stage_tile<T, kD>(dst, src + row * kD, kTile, kD, true);
 }
 
 template <class T>
@@ -231,78 +144,70 @@ __global__ void __launch_bounds__(kThreads)
 splash_fwd_kernel(Args A, const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = tile_ld<T>();
+  constexpr int TE = tile_elems<T>();
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + tile_elems<T>();
-  T* Vs = Ks + tile_elems<T>();
-  float* Ps = reinterpret_cast<float*>(Vs + tile_elems<T>());
+  T* Ks = Qs + TE;      // 2 slots
+  T* Vs = Ks + 2 * TE;  // 2 slots
   const int qt = blockIdx.x, bh = blockIdx.y, q0 = qt * kTile;
   const long long base = (long long)bh * A.n * kD;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows
-  float* Pw = Ps + r0 * kPld;
-  load_tile(Qs, q + base + (long long)q0 * kD);
-
+  const int r0 = 16 * (threadIdx.x >> 5);  // the warp's rows
+  const int e0 = A.map.q_ptr[qt], steps = A.map.q_ptr[qt + 1] - e0;
+  Rows<T> qa;
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
   float acc[kDB][4];
-  zero(acc);
+  band::zero(acc);
   int visited = 0;
-  for (int e = A.map.q_ptr[qt]; e < A.map.q_ptr[qt + 1]; ++e, ++visited) {
-    const int kt = A.map.q_ent[e] >> 1, partial = A.map.q_ent[e] & 1, k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous K and V
-    load_tile(Ks, k + base + (long long)k0 * kD);
-    load_tile(Vs, v + base + (long long)k0 * kD);
-    __syncthreads();
-    float s[kNB][4];
-    zero(s);
-    warp_product<T, kNB>(
-        s, kD, [&](int i, int c) { return to_f(Qs[(r0 + i) * ld + c]); },
-        [&](int c, int j) { return to_f(Ks[j * ld + c]); });
-    if (partial) {
+  stage(Qs, q + base, q0);
+  band::ring_walk(
+      steps,
+      [&](int s, int slot) {
+        const long long k0 = (long long)(A.map.q_ent[e0 + s] >> 1) * kTile;
+        stage(Ks + slot * TE, k + base, k0);
+        stage(Vs + slot * TE, v + base, k0);
+      },
+      [&]() { qa.init(Qs + r0 * band::tile_ld<T, kD>()); },
+      [&](int s, int slot) {
+        const int ent = A.map.q_ent[e0 + s], k0 = (ent >> 1) * kTile;
+        ++visited;
+        float sc[kNT][4];
+        band::zero(sc);
+        band::rows_rows(sc, qa, Ks + slot * TE);
+        if (ent & 1) {  // partial
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
+          for (int nb = 0; nb < kNT; ++nb)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          if (!visible(q0 + r0 + acc_row(r), k0 + acc_col(nb, r), A.w)) s[nb][r] = kMask;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-      float cur = kMask;
-#pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) cur = fmaxf(cur, fmaxf(s[nb][2 * h], s[nb][2 * h + 1]));
-      cur = fmaxf(cur, __shfl_xor_sync(0xffffffffu, cur, 1));
-      cur = fmaxf(cur, __shfl_xor_sync(0xffffffffu, cur, 2));
-      const float m_next = fmaxf(m[h], cur);
-      const float alpha = expf(m[h] - m_next);
-      float sum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float p = expf(s[nb][2 * h + c] - m_next);
-          s[nb][2 * h + c] = p;
-          sum += p;
+            for (int r = 0; r < 4; ++r)
+              if (!band::visible(q0 + r0 + band::acc_row(r), k0 + band::acc_col(nb, r), A.w))
+                sc[nb][r] = kMask;
         }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[h] = sum + alpha * l[h];
-      m[h] = m_next;
 #pragma unroll
-      for (int nb = 0; nb < kDB; ++nb) {
-        acc[nb][2 * h] *= alpha;
-        acc[nb][2 * h + 1] *= alpha;
-      }
-    }
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+          float cur = kMask;
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
+          for (int nb = 0; nb < kNT; ++nb) cur = fmaxf(cur, fmaxf(sc[nb][2 * h], sc[nb][2 * h + 1]));
+          const float m_next = fmaxf(m[h], band::quad_max(cur));
+          const float alpha = band::exp_sfu(m[h] - m_next);
+          float sum = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) Pw[acc_row(r) * kPld + acc_col(nb, r)] = s[nb][r];
-    __syncwarp();
-    warp_product<T, kDB, true>(
-        acc, kTile, [&](int i, int c) { return Pw[i * kPld + c]; },
-        [&](int c, int j) { return to_f(Vs[c * ld + j]); });
-  }
+          for (int nb = 0; nb < kNT; ++nb)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float p = band::exp_sfu(sc[nb][2 * h + c] - m_next);
+              sc[nb][2 * h + c] = p;
+              sum += p;
+            }
+          l[h] = band::quad_sum(sum) + alpha * l[h];
+          m[h] = m_next;
+#pragma unroll
+          for (int nb = 0; nb < kDB; ++nb) {
+            acc[nb][2 * h] *= alpha;
+            acc[nb][2 * h + 1] *= alpha;
+          }
+        }
+        band::acc_cols<T, kD, kNT, kDB, true>(acc, sc, Vs + slot * TE);  // p unrounded
+      });
   const long long row0 = (long long)bh * A.n + q0 + r0;
-  store_rows<T>(o + (long long)bh * A.n * kD, q0 + r0, acc, 1.f / l[0], 1.f / l[1]);
+  band::store_rows<T>(o + base + (long long)(q0 + r0) * kD, 16, kD, acc, 1.f / l[0], 1.f / l[1]);
   if ((threadIdx.x & 3) == 0) {
     const int g = (threadIdx.x & 31) >> 2;
     lse[row0 + g] = logf(l[0]) + m[0];
@@ -318,55 +223,57 @@ splash_dq_kernel(Args A, const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  T* __restrict__ dq) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = tile_ld<T>();
+  constexpr int TE = tile_elems<T>(), ld = band::tile_ld<T, kD>();
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Gs = Qs + tile_elems<T>();  // do
-  T* Ks = Gs + tile_elems<T>();
-  T* Vs = Ks + tile_elems<T>();
-  float* DSs = reinterpret_cast<float*>(Vs + tile_elems<T>());
+  T* Gs = Qs + TE;      // do
+  T* Ks = Gs + TE;      // 2 slots
+  T* Vs = Ks + 2 * TE;  // 2 slots
   const int qt = blockIdx.x, bh = blockIdx.y, q0 = qt * kTile;
   const long long base = (long long)bh * A.n * kD;
-  const int r0 = (threadIdx.x >> 5) * 16, g = (threadIdx.x & 31) >> 2;
-  float* DSw = DSs + r0 * kPld;
-  load_tile(Qs, q + base + (long long)q0 * kD);
-  load_tile(Gs, dout + base + (long long)q0 * kD);
+  const int r0 = 16 * (threadIdx.x >> 5), g = (threadIdx.x & 31) >> 2;
+  const int e0 = A.map.q_ptr[qt], steps = A.map.q_ptr[qt + 1] - e0;
   const long long row0 = (long long)bh * A.n + q0 + r0;
   const float lse_r[2] = {lse[row0 + g], lse[row0 + g + 8]};
   const float di_r[2] = {di[row0 + g], di[row0 + g + 8]};
-
+  Rows<T> qa, ga;
   float acc[kDB][4];
-  zero(acc);
+  band::zero(acc);
   int visited = 0;
-  for (int e = A.map.q_ptr[qt]; e < A.map.q_ptr[qt + 1]; ++e, ++visited) {
-    const int kt = A.map.q_ent[e] >> 1, partial = A.map.q_ent[e] & 1, k0 = kt * kTile;
-    __syncthreads();
-    load_tile(Ks, k + base + (long long)k0 * kD);
-    load_tile(Vs, v + base + (long long)k0 * kD);
-    __syncthreads();
-    float s[kNB][4], dp[kNB][4];
-    zero(s);
-    zero(dp);
-    warp_product<T, kNB>(
-        s, kD, [&](int i, int c) { return to_f(Qs[(r0 + i) * ld + c]); },
-        [&](int c, int j) { return to_f(Ks[j * ld + c]); });
-    warp_product<T, kNB>(
-        dp, kD, [&](int i, int c) { return to_f(Gs[(r0 + i) * ld + c]); },
-        [&](int c, int j) { return to_f(Vs[j * ld + c]); });
+  stage(Qs, q + base, q0);
+  stage(Gs, dout + base, q0);
+  band::ring_walk(
+      steps,
+      [&](int s, int slot) {
+        const long long k0 = (long long)(A.map.q_ent[e0 + s] >> 1) * kTile;
+        stage(Ks + slot * TE, k + base, k0);
+        stage(Vs + slot * TE, v + base, k0);
+      },
+      [&]() {
+        qa.init(Qs + r0 * ld);
+        ga.init(Gs + r0 * ld);
+      },
+      [&](int s, int slot) {
+        const int ent = A.map.q_ent[e0 + s], k0 = (ent >> 1) * kTile;
+        ++visited;
+        float sc[kNT][4], dp[kNT][4];
+        band::zero(sc);
+        band::zero(dp);
+        band::rows_rows(sc, qa, Ks + slot * TE);
+        band::rows_rows(dp, ga, Vs + slot * TE);
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
+        for (int nb = 0; nb < kNT; ++nb)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float x = s[nb][r];
-        if (partial && !visible(q0 + r0 + acc_row(r), k0 + acc_col(nb, r), A.w)) x = kMask;
-        const float p = expf(x - lse_r[r >> 1]);
-        DSw[acc_row(r) * kPld + acc_col(nb, r)] = rnd<T>((dp[nb][r] - di_r[r >> 1]) * p);
-      }
-    __syncwarp();
-    warp_product<T, kDB>(
-        acc, kTile, [&](int i, int c) { return DSw[i * kPld + c]; },
-        [&](int c, int j) { return to_f(Ks[c * ld + j]); });
-  }
-  store_rows<T>(dq + base, q0 + r0, acc, 1.f, 1.f);
+          for (int r = 0; r < 4; ++r) {
+            float x = sc[nb][r];
+            if ((ent & 1) &&
+                !band::visible(q0 + r0 + band::acc_row(r), k0 + band::acc_col(nb, r), A.w))
+              x = kMask;
+            const float p = band::exp_sfu(x - lse_r[r >> 1]);
+            dp[nb][r] = (dp[nb][r] - di_r[r >> 1]) * p;
+          }
+        band::acc_cols<T, kD>(acc, dp, Ks + slot * TE);  // dq += rnd(ds)·k
+      });
+  band::store_rows<T>(dq + base + (long long)(q0 + r0) * kD, 16, kD, acc, 1.f, 1.f);
   if (A.visits && threadIdx.x == 0) A.visits[A.bh * A.nt + bh * A.nt + qt] = visited;
 }
 
@@ -377,86 +284,82 @@ splash_dkv_kernel(Args A, const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ lse, const float* __restrict__ di,
                   T* __restrict__ dk, T* __restrict__ dv, T* __restrict__ dq_part) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = tile_ld<T>();
+  constexpr int TE = tile_elems<T>(), ld = band::tile_ld<T, kD>(), dld = ds_ld<T>();
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + tile_elems<T>();
-  T* Qs = Vs + tile_elems<T>();
-  T* Gs = Qs + tile_elems<T>();  // do
-  float* Ps = reinterpret_cast<float*>(Gs + tile_elems<T>());  // rnd(p) of (key, query)
-  float* DSs = Ps + kTile * kPld;                               // rnd(ds) of (key, query)
-  float* lse_s = DSs + kTile * kPld;
-  float* di_s = lse_s + kTile;
+  T* Vs = Ks + TE;
+  T* Qs = Vs + TE;      // 2 slots
+  T* Gs = Qs + 2 * TE;  // 2 slots of do
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * TE);  // 2 slots of lse, di
+  T* DSs = reinterpret_cast<T*>(Ls + 2 * 2 * kTile);  // rnd(ds) of (key, query)
   const int kt = blockIdx.x, bh = blockIdx.y, k0 = kt * kTile;
   const long long base = (long long)bh * A.n * kD;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's keys
-  float* Pw = Ps + r0 * kPld;
-  float* DSw = DSs + r0 * kPld;
-  load_tile(Ks, k + base + (long long)k0 * kD);
-  load_tile(Vs, v + base + (long long)k0 * kD);
-
+  const int r0 = 16 * (threadIdx.x >> 5);  // the warp's keys
+  const int e0 = A.map.k_ptr[kt], steps = A.map.k_ptr[kt + 1] - e0;
+  Rows<T> ka, va;
   float dk_acc[kDB][4], dv_acc[kDB][4];
-  zero(dk_acc);
-  zero(dv_acc);
+  band::zero(dk_acc);
+  band::zero(dv_acc);
   int visited = 0;
-  for (int e = A.map.k_ptr[kt]; e < A.map.k_ptr[kt + 1]; ++e, ++visited) {
-    const int qt = A.map.k_ent[e] >> 1, partial = A.map.k_ent[e] & 1, q0 = qt * kTile;
-    __syncthreads();  // every warp is done with the previous Q, do and dS
-    load_tile(Qs, q + base + (long long)q0 * kD);
-    load_tile(Gs, dout + base + (long long)q0 * kD);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      lse_s[i] = lse[(long long)bh * A.n + q0 + i];
-      di_s[i] = di[(long long)bh * A.n + q0 + i];
-    }
-    __syncthreads();
-    float pt[kNB][4], dpt[kNB][4];  // (key, query)
-    zero(pt);
-    zero(dpt);
-    warp_product<T, kNB>(
-        pt, kD, [&](int i, int c) { return to_f(Ks[(r0 + i) * ld + c]); },
-        [&](int c, int j) { return to_f(Qs[j * ld + c]); });
+  stage(Ks, k + base, k0);
+  stage(Vs, v + base, k0);
+  band::ring_walk(
+      steps,
+      [&](int s, int slot) {
+        const int q0 = (A.map.k_ent[e0 + s] >> 1) * kTile;
+        stage(Qs + slot * TE, q + base, q0);
+        stage(Gs + slot * TE, dout + base, q0);
+        band::stage_row(Ls + slot * 2 * kTile, lse + (long long)bh * A.n + q0, kTile);
+        band::stage_row(Ls + slot * 2 * kTile + kTile, di + (long long)bh * A.n + q0, kTile);
+      },
+      [&]() {
+        ka.init(Ks + r0 * ld);
+        va.init(Vs + r0 * ld);
+      },
+      [&](int s, int slot) {
+        const int ent = A.map.k_ent[e0 + s], q0 = (ent >> 1) * kTile;
+        const float* lse_s = Ls + slot * 2 * kTile;
+        const float* di_s = lse_s + kTile;
+        ++visited;
+        float pt[kNT][4], dpt[kNT][4];  // (key, query)
+        band::zero(pt);
+        band::zero(dpt);
+        band::rows_rows(pt, ka, Qs + slot * TE);
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
+        for (int nb = 0; nb < kNT; ++nb)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int qi = acc_col(nb, r);
-        float x = pt[nb][r];
-        if (partial && !visible(q0 + qi, k0 + r0 + acc_row(r), A.w)) x = kMask;
-        pt[nb][r] = expf(x - lse_s[qi]);
-        Pw[acc_row(r) * kPld + qi] = rnd<T>(pt[nb][r]);
-      }
-    __syncwarp();
-    warp_product<T, kDB>(
-        dv_acc, kTile, [&](int i, int c) { return Pw[i * kPld + c]; },
-        [&](int c, int j) { return to_f(Gs[c * ld + j]); });
-    warp_product<T, kNB>(
-        dpt, kD, [&](int i, int c) { return to_f(Vs[(r0 + i) * ld + c]); },
-        [&](int c, int j) { return to_f(Gs[j * ld + c]); });
+          for (int r = 0; r < 4; ++r) {
+            const int qi = band::acc_col(nb, r);
+            float x = pt[nb][r];
+            if ((ent & 1) && !band::visible(q0 + qi, k0 + r0 + band::acc_row(r), A.w)) x = kMask;
+            pt[nb][r] = band::exp_sfu(x - lse_s[qi]);
+          }
+        band::acc_cols<T, kD>(dv_acc, pt, Gs + slot * TE);  // dv += rnd(p)·do
+        band::rows_rows(dpt, va, Gs + slot * TE);
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
+        for (int nb = 0; nb < kNT; ++nb)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int qi = acc_col(nb, r);
-        DSw[acc_row(r) * kPld + qi] = rnd<T>((dpt[nb][r] - di_s[qi]) * pt[nb][r]);
-      }
-    __syncwarp();
-    warp_product<T, kDB>(
-        dk_acc, kTile, [&](int i, int c) { return DSw[i * kPld + c]; },
-        [&](int c, int j) { return to_f(Qs[c * ld + j]); });
-    if (dq_part) {
-      // this pair's dq partial, rnd(ds)·k over the tile's 64 keys: every
-      // warp's dS rows are needed, each warp takes 16 queries
-      __syncthreads();
-      float pq[kDB][4];
-      zero(pq);
-      warp_product<T, kDB>(
-          pq, kTile, [&](int i, int c) { return DSs[c * kPld + r0 + i]; },
-          [&](int c, int j) { return to_f(Ks[c * ld + j]); });
-      const long long slot = A.map.k_slot[e];
-      store_rows<T>(dq_part + (slot * A.bh + bh) * kTile * kD, r0, pq, 1.f, 1.f);
-    }
-  }
-  store_rows<T>(dk + base, k0 + r0, dk_acc, 1.f, 1.f);
-  store_rows<T>(dv + base, k0 + r0, dv_acc, 1.f, 1.f);
+          for (int r = 0; r < 4; ++r)
+            dpt[nb][r] = (dpt[nb][r] - di_s[band::acc_col(nb, r)]) * pt[nb][r];
+        band::acc_cols<T, kD>(dk_acc, dpt, Qs + slot * TE);  // dk += rnd(ds)·q
+        if (dq_part) {
+          // this pair's dq partial, rnd(ds)·k over the tile's 64 keys: every
+          // warp's dS rows are needed, each warp takes 16 queries
+#pragma unroll
+          for (int nb = 0; nb < kNT; ++nb)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              DSs[(r0 + band::acc_row(r)) * dld + band::acc_col(nb, r)] = from_f<T>(dpt[nb][r]);
+          __syncthreads();
+          float pq[kDB][4];
+          band::zero(pq);
+          band::cols_cols<T, kD>(pq, DSs, dld, r0, Ks);
+          const long long slot_id = A.map.k_slot[e0 + s];
+          band::store_rows<T>(dq_part + (slot_id * A.bh + bh) * kTile * kD + r0 * kD, 16, kD, pq,
+                              1.f, 1.f);
+        }
+      });
+  band::store_rows<T>(dk + base + (long long)(k0 + r0) * kD, 16, kD, dk_acc, 1.f, 1.f);
+  band::store_rows<T>(dv + base + (long long)(k0 + r0) * kD, 16, kD, dv_acc, 1.f, 1.f);
   if (A.visits && threadIdx.x == 0) A.visits[bh * A.nt + kt] = visited;
 }
 
@@ -521,6 +424,12 @@ int bwd(const Args& A, bool fused, const void* q, const void* k, const void* v, 
 }  // namespace
 
 extern "C" {
+
+// Dynamic shared memory (bytes) of the largest splash kernel (dk/dv) for
+// dtype 0 = f32, 1 = bf16.
+long long splash_smem_bytes(int dtype) {
+  return dtype == 1 ? dkv_smem<__nv_bfloat16>() : dkv_smem<float>();
+}
 
 // dtype: 0 = f32, 1 = bf16.  map: the tile map (ops/local_attention_splash.py
 // _device_map) of nt tiles and nnz visited pairs.  visits (optional, B·H x

@@ -30,11 +30,14 @@ production kernels keep their instantiations.
 
 Both local kernels take ``heads_per_block``: the (batch·head) rows one
 block walks in turn with the same shared memory, the counterpart of the
-TPU kernels' batch·head tile ``bt``.  Each wrapper launches its kernel
-for CUDA tensors (raising for anything it cannot take, and raising
-:class:`DoesNotFit` before the launch for a variant whose shared memory
-exceeds ``SMEM_PER_BLOCK``) and takes the plain twin (``*_plain``) for
-CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+TPU kernels' batch·head tile ``bt``.  The local bodies are those of row
+6's tile form, built for head dim at most ``LOCAL_MAX_D`` (64, that of
+every configuration; a wider head raises ValueError).  Each
+wrapper launches its kernel for CUDA tensors (raising for anything it
+cannot take, and raising :class:`DoesNotFit` before the launch for a
+FAVOR variant whose shared memory exceeds ``SMEM_PER_BLOCK``) and takes
+the plain twin (``*_plain``) for CPU tensors; ``<wrapper>.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ LOCAL_FWD_BODIES = ("foldscale", "full", "defer", "nomax", "matmuls")
 LOCAL_BWD_BODIES = ("full", "matmuls")
 FAVOR_BODIES = ("full", "idfeat", "nomask")
 FAVOR_SWEEPS = ("dq", "dkv")
+LOCAL_MAX_D = 64  # the local bodies' staged head dim (csrc/local_attention.cu builds no other)
 
 
 class DoesNotFit(ValueError):
@@ -165,8 +169,6 @@ def _lib(name):
         lib.local_fwd_probe.argtypes = [i] * 7 + [f] + [p] * 5
         lib.local_bwd_probe.argtypes = [i] * 8 + [f] + [p] * 11
         lib.local_fwd_probe.restype = lib.local_bwd_probe.restype = i
-        lib.local_smem_bytes.argtypes = [i] * 2
-        lib.local_smem_bytes.restype = ctypes.c_longlong
     else:
         lib.favor_probe.argtypes = [i] * 8 + [f] * 4 + [p] * 11
         lib.favor_probe.restype = i
@@ -190,9 +192,9 @@ def _local_checks(name, q, k, v, window, heads_per_block):
     _require_cuda(name, q)
     if heads_per_block < 1:
         raise ValueError(f"heads_per_block must be positive, got {heads_per_block}")
-    smem = _lib("local_attention").local_smem_bytes(q.shape[-1], window)
-    if smem > SMEM_PER_BLOCK:
-        raise DoesNotFit(name, smem)
+    if q.shape[-1] > LOCAL_MAX_D:
+        raise ValueError(f"{name}: the bodies are built for head dim at most {LOCAL_MAX_D}; "
+                         f"got {q.shape[-1]}")
     lf._check_kernel_inputs(q, k, v, window)
 
 

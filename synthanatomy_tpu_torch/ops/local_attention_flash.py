@@ -20,7 +20,11 @@ A CUDA tensor launches ``csrc/local_attention.cu`` (forward: one launch;
 backward: two) or raises; a CPU tensor takes the plain version
 (``local_fwd_plain`` / ``local_bwd_plain``, dense masked products at the
 same rounding points).  ``local_attention_flash.launches`` counts kernel
-launches.
+launches.  The kernels choose their form (the tensor-core tile form on
+``csrc/band_attention.cuh`` for d ≤ 128, with no window bound; the
+earlier FMA band form above), padded head dim, grids and shared memory
+themselves, by ``csrc/band_plan.h``; the wrapper asks the library for the
+shared memory (``local_smem_bytes``) before it launches.
 """
 
 from __future__ import annotations
@@ -99,7 +103,7 @@ def _lib():
     lib.local_fwd.argtypes = head + [ctypes.c_void_p] * 5
     lib.local_bwd.argtypes = head + [ctypes.c_void_p] * 11
     lib.local_fwd.restype = lib.local_bwd.restype = ctypes.c_int
-    lib.local_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.local_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.local_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -115,10 +119,11 @@ def _check_kernel_inputs(q, k, v, window):
                              f"got {x.dtype}, {tuple(x.shape)}, {x.device}")
     if window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    smem = _lib().local_smem_bytes(q.shape[-1], window)
+    d = q.shape[-1]
+    smem = _lib().local_smem_bytes(d, window, int(q.dtype == torch.bfloat16))
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"window {window} needs {smem} bytes of shared memory per block; "
-                         f"the card has {SMEM_PER_BLOCK}")
+        raise ValueError(f"window {window} at head dim {d} needs {smem} bytes of shared memory "
+                         f"per block; the card has {SMEM_PER_BLOCK}")
 
 
 def _kernel_fwd(q, k, v, window):

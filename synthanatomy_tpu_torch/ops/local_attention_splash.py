@@ -172,6 +172,8 @@ def _lib():
     lib.splash_fwd.argtypes = head + [ctypes.c_void_p] * 7
     lib.splash_bwd.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 12
     lib.splash_fwd.restype = lib.splash_bwd.restype = ctypes.c_int
+    lib.splash_smem_bytes.argtypes = [ctypes.c_int]
+    lib.splash_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

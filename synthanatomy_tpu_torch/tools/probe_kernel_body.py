@@ -51,7 +51,7 @@ B, H, L, D = 6, 8, 1401, 64  # 8 local + 8 FAVOR heads of the 16
 W = 420
 M_FEAT = 256
 CHUNK = 128
-# the checks' small shape: L not a multiple of the 32-row block or the
+# the checks' small shape: L not a multiple of the 64-row tile or the
 # chunk, B·H not a multiple of the heads per block
 SMALL, SMALL_W, SMALL_M, SMALL_CHUNK, SMALL_HPB = (2, 3, 300, 64), 100, 64, 128, 4
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -224,7 +224,7 @@ def main(argv=None) -> dict:
                   .to(torch.bfloat16).to(dev) for _ in range(4))
     proj = torch.full((M_FEAT, D), 0.05, dtype=torch.float32, device=dev)
     check_production(q, k, v, g, proj)
-    bh, nblk = B * H, -(-L // 32)
+    bh, ntile = B * H, -(-L // 64)
 
     plain = {}
 
@@ -247,16 +247,16 @@ def main(argv=None) -> dict:
             table[label] = {"s": None, "err": None, "does_not_fit": e.nbytes}
         return table[label]
 
-    print(f"\n-- local attention forward (32-query blocks over the exact band, "
-          f"{nblk} x {bh} blocks at 1 head/block) --")
+    print(f"\n-- local attention forward (64-query tiles, two passes over the band's key "
+          f"tiles, {ntile} x {bh} blocks at 1 head/block) --")
     res["local_fwd"] = {}
     for label, body, hpb in LOCAL_FWD_ROWS:
         row(res["local_fwd"], label, f"  [{body}, {hpb} head{'s' * (hpb > 1)}/block]",
             lambda body=body, hpb=hpb: kb.local_fwd_body(q, k, v, W, body, hpb),
             ("local fwd", body), lambda body=body: kb.local_fwd_body_plain(q, k, v, W, body))
 
-    print(f"\n-- local attention backward (dq: 32-query blocks; dk/dv: 32-key blocks over "
-          f"64-query tiles; 2 launches, 1 head/block) --")
+    print(f"\n-- local attention backward (dq: 64-query tiles, two passes; dk/dv: 64-key "
+          f"tiles over their 64-query tiles; 2 launches, 1 head/block) --")
     rows = LOCAL_BWD_ROWS[:3] if args.quick else LOCAL_BWD_ROWS
     res["local_bwd"] = {}
     for label, body, hpb, out_f32 in rows:
