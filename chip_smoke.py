@@ -27,8 +27,12 @@ result, without them.  Phases, each fatal on failure:
    1400 kernel launches per sampler call; then the sampler once more
    with int4 weights; then greedy sampling of a small prior through the
    kernel against the plain step on the CPU;
-5. timings on the card: kernel step vs plain step, sampling tok/s,
-   decode ms per volume;
+5. timings on the card: row 1's step at t 700 with int8 and int4
+   weights, elapsed and device time beside its plain version and its
+   bound, with a torch.profiler breakdown of one step by kernel name and
+   its launches per token (at most 5 L + 1); one token of the fused
+   sampler eagerly and as a CUDA-graph replay; the B16 sampler call
+   (s per call, tok/s) through the graph; decode ms per volume;
 6. the training kernels (FAVOR+ forward, dq and dk/dv sweeps; banded
    local attention forward and backward) against their plain versions on
    the same seeded inputs, at the paper shape (B6, 8 + 8 heads, L 1400,
@@ -1916,13 +1920,18 @@ def main() -> int:
     print(f"[check] small prior greedy grids, kernel (card) vs plain (CPU): "
           f"agreement {agree:.4f} over {g_cpu.numel()} codes")
 
-    # 5. timings
+    # 5. timings: row 1 at t 700, t on the card as the sampler's graph holds
+    # it; elapsed (host-paced where its launches are slower to issue than
+    # to run) and device time, beside the plain step and the bound
+    from torch.profiler import ProfilerActivity, profile
+
     cfg = fd.FusedDecodeConfig(
         depth=24, batch=BATCH, dim=512, heads=16, dim_head=64, local_heads=8,
         local_window=420, nb_features=performer.nb_features, ring_quant=True,
         use_rezero=True)
-    times = {}
+    times, dev_times = {}, {}
     decode_bound = None
+    t_dev = torch.tensor(700, device=dev)
     for wq in ("int8", "int4"):
         c = dataclasses.replace(cfg, weight_quant=wq)
         params = fd.strip_reference_weights(fd.pack_fused_params(performer, weight_quant=wq))
@@ -1932,15 +1941,70 @@ def main() -> int:
             decode_bound = _bound(2 * BATCH * n_weights,
                                   _nbytes(*params.values(), *st.values(), h, st["S"], st["z"]),
                                   PEAK_BF16)
+
+        def run():
+            return fd.fused_decode_step(params, st, h, t_dev, c)
+
+        def plain():
+            return fd.fused_decode_step_ref(params, st, h, 700, c)
+
         # plain, kernel, kernel, plain (the card may drift within a call)
-        p1 = _time_ms(lambda: fd.fused_decode_step_ref(params, st, h, 700, c), 5)
-        k1 = _time_ms(lambda: fd.fused_decode_step(params, st, h, 700, c), 20)
-        k2 = _time_ms(lambda: fd.fused_decode_step(params, st, h, 700, c), 20)
-        p2 = _time_ms(lambda: fd.fused_decode_step_ref(params, st, h, 700, c), 5)
+        p1, k1, d1 = _time_ms(plain, 5), _time_ms(run, 30), _device_ms(run, 30)
+        d2, k2, p2 = _device_ms(run, 30), _time_ms(run, 30), _time_ms(plain, 5)
         times[wq] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[time] decode step B{BATCH} paper width, {wq} weights, int8 rings: "
-              f"kernel {times[wq][0]:.3f} ms ({k1:.3f}, {k2:.3f}), "
-              f"plain {times[wq][1]:.3f} ms ({p1:.3f}, {p2:.3f})  [{smi}]")
+        dev_times[wq] = (d1 + d2) / 2
+        print(f"[time] row 1 decode step B{BATCH} paper width, {wq} weights, int8 rings, t 700: "
+              f"elapsed {times[wq][0]:.4f} ms ({k1:.4f}, {k2:.4f}), device time "
+              f"{dev_times[wq]:.4f} ms ({d1:.4f}, {d2:.4f}); plain {times[wq][1]:.3f} ms "
+              f"({p1:.3f}, {p2:.3f}); bound {decode_bound[0]:.4f} ms ({decode_bound[1]}, "
+              f"int8 weights)  [{smi}]")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = {}
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                dt = getattr(evt, "self_device_time_total", None)
+                dt = evt.self_cuda_time_total if dt is None else dt
+                n, ms = rows.get(evt.key, (0, 0.0))
+                rows[evt.key] = (n + evt.count, ms + dt / 1e3)
+        n_kernels = sum(n for n, _ in rows.values())
+        busy = sum(ms for _, ms in rows.values())
+        _require(n_kernels <= 5 * cfg.depth + 1,
+                 f"one step made {n_kernels} kernel launches, more than 5 L + 1 = "
+                 f"{5 * cfg.depth + 1}")
+        print(f"[profile] row 1, one step ({wq} weights): {n_kernels} kernel launches per token "
+              f"(5 L + 1 = {5 * cfg.depth + 1}), kernel durations summed {busy:.4f} ms (each "
+              f"launch starts before the one ahead ends, so they overlap; the step's time is "
+              f"the device time above: the profiler stretches it)  [{smi}]")
+        for key, (n, ms) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+            print(f"[profile]   {ms:8.4f} ms {100 * ms / busy:5.1f}%  {n:4d} x  {key[:80]}")
+        del params, st
+
+    # a token of the fused sampler: one graph replay against an eager step
+    from synthanatomy_tpu_torch.models.sampling import fused_logits_stepper
+
+    tok = torch.full((BATCH,), 5, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        step = fused_logits_stepper(performer, batch=BATCH, ring_quant=True)
+        eager = fused_logits_stepper(performer, batch=BATCH, ring_quant=True, graph=False)
+        for t in range(3):  # t 0 and 1 eagerly, the capture at t 1, t 2 the first replay
+            step(tok, t)
+            eager(tok, t)
+        for label, fn in (("eager step", lambda: eager(tok, 3)),
+                          ("CUDA-graph replay", lambda: step(tok, 3))):
+            ms = _time_ms(fn, 20)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_cuda_time_total if getattr(e, "self_device_time_total", None)
+                       is None else e.self_device_time_total for e in rows) / 1e3
+            print(f"[profile] fused sampler token B{BATCH} (int8 weights, int8 rings), {label}: "
+                  f"{ms:.4f} ms per token (CUDA events), {sum(e.count for e in rows)} kernels, "
+                  f"kernel durations summed {busy:.4f} ms (they overlap)  [{smi}]")
+    del step, eager
     fused_s = {}
     for wq in ("int8", "int4"):
         torch.cuda.synchronize()
@@ -1948,7 +2012,8 @@ def main() -> int:
         samplers[wq](gen)
         torch.cuda.synchronize()
         dt = fused_s[wq] = time.perf_counter() - t0
-        print(f"[time] sampling B{BATCH}, {wq} weights, int8 rings: {dt:.3f} s per "
+        print(f"[time] sampling B{BATCH}, {wq} weights, int8 rings, one CUDA graph per token: "
+              f"{dt:.3f} s per "
               f"call, {BATCH * SEQ / dt:.1f} latent tok/s  [{smi}]")
     with torch.no_grad():
         dec_ms = _time_ms(lambda: [vqvae.decode_samples([grids[i:i + 8]])

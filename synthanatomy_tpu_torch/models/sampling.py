@@ -14,7 +14,9 @@ fused-engine sampler ``sample_fused``, the reference-shaped
   (``ops/fused_decode.py``: the CUDA kernel on a card, its plain version
   on the CPU) with int8 or packed-int4 weights and a bf16 FAVOR state;
   the ring write, the final LayerNorm, the head product and the draw are
-  plain torch around it, as they are plain XLA around the TPU kernel.
+  plain torch around it, as they are plain XLA around the TPU kernel; on
+  a card the steps replay one captured CUDA graph (``fused_logits_stepper``),
+  the draw outside it.
 - ``sample_naive`` re-runs the full forward over the prefix each step.
 
 The multi-device ``make_dp_sampler`` waits for the multi-GPU slice.
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from synthanatomy_tpu_torch.models.ordering import Ordering
+from synthanatomy_tpu_torch.models.performer import _row
 from synthanatomy_tpu_torch.ops.fused_decode import (
     FusedDecodeConfig,
     fused_decode_step,
@@ -202,12 +205,24 @@ def fused_logits_stepper(
     conditionings: Optional[Sequence[torch.Tensor]] = None,
     ring_quant: bool = False,
     weight_quant: str = "int8",
+    graph: bool = True,
 ):
-    """The fused engine as ``step(tok (B,), t) -> logits (B, V) f32``:
-    each call embeds the token, runs the whole-depth fused step, writes
-    the rings and applies the final LayerNorm and the head.  Weights are
-    packed (int8 or packed int4) once, here; the FAVOR state is bf16,
-    the rings bf16 or int8 (``ring_quant``)."""
+    """The fused engine as ``step(tok (B,), t) -> logits (B, V) f32``,
+    steps taken in order from t = 0: each step embeds the token, runs the
+    whole-depth fused step, writes the rings and applies the final
+    LayerNorm and the head.  Weights are packed (int8 or packed int4)
+    once, here; the FAVOR state is bf16, the rings bf16 or int8
+    (``ring_quant``).  ``t`` is an int, or a 0-d int64 tensor on the
+    model's device.
+
+    On a card, steps t >= 2 replay one CUDA graph of the whole step
+    (embedding, positional row, the fused step's 5·L + 1 launches, ring
+    write, norm and head), as :func:`exact_logits_stepper` does; the draw
+    stays outside.  Step 0 (the conditioning branch) runs eagerly; step 1
+    runs eagerly on the capture stream, to warm up, and the capture
+    follows.  ``fused_decode_step.launches`` counts each replay as one
+    step.  ``graph=False`` steps eagerly on the card too.  On the CPU every
+    step runs eagerly through the plain version."""
     device = model.token_emb.weight.device
     vocab = model.num_tokens
     cfg = _config(model, batch, ring_quant, weight_quant)
@@ -234,16 +249,50 @@ def fused_logits_stepper(
             ]
     state = init_fused_state(cfg, device=device)
 
-    def step(tok: torch.Tensor, t: int) -> torch.Tensor:
-        emb = emb_t[tok].to(torch.float32)
-        if cond_sum is not None and t == 0:
-            emb = cond_sum
-        h, _, k_all, v_all = fused_decode_step(params, state, emb + pos_table[t], t, cfg)
+    def run(emb: torch.Tensor, t) -> torch.Tensor:
+        pos = _row(pos_table, t) if isinstance(t, torch.Tensor) else pos_table[t]
+        h, _, k_all, v_all = fused_decode_step(params, state, emb + pos, t, cfg)
         update_rings(state, k_all, v_all, t, cfg)
         mu = h.mean(-1, keepdim=True)
         var = (h - mu).square().mean(-1, keepdim=True)
         hn = (h - mu) * torch.rsqrt(var + 1e-6) * fn_s + fn_b
         return hn.to(torch.bfloat16).to(torch.float32) @ head_w + head_b
+
+    def embed(tok: torch.Tensor) -> torch.Tensor:
+        return emb_t.index_select(0, tok).to(torch.float32)
+
+    def eager(tok: torch.Tensor, t) -> torch.Tensor:
+        if cond_sum is not None and int(t) == 0:
+            return run(cond_sum, t)
+        return run(embed(tok), t)
+
+    if device.type != "cuda" or not graph:
+        return eager
+    stream = torch.cuda.Stream(device)
+    static_tok = torch.zeros(batch, dtype=torch.long, device=device)
+    static_t = torch.zeros((), dtype=torch.long, device=device)
+    positions = torch.arange(model.max_seq_len, device=device)
+    captured, out = None, None
+
+    def step(tok: torch.Tensor, t) -> torch.Tensor:
+        nonlocal captured, out
+        if int(t) == 0:
+            return eager(tok, t)
+        if captured is None:
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                logits = eager(tok, t)
+            current.wait_stream(stream)
+            captured = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(captured, stream=stream):
+                out = run(embed(static_tok), static_t)
+            return logits.clone()
+        static_tok.copy_(tok)
+        static_t.copy_(t if isinstance(t, torch.Tensor) else positions[t])
+        captured.replay()
+        fused_decode_step.launches += 1
+        return out.clone()
 
     return step
 

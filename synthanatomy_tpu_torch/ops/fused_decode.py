@@ -36,7 +36,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from synthanatomy_tpu_torch._build import load_library
+from synthanatomy_tpu_torch._build import SMEM_PER_BLOCK, load_library
 from synthanatomy_tpu_torch.ops.quant import (
     quantize_int4_packed,
     quantize_int8,
@@ -110,7 +110,9 @@ def supports_fused_decode(model) -> bool:
 
 
 def _widths_ok(gh: int, dim_head: int, dim: int, ff_inner: int) -> bool:
-    return gh > 0 and dim_head in (64, 128) and dim % 128 == 0 and ff_inner % 128 == 0
+    # csrc/fused_plan.h: a product's K at most 16 splits of 256 rows
+    return (gh > 0 and dim_head in (64, 128) and dim % 128 == 0 and ff_inner % 128 == 0
+            and dim <= 4096 and ff_inner <= 4096)
 
 
 # ---------------------------------------------------------------------------
@@ -217,24 +219,35 @@ def init_fused_state(cfg: FusedDecodeConfig, device="cuda") -> Dict[str, torch.T
     return state
 
 
-def update_rings(state, k_all, v_all, t: int, cfg: FusedDecodeConfig):
+def update_rings(state, k_all, v_all, t, cfg: FusedDecodeConfig):
     """Write the token's rotated keys and values (L, B·lh·dh) into ring
     slot ``t mod R``, in place (int8 rows get per-(layer, batch·head)
-    scales with a 1e-8 floor).  Returns ``state``."""
+    scales with a 1e-8 floor).  ``t`` is an int or a 0-d int64 tensor on
+    the rings' device; the tensor's slot is written by ``index_copy_``,
+    so a CUDA graph captures the write at any t.  Returns ``state``."""
     if not cfg.local_heads:
         return state
-    slot = int(t) % cfg.ring_size
+    if isinstance(t, torch.Tensor):
+        slot = torch.remainder(t, cfg.ring_size).reshape(1)
+
+        def write(dst, rows):
+            dst.index_copy_(1, slot, rows[:, None])
+    else:
+        slot = int(t) % cfg.ring_size
+
+        def write(dst, rows):
+            dst[:, slot] = rows
     if cfg.ring_quant:
         L, blh, dh = cfg.depth, cfg.batch * cfg.local_heads, cfg.dim_head
         for name, x in (("k", k_all), ("v", v_all)):
             xh = x.to(torch.float32).reshape(L, blh, dh)
             s = torch.clamp(xh.abs().amax(dim=-1) / 127.0, min=1e-8)
             q = torch.clamp(torch.round(xh / s[..., None]), -127, 127).to(torch.int8)
-            state[f"c{name}"][:, slot] = q.reshape(L, cfg.bl)
-            state[f"c{name}_s"][:, slot] = s
+            write(state[f"c{name}"], q.reshape(L, cfg.bl))
+            write(state[f"c{name}_s"], s)
         return state
-    state["ck"][:, slot] = k_all.to(torch.bfloat16)
-    state["cv"][:, slot] = v_all.to(torch.bfloat16)
+    write(state["ck"], k_all.to(torch.bfloat16))
+    write(state["cv"], v_all.to(torch.bfloat16))
     return state
 
 
@@ -418,41 +431,106 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the kernels copy 16 bytes "
+                         f"at a time)")
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entry points of a kernel library."""
+    lib.fused_decode_step.argtypes = (
+        [ctypes.c_int] * 13 + [ctypes.c_void_p] + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 30
+    )
+    lib.fused_decode_step.restype = ctypes.c_int
+    lib.fused_decode_fits.argtypes = [ctypes.c_int] * 5
+    lib.fused_decode_fits.restype = ctypes.c_int
+    lib.fused_decode_attn_smem.argtypes = [ctypes.c_int] * 6
+    lib.fused_decode_attn_smem.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _entry_points():
-    """The C entry points of the kernel library, typed (built at first use)."""
-    lib = load_library("fused_decode")
-    fn = lib.fused_decode_step
-    fn.argtypes = (
-        [ctypes.c_int] * 14 + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 30
+def _lib() -> ctypes.CDLL:
+    """The kernel library (built at first use)."""
+    return _bind(load_library("fused_decode"))
+
+
+def _position(t, device) -> torch.Tensor:
+    """t as the int64 on the device that the kernels read: a 0-d int64
+    tensor there is taken as it is (a CUDA graph replays the step at the
+    position it holds); an int is copied there."""
+    if isinstance(t, torch.Tensor):
+        if t.device != device or t.dtype != torch.int64 or t.numel() != 1:
+            raise ValueError(f"t must be one int64 on {device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+        return t
+    return torch.full((), int(t), dtype=torch.int64, device=device)
+
+
+def _launch(lib, params, state, h, t_dev, cfg: FusedDecodeConfig, stream: int):
+    """Allocate the outputs and scratch and run the 5·L + 1 launches of
+    the library's ``fused_decode_step`` on ``stream``."""
+    dev = h.device
+    B, D, H, dh, F = cfg.batch, cfg.dim, cfg.heads, cfg.dim_head, cfg.ff_inner
+    L, lh, m = cfg.depth, cfg.local_heads, cfg.nb_features
+    int4 = cfg.weight_quant == "int4"
+    smem = int(lib.fused_decode_attn_smem(dh, m, lh, cfg.ring_size, cfg.local_window,
+                                          int(cfg.ring_quant)))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"the attention launch needs {smem} B of shared memory, more than "
+                         f"{SMEM_PER_BLOCK}: {cfg}")
+    if not lib.fused_decode_fits(D, H, dh, F, int(int4)):
+        raise ValueError(f"the GEMVs do not take these widths (K up to 4096 int8): {cfg}")
+    h_out = torch.empty_like(h)
+    k_all = torch.empty(L, cfg.bl, dtype=torch.float32, device=dev)
+    v_all = torch.empty(L, cfg.bl, dtype=torch.float32, device=dev)
+    qkv = torch.empty(B, 3 * H * dh, dtype=torch.float32, device=dev)
+    stats = torch.empty(B, D // 32, 2, dtype=torch.float32, device=dev)
+    o = torch.empty(B, H * dh, dtype=torch.bfloat16, device=dev)
+    f1 = torch.empty(B, F, dtype=torch.bfloat16, device=dev)
+    dn = dh ** -0.25
+    consts = [dn, 0.5 * dn * dn, m ** -0.5, dh ** -0.5, -2.0 * math.log(10000.0) / dh]
+
+    def ptr(name):
+        x_ = state.get(name)
+        return x_.data_ptr() if x_ is not None else None
+
+    err = lib.fused_decode_step(
+        L, B, D, H, dh, lh, m, cfg.ring_size, cfg.local_window, F,
+        int(int4), int(cfg.use_rezero), int(cfg.ring_quant), t_dev.data_ptr(),
+        *consts,
+        h.data_ptr(), h_out.data_ptr(),
+        *[params[k].data_ptr() for k in _PARAM_ORDER],
+        ptr("S"), ptr("z"), ptr("ck"), ptr("cv"), ptr("ck_s"), ptr("cv_s"),
+        k_all.data_ptr(), v_all.data_ptr(),
+        qkv.data_ptr(), stats.data_ptr(), o.data_ptr(), f1.data_ptr(), stream,
     )
-    fn.restype = ctypes.c_int
-    sizer = lib.fused_decode_partial_floats
-    sizer.argtypes = [ctypes.c_int] * 6
-    sizer.restype = ctypes.c_longlong
-    return fn, sizer
+    if err != 0:
+        raise RuntimeError(f"fused_decode_step: CUDA error {err}")
+    return h_out, state, k_all, v_all
 
 
 def fused_decode_step(
     params: Dict[str, torch.Tensor],
     state: Dict[str, torch.Tensor],
     h: torch.Tensor,
-    t: int,
+    t,
     cfg: FusedDecodeConfig,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """One decode step through all L layers — same contract as
     :func:`fused_decode_step_ref`: returns ``(h_out, state, k_all,
     v_all)``, with ``S`` and ``z`` updated IN PLACE (as the TPU kernel
-    aliases them).
+    aliases them).  ``t`` is an int or a 0-d int64 tensor on ``h``'s
+    device (what a CUDA graph of the step captures).
 
-    A CUDA ``h`` launches the hand-written kernel (every tensor checked
-    for device, dtype, shape and contiguity; anything else raises); a CPU
-    ``h`` takes the plain version.  ``fused_decode_step.launches`` counts
-    kernel launches."""
+    A CUDA ``h`` launches the hand-written kernels, 5·L + 1 of them (every
+    tensor checked for device, dtype, shape and contiguity; anything else
+    raises); a CPU ``h`` takes the plain version.
+    ``fused_decode_step.launches`` counts the steps launched, one a call;
+    a call made while a CUDA graph is being captured launches nothing and
+    is not counted (its graph's owner counts the replays)."""
     if h.device.type == "cpu":
-        return fused_decode_step_ref(params, state, h, t, cfg)
+        return fused_decode_step_ref(params, state, h, int(t), cfg)
     if h.device.type != "cuda":
         raise ValueError(f"no fused decode step for device {h.device}")
     if not _widths_ok(cfg.gh, cfg.dim_head, cfg.dim, cfg.ff_inner):
@@ -465,43 +543,11 @@ def fused_decode_step(
     for name in ("S", "z", "ck", "cv", "ck_s", "cv_s"):
         if name in shapes:
             _check(name, state[name], *shapes[name], dev)
-
-    fn, sizer = _entry_points()
-    B, D, H, dh, F = cfg.batch, cfg.dim, cfg.heads, cfg.dim_head, cfg.ff_inner
-    L, lh, m = cfg.depth, cfg.local_heads, cfg.nb_features
-    int4 = cfg.weight_quant == "int4"
-    h_out = torch.empty_like(h)
-    k_all = torch.empty(L, cfg.bl, dtype=torch.float32, device=dev)
-    v_all = torch.empty(L, cfg.bl, dtype=torch.float32, device=dev)
-    qkv = torch.empty(B, 3 * H * dh, dtype=torch.float32, device=dev)
-    obuf = torch.empty(B, H * dh, dtype=torch.float32, device=dev)
-    f1 = torch.empty(B, F, dtype=torch.float32, device=dev)
-    partial = torch.empty(
-        int(sizer(B, D, H, dh, F, int(int4))), dtype=torch.float32, device=dev
-    )
-    dn = dh ** -0.25
-    consts = [dn, 0.5 * dn * dn, m ** -0.5, dh ** -0.5, -2.0 * math.log(10000.0) / dh]
-
-    def ptr(name):
-        x = state.get(name)
-        return x.data_ptr() if x is not None else None
-
-    err = fn(
-        L, B, D, H, dh, lh, m, cfg.ring_size, cfg.local_window, F,
-        int(int4), int(cfg.use_rezero), int(cfg.ring_quant), int(t),
-        *consts,
-        h.data_ptr(), h_out.data_ptr(),
-        *[params[k].data_ptr() for k in _PARAM_ORDER],
-        ptr("S"), ptr("z"), ptr("ck"), ptr("cv"), ptr("ck_s"), ptr("cv_s"),
-        k_all.data_ptr(), v_all.data_ptr(),
-        qkv.data_ptr(), obuf.data_ptr(), f1.data_ptr(), partial.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_decode_step: CUDA error {err}")
-    fused_decode_step.launches += 1
-    return h_out, state, k_all, v_all
+    out = _launch(_lib(), params, state, h, _position(t, dev), cfg,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    if not torch.cuda.is_current_stream_capturing():
+        fused_decode_step.launches += 1
+    return out
 
 
 fused_decode_step.launches = 0
-

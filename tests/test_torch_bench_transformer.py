@@ -65,11 +65,26 @@ def test_bench_runs_on_cpu(name):
         assert not calls
 
 
+def _f32_performer(*args, **kw):
+    return _PERFORMER(*args, **dict(kw, dtype=torch.float32))
+
+
+_PERFORMER = perf_mod.Performer
+
+
 def test_splash_route_matches_banded_route():
     """At f32 attention the splash kernels and the banded kernels compute
-    the same attention: the two routes' losses agree over the steps."""
-    a = bench.main(TINY + ["--splash-local"])["losses"]
-    b = bench.main(TINY + ["--pallas-local"])["losses"]
+    the same attention: the two routes' losses agree over the steps.
+
+    The bench's own model, flags and route, built with f32 parameters.
+    With the bench's bf16 parameters the comparison is ill-conditioned:
+    the two routes' gradients differ only in summation order, which is
+    enough to flip bf16 roundings of an Adam update, and the trajectories
+    part after the second step (by 2.3e-4 relative on some machines)."""
+    with mock.patch.object(perf_mod, "Performer", _f32_performer):
+        a = bench.main(TINY + ["--splash-local"])["losses"]
+        b = bench.main(TINY + ["--pallas-local"])["losses"]
+    assert len(a) == 4  # the first step, one warm-up step, two timed steps
     np.testing.assert_allclose(a, b, rtol=1e-5)
 
 

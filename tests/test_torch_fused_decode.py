@@ -194,6 +194,53 @@ def test_cpu_wrapper_takes_plain_version(models):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+def test_step_takes_t_as_a_tensor(models):
+    """t as a 0-d int64 tensor (what a CUDA graph of the step captures)
+    gives the bits of the int t, state included."""
+    rezero, jm, variables, tm = models
+    _, cfg_t = _cfgs(rezero, "int8", True)
+    pt = tfd.strip_reference_weights(tfd.pack_fused_params(tm))
+    st, h = _random_state(cfg_t, 6)
+    for t in (0, 9, 130):
+        sa, sb = _to_torch(st), _to_torch(st)
+        a = tfd.fused_decode_step(pt, sa, torch.from_numpy(h), t, cfg_t)
+        b = tfd.fused_decode_step(pt, sb, torch.from_numpy(h), torch.tensor(t), cfg_t)
+        for x, y in zip((a[0], a[2], a[3], sa["S"], sa["z"]), (b[0], b[2], b[3], sb["S"], sb["z"])):
+            assert torch.equal(x, y), t
+
+
+@pytest.mark.parametrize("ring_quant", [False, True], ids=["bf16rings", "int8rings"])
+def test_update_rings_tensor_slot_matches_int(ring_quant):
+    """The ring write at a 0-d tensor t (``index_copy_``, capturable) writes
+    what the write at the int t writes, across the ring's wrap."""
+    _, cfg_t = _cfgs(False, "int8", ring_quant)
+    st, _ = _random_state(cfg_t, 8)
+    rng = np.random.default_rng(9)
+    k_all = torch.from_numpy(rng.normal(size=(DEPTH, cfg_t.bl)).astype(np.float32))
+    v_all = torch.from_numpy(rng.normal(size=(DEPTH, cfg_t.bl)).astype(np.float32))
+    for t in (0, 5, 127, 128, 131):
+        sa, sb = _to_torch(st), _to_torch(st)
+        tfd.update_rings(sa, k_all, v_all, t, cfg_t)
+        assert tfd.update_rings(sb, k_all, v_all, torch.tensor(t), cfg_t) is sb
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), (k, t)
+
+
+def test_stepper_takes_t_as_a_tensor(models):
+    """The fused stepper fed t as a 0-d tensor gives the logits of the
+    stepper fed ints, bit for bit, over steps past the 12-token window."""
+    from synthanatomy_tpu_torch.models.sampling import fused_logits_stepper
+
+    rezero, jm, variables, tm = models
+    tokens = _token_seq()
+    a = _teacher_forced(tm, tokens, fused_logits_stepper(tm, batch=B, ring_quant=True))
+    step = fused_logits_stepper(tm, batch=B, ring_quant=True)
+    with torch.no_grad():
+        b = torch.stack([step(torch.from_numpy(tokens[:, t]).long(), torch.tensor(t))
+                         for t in range(tokens.shape[1])], dim=1)
+    assert torch.equal(a, b)
+
+
 def test_unquantized_branch_tracks_quantized():
     """The f32-weight branch of the plain step (``use_quantized=False``)
     matches JAX's unquantized reference."""

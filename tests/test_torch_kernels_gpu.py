@@ -67,32 +67,158 @@ def _state(cfg, seed, device):
     return {k: v.to(device) for k, v in st.items()}, h.to(device)
 
 
+def _fused_cfg(weight_quant="int8", ring_quant=False, rezero=False, **kw):
+    base = dict(depth=DEPTH, batch=B, dim=DIM, heads=HEADS, dim_head=DH, local_heads=LH,
+                local_window=WIN, nb_features=M)
+    base.update(kw)
+    return tfd.FusedDecodeConfig(weight_quant=weight_quant, ring_quant=ring_quant,
+                                 use_rezero=rezero, **base)
+
+
+def _fused_close(name, a, b):
+    # sums in another order; a bf16 flip of one activation moves a few
+    # outputs by up to ~1e-2 (see tests/test_torch_fused_decode.py)
+    a, b = a.float(), b.float()
+    torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2, msg=name)
+    assert torch.linalg.norm(a - b) <= 2e-3 * torch.linalg.norm(b), name
+
+
+FUSED_VARIANTS = [(wq, rq, rz) for wq in ("int8", "int4") for rq in (False, True)
+                  for rz in (False, True)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("weight_quant,ring_quant,rezero",
-                         [("int8", False, False), ("int4", True, True),
-                          ("int4", False, False), ("int8", True, True)])
+@pytest.mark.parametrize("weight_quant,ring_quant,rezero", FUSED_VARIANTS,
+                         ids=[f"{w}-{'int8' if r else 'bf16'}rings-{'rezero' if z else 'preln'}"
+                              for w, r, z in FUSED_VARIANTS])
 def test_fused_decode_kernel_matches_plain(cuda, weight_quant, ring_quant, rezero):
+    """Every weight, ring and block variant against the plain step at t = 0,
+    1, R − 1, R (the ring's wrap) and 1000; two calls give the same bits,
+    t as an int or a device tensor, and each call counts one step."""
     model = _model(rezero, cuda)
-    cfg = tfd.FusedDecodeConfig(
-        depth=DEPTH, batch=B, dim=DIM, heads=HEADS, dim_head=DH, local_heads=LH,
-        local_window=WIN, nb_features=M, weight_quant=weight_quant,
-        ring_quant=ring_quant, use_rezero=rezero)
+    cfg = _fused_cfg(weight_quant, ring_quant, rezero)
+    R = cfg.ring_size
     params = tfd.strip_reference_weights(tfd.pack_fused_params(model, weight_quant=weight_quant))
-    for t in (0, 1, 7, 128, 131):
+    for t in (0, 1, R - 1, R, 1000):
         sk, h = _state(cfg, t, cuda)
         sr = {k: v.clone() for k, v in sk.items()}
+        s2 = {k: v.clone() for k, v in sk.items()}
         before = tfd.fused_decode_step.launches
         hk, _, kk, vk = tfd.fused_decode_step(params, sk, h, t, cfg)
         hr, _, kr, vr = tfd.fused_decode_step_ref(params, sr, h, t, cfg)
+        h2, _, k2, v2 = tfd.fused_decode_step(params, s2, h, torch.tensor(t, device=cuda), cfg)
         torch.cuda.synchronize()
-        assert tfd.fused_decode_step.launches == before + 1
-        # sums in another order; a bf16 flip of one activation moves a
-        # few outputs by up to ~1e-2 (see tests/test_torch_fused_decode.py)
+        assert tfd.fused_decode_step.launches == before + 2
         for name, a, b in (("h", hk, hr), ("k", kk, kr), ("v", vk, vr),
                            ("z", sk["z"], sr["z"]), ("S", sk["S"], sr["S"])):
-            a, b = a.float(), b.float()
-            torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2, msg=f"{name} t={t}")
-            assert torch.linalg.norm(a - b) <= 2e-3 * torch.linalg.norm(b), f"{name} t={t}"
+            _fused_close(f"{name} t={t}", a, b)
+        for a, b in ((hk, h2), (kk, k2), (vk, v2), (sk["S"], s2["S"]), (sk["z"], s2["z"])):
+            assert torch.equal(a, b), f"two calls differ at t={t}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", ["B17", "d128-chunked"])
+def test_fused_decode_kernel_wide_shapes(cuda, wide):
+    """Two batch tiles (B17), and d 128 with bf16 rings at window 420,
+    whose ring slice does not fit shared memory whole (the local blocks
+    stream it in chunks, fused_plan.h): against the plain step, layer by
+    layer, and the whole depth equal to the chain of its layers."""
+    import dataclasses
+
+    if wide == "B17":
+        kw, mkw = dict(batch=17, heads=4, local_heads=2, local_window=40, nb_features=64), \
+            dict(heads=4, dim_head=64, local_heads=2, window=40, m=64, dim=DIM)
+        ts = (0, 45, 300)
+    else:
+        kw, mkw = dict(batch=3, dim=256, heads=2, dim_head=128, local_heads=1, local_window=420,
+                       nb_features=64), dict(heads=2, dim_head=128, local_heads=1, window=420,
+                                              m=64, dim=256)
+        ts = (5, 1000)
+    model = Performer(VOCAB, 64, mkw["dim"], DEPTH, mkw["heads"], mkw["dim_head"],
+                      mkw["local_heads"], mkw["window"], nb_features=mkw["m"],
+                      generator=torch.Generator().manual_seed(3)).to(cuda)
+    for rq in (False, True):
+        cfg = _fused_cfg("int8", rq, False, **kw)
+        one = dataclasses.replace(cfg, depth=1)
+        params = tfd.strip_reference_weights(tfd.pack_fused_params(model))
+        layers = [{k: v[i:i + 1].clone() for k, v in params.items()} for i in range(DEPTH)]
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        for t in ts:
+            st = {"S": (torch.randn(DEPTH, cfg.nb_features, cfg.bg, generator=gen, device=cuda)
+                        * 0.5).to(torch.bfloat16),
+                  "z": torch.rand(DEPTH, cfg.batch * cfg.gh, cfg.nb_features, generator=gen,
+                                  device=cuda) + 0.5}
+            shape = (DEPTH, cfg.ring_size, cfg.bl)
+            if rq:
+                for k in ("ck", "cv"):
+                    st[k] = torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                                          dtype=torch.int8)
+                    st[k + "_s"] = torch.rand(DEPTH, cfg.ring_size, cfg.batch * cfg.local_heads,
+                                              generator=gen, device=cuda) * 0.015 + 0.005
+            else:
+                for k in ("ck", "cv"):
+                    st[k] = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+            h = torch.randn(cfg.batch, cfg.dim, generator=gen, device=cuda)
+            full = {k: v.clone() for k, v in st.items()}
+            hf, _, kf, vf = tfd.fused_decode_step(params, full, h, t, cfg)
+            x = h
+            for i, p in enumerate(layers):
+                sk = {k: v[i:i + 1].clone() for k, v in st.items()}
+                sr = {k: v.clone() for k, v in sk.items()}
+                hk, _, kk, vk = tfd.fused_decode_step(p, sk, x, t, one)
+                hr, _, kr, vr = tfd.fused_decode_step_ref(p, sr, x, t, one)
+                for name, a, b in (("h", hk, hr), ("k", kk, kr), ("v", vk, vr),
+                                   ("z", sk["z"], sr["z"]), ("S", sk["S"], sr["S"])):
+                    _fused_close(f"{wide} rq={rq} layer {i} {name} t={t}", a, b)
+                assert torch.equal(kf[i], kk[0]) and torch.equal(full["S"][i], sk["S"][0])
+                x = hk
+            assert torch.equal(hf, x), f"{wide} t={t}: whole depth differs from the chain"
+
+
+@pytest.mark.gpu
+def test_fused_decode_launches_per_step(cuda):
+    """One step makes 5·L + 1 kernel launches (torch.profiler's kernel
+    count for one call, t on the device already)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _model(False, cuda)
+    cfg = _fused_cfg(ring_quant=True)
+    params = tfd.strip_reference_weights(tfd.pack_fused_params(model))
+    st, h = _state(cfg, 3, cuda)
+    t = torch.tensor(5, device=cuda)
+    tfd.fused_decode_step(params, st, h, t, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfd.fused_decode_step(params, st, h, t, cfg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [n for n in names if any(k in n for k in ("gemv_kernel", "attention_kernel",
+                                                     "step_begin_kernel"))]
+    assert len(ours) == 5 * DEPTH + 1, names
+    assert len(names) == len(ours), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring_quant", [False, True], ids=["bf16rings", "int8rings"])
+def test_fused_stepper_graph_matches_eager(cuda, ring_quant):
+    """The fused stepper's graph replays equal eager stepping bit for bit
+    over 30 tokens (past the 12-token window and its ring of 128: no wrap
+    at this length, but every slot of the window), and each token counts
+    one step."""
+    from synthanatomy_tpu_torch.models.sampling import fused_logits_stepper
+
+    model = _model(True, cuda)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, VOCAB - 1, (B, 30)), device=cuda)
+    with torch.no_grad():
+        before = tfd.fused_decode_step.launches
+        step = fused_logits_stepper(model, batch=B, ring_quant=ring_quant)
+        got = torch.stack([step(tokens[:, t], t) for t in range(30)], dim=1)
+        torch.cuda.synchronize()
+        assert tfd.fused_decode_step.launches == before + 30
+        eager = fused_logits_stepper(model, batch=B, ring_quant=ring_quant, graph=False)
+        want = torch.stack([eager(tokens[:, t], t) for t in range(30)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
