@@ -31,7 +31,7 @@ result, without them.  Phases, each fatal on failure:
    weights, elapsed and device time beside its plain version and its
    bound, with a torch.profiler breakdown of one step by kernel name and
    its launches per token (at most 5 L + 1); one token of the fused
-   sampler eagerly and as a CUDA-graph replay; the B16 sampler call
+   sampler as a CUDA-graph replay; the B16 sampler call
    (s per call, tok/s) through the graph; decode ms per volume;
 6. the training kernels (FAVOR+ forward, dq and dk/dv sweeps; banded
    local attention forward and backward) against their plain versions on
@@ -184,7 +184,6 @@ VOLUME = (160, 224, 160)
 # at the last level) x (forward + remat recompute), 6 backward, 1 argmin
 RES_FWD_PER_STEP, RES_BWD_PER_STEP, ARGMIN_PER_STEP = 12, 6, 1
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM dense peaks (FLOP/s, B/s)
-SPIN_HZ = 2.0e9  # cycles a second of torch.cuda._sleep's spin (above the H100's SM clock)
 # the bench's paper form through splash, and the same through row 6
 BENCH_SPLASH = ["--splash-local", "--pallas-favor", "--use-rezero", "--spatial-emb", "absolute",
                 "--attn-dtype", "bfloat16"]
@@ -526,40 +525,20 @@ def _grads(model):
 
 
 def _time_ms(fn, reps):
-    import torch
+    """ms per call: CUDA events around back-to-back calls (the host's gaps
+    included), ``tools/_probe_util.event_ms``."""
+    from synthanatomy_tpu_torch.tools._probe_util import event_ms
 
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return event_ms(fn, reps)
 
 
 def _device_ms(fn, reps):
-    """Device ms per call of fn: as ``_time_ms``, but the calls are queued
-    behind a GPU spin as long as 1.5x their host time, so a call whose host
-    side (autograd, allocations) is slower than its kernels times its
-    kernels, not the host's gaps between them.  Used beside ``_time_ms``
-    for rows 6 and 8 against SDPA only."""
-    import torch
+    """Device ms per call: the calls queued behind a GPU spin as long as
+    1.5x their host time (``tools/_probe_util.device_ms``).  Used beside
+    ``_time_ms`` for rows 1, 6 and 8."""
+    from synthanatomy_tpu_torch.tools._probe_util import device_ms
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * SPIN_HZ))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_ms(fn, reps)
 
 
 def _turns(kernel, plain, library, reps):
@@ -642,6 +621,22 @@ def _bound(flops, nbytes, peak):
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _decode_step_bytes(params, st, h, cfg, t):
+    """Bytes one fused decode step at position t must move: the weights
+    and parameters the configuration reads (no LayerNorm parameters under
+    ReZero), S and z read and written, the ring slots of the window (K, V
+    and their scales: positions max(0, t − W + 1, t − R) .. t − 1 of R),
+    h read and written, and the token's k and v written."""
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+
+    used = [k for k in fd._PARAM_ORDER if not (cfg.use_rezero and k.startswith("ln"))]
+    slots = t - max(0, t - cfg.local_window + 1, t - cfg.ring_size)
+    ring = _nbytes(*(st.get(k) for k in ("ck", "cv", "ck_s", "cv_s"))) * slots // cfg.ring_size
+    kv_out = 2 * cfg.depth * cfg.bl * 4
+    return (_nbytes(*(params[k] for k in used)) + 2 * _nbytes(st["S"], st["z"]) + ring
+            + 2 * _nbytes(h) + kv_out)
 
 
 def _argmin_mismatch(x, w, got, want):
@@ -1936,10 +1931,9 @@ def main() -> int:
         c = dataclasses.replace(cfg, weight_quant=wq)
         params = fd.strip_reference_weights(fd.pack_fused_params(performer, weight_quant=wq))
         st, h = _random_state(c, torch.Generator(device=dev).manual_seed(9), dev)
-        if wq == "int8":  # weights and state read once, S and z written once
+        if wq == "int8":  # what the step at t 700 reads and writes (_decode_step_bytes)
             n_weights = sum(t.numel() for t in params.values() if t.dtype == torch.int8)
-            decode_bound = _bound(2 * BATCH * n_weights,
-                                  _nbytes(*params.values(), *st.values(), h, st["S"], st["z"]),
+            decode_bound = _bound(2 * BATCH * n_weights, _decode_step_bytes(params, st, h, c, 700),
                                   PEAK_BF16)
 
         def run():
@@ -1981,30 +1975,26 @@ def main() -> int:
             print(f"[profile]   {ms:8.4f} ms {100 * ms / busy:5.1f}%  {n:4d} x  {key[:80]}")
         del params, st
 
-    # a token of the fused sampler: one graph replay against an eager step
+    # a token of the fused sampler: one graph replay
     from synthanatomy_tpu_torch.models.sampling import fused_logits_stepper
 
     tok = torch.full((BATCH,), 5, dtype=torch.long, device=dev)
     with torch.no_grad():
         step = fused_logits_stepper(performer, batch=BATCH, ring_quant=True)
-        eager = fused_logits_stepper(performer, batch=BATCH, ring_quant=True, graph=False)
         for t in range(3):  # t 0 and 1 eagerly, the capture at t 1, t 2 the first replay
             step(tok, t)
-            eager(tok, t)
-        for label, fn in (("eager step", lambda: eager(tok, 3)),
-                          ("CUDA-graph replay", lambda: step(tok, 3))):
-            ms = _time_ms(fn, 20)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            rows = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.self_cuda_time_total if getattr(e, "self_device_time_total", None)
-                       is None else e.self_device_time_total for e in rows) / 1e3
-            print(f"[profile] fused sampler token B{BATCH} (int8 weights, int8 rings), {label}: "
-                  f"{ms:.4f} ms per token (CUDA events), {sum(e.count for e in rows)} kernels, "
-                  f"kernel durations summed {busy:.4f} ms (they overlap)  [{smi}]")
-    del step, eager
+        ms = _time_ms(lambda: step(tok, 3), 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(tok, 3)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_cuda_time_total if getattr(e, "self_device_time_total", None)
+                   is None else e.self_device_time_total for e in rows) / 1e3
+        print(f"[profile] fused sampler token B{BATCH} (int8 weights, int8 rings), CUDA-graph "
+              f"replay: {ms:.4f} ms per token (CUDA events), {sum(e.count for e in rows)} "
+              f"kernels, kernel durations summed {busy:.4f} ms (they overlap)  [{smi}]")
+    del step
     fused_s = {}
     for wq in ("int8", "int4"):
         torch.cuda.synchronize()

@@ -87,6 +87,18 @@ using frag::pack;
 using frag::pdl_trigger;
 using frag::pdl_wait;
 
+// Timing ablations: tools/bench_fused_decode.py --ablate builds this
+// source with -DFD_CUT=<mask>, each bit dropping one part of the step
+// after its wait (the results are then wrong; only the time is read).
+// The kernels' own build leaves FD_CUT 0 and cuts nothing.
+#ifndef FD_CUT
+#define FD_CUT 0
+#endif
+constexpr int kCutFavor = 1;       // FAVOR blocks: everything after the wait
+constexpr int kCutLocal = 2;       // local blocks: everything after the wait
+constexpr int kCutGemvWork = 4;    // GEMVs: staging, products and finish
+constexpr int kCutFinish = 8;      // GEMVs: the cluster's sum and the finish
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));  // round-to-nearest-even
 }
@@ -232,62 +244,10 @@ __global__ void __launch_bounds__(kGemvThreads) gemv_kernel(const Gemv g) {
   const int Kp = INT4 ? g.K / 2 : g.K;
   const int r0 = split * g.rows, nrows = min(g.rows, Kp - r0);
 
-  // the split's weight rows (2 x 16 bytes each), while the kernel ahead
-  // may still run; then, once it has ended, the activations (both halves
-  // for int4: x columns k and k + K/2), zero rows past B
-  for (int e = tid; e < 2 * nrows; e += kGemvThreads) {
-    const int r = e >> 1, c = (e & 1) * 16;
-    cp_async16(sh.ws + r * kWRowBytes + c, g.w + (size_t)(r0 + r) * g.N + n0 + c, true);
-  }
-  pdl_wait();
-  pdl_trigger();
-  if (g.x != nullptr) {
-    const int xc = nrows / 8;  // 16-byte chunks of an activation row
-    for (int e = tid; e < NH * kBT * xc; e += kGemvThreads) {
-      const int c = e % xc, b = (e / xc) % kBT, half = e / (xc * kBT);
-      const bool ok = b0 + b < g.B;
-      const __nv_bfloat16* src = g.x + (size_t)(ok ? b0 + b : 0) * g.K + half * Kp + r0 + c * 8;
-      cp_async16(&xs[half][b * kXRow + c * 8], src, ok);
-    }
-  } else {
-    // h, 4 floats a load, through the LayerNorm of its row where asked
-    const bool ln = g.ln_stats != nullptr;
-    if (ln && tid < kBT)
-      sh.norm[tid] = b0 + tid < g.B
-                         ? row_norm(g.ln_stats + (size_t)(b0 + tid) * (g.K / kNT), g.K / kNT)
-                         : make_float2(0.f, 0.f);
-    __syncthreads();
-    const int hc = nrows / 4;
-    for (int e = tid; e < NH * kBT * hc; e += kGemvThreads) {
-      const int c = e % hc, b = (e / hc) % kBT, half = e / (hc * kBT);
-      const int k = half * Kp + r0 + 4 * c;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (b0 + b < g.B) {
-        const float4 u = __ldcg(reinterpret_cast<const float4*>(g.h + (size_t)(b0 + b) * g.K + k));
-        v[0] = u.x;
-        v[1] = u.y;
-        v[2] = u.z;
-        v[3] = u.w;
-        if (ln)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], sh.norm[b].x), sh.norm[b].y),
-                                       g.ln_s[k + i]), g.ln_b[k + i]);
-      }
-      uint2 pk;
-      pk.x = pack(v[0], v[1]);
-      pk.y = pack(v[2], v[3]);
-      *reinterpret_cast<uint2*>(&xs[half][b * kXRow + 4 * c]) = pk;
-    }
-  }
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-
-  // warp w takes k-steps w, w + 4, ...: A from ldmatrix; B from lane
-  // (g, t) reading bytes 4g..4g+3 of rows 2t, 2t+1, 2t+8, 2t+9, byte j
-  // of each for column block j, so column c of block j is weight column
-  // 4c + j of the tile
+  // warp w takes k-steps w, w + 4, ... of each chunk: A from ldmatrix; B
+  // from lane (g, t) reading bytes 4g..4g+3 of rows 2t, 2t+1, 2t+8, 2t+9,
+  // byte j of each for column block j, so column c of block j is weight
+  // column 4c + j of the tile
   const int gq = lane >> 2, tq = lane & 3;
   float acc[NH][4][4];
 #pragma unroll
@@ -296,36 +256,109 @@ __global__ void __launch_bounds__(kGemvThreads) gemv_kernel(const Gemv g) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[h][j][r] = 0.f;
-  for (int s = warp; s < nrows / kKStep; s += kGemvWarps) {
-    const uint8_t* wr = sh.ws + s * kKStep * kWRowBytes + 4 * gq;
-    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq) * kWRowBytes);
-    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq + 1) * kWRowBytes);
-    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq + 8) * kWRowBytes);
-    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq + 9) * kWRowBytes);
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      uint32_t a[4];
-      ldsm4(a, &xs[h][(lane & 15) * kXRow + s * kKStep + (lane >> 4) * 8]);
-      uint32_t u0, u1, u2, u3;
-      float magic;
-      if (INT4) {  // nibble n encodes (n ^ 8) - 8
-        const int sh4 = 4 * h;
-        u0 = ((w0 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-        u1 = ((w1 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-        u2 = ((w2 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-        u3 = ((w3 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-        magic = 8388616.f;  // 2^23 + 8
-      } else {
-        u0 = w0 ^ 0x80808080u;
-        u1 = w1 ^ 0x80808080u;
-        u2 = w2 ^ 0x80808080u;
-        u3 = w3 ^ 0x80808080u;
-        magic = 8388736.f;  // 2^23 + 128
+
+  // the split's rows, kMaxRows at a time (one chunk unless K passes
+  // kMaxSplits x kMaxRows packed rows, fused_plan.h)
+  for (int c0 = 0; c0 < nrows; c0 += kMaxRows) {
+    const int cr = min(kMaxRows, nrows - c0), rb = r0 + c0;
+    if (c0 > 0) __syncthreads();  // every warp is done with the chunk before
+    // the chunk's weight rows (2 x 16 bytes each), the first while the
+    // kernel ahead may still run; then, once it has ended, the
+    // activations (both halves for int4: x columns k and k + K/2), zero
+    // rows past B
+    for (int e = tid; e < 2 * cr; e += kGemvThreads) {
+      const int r = e >> 1, c = (e & 1) * 16;
+      cp_async16(sh.ws + r * kWRowBytes + c, g.w + (size_t)(rb + r) * g.N + n0 + c, true);
+    }
+    if (c0 == 0) {
+      pdl_wait();
+      pdl_trigger();
+      if (FD_CUT & kCutGemvWork) {
+        cp_commit();
+        cp_wait<0>();
+        cluster.sync();
+        cluster.sync();
+        return;
       }
+    }
+    if (g.x != nullptr) {
+      const int xc = cr / 8;  // 16-byte chunks of an activation row
+      for (int e = tid; e < NH * kBT * xc; e += kGemvThreads) {
+        const int c = e % xc, b = (e / xc) % kBT, half = e / (xc * kBT);
+        const bool ok = b0 + b < g.B;
+        const __nv_bfloat16* src =
+            g.x + (size_t)(ok ? b0 + b : 0) * g.K + half * Kp + rb + c * 8;
+        cp_async16(&xs[half][b * kXRow + c * 8], src, ok);
+      }
+    } else {
+      // h, 4 floats a load, through the LayerNorm of its row where asked
+      const bool ln = g.ln_stats != nullptr;
+      if (c0 == 0) {
+        if (ln && tid < kBT)
+          sh.norm[tid] = b0 + tid < g.B
+                             ? row_norm(g.ln_stats + (size_t)(b0 + tid) * (g.K / kNT), g.K / kNT)
+                             : make_float2(0.f, 0.f);
+        __syncthreads();
+      }
+      const int hc = cr / 4;
+      for (int e = tid; e < NH * kBT * hc; e += kGemvThreads) {
+        const int c = e % hc, b = (e / hc) % kBT, half = e / (hc * kBT);
+        const int k = half * Kp + rb + 4 * c;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (b0 + b < g.B) {
+          const float4 u =
+              __ldcg(reinterpret_cast<const float4*>(g.h + (size_t)(b0 + b) * g.K + k));
+          v[0] = u.x;
+          v[1] = u.y;
+          v[2] = u.z;
+          v[3] = u.w;
+          if (ln)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma(acc[h][j], a, pack(biased_byte(u0, j, magic), biased_byte(u1, j, magic)),
-            pack(biased_byte(u2, j, magic), biased_byte(u3, j, magic)));
+            for (int i = 0; i < 4; ++i)
+              v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], sh.norm[b].x), sh.norm[b].y),
+                                         g.ln_s[k + i]), g.ln_b[k + i]);
+        }
+        uint2 pk;
+        pk.x = pack(v[0], v[1]);
+        pk.y = pack(v[2], v[3]);
+        *reinterpret_cast<uint2*>(&xs[half][b * kXRow + 4 * c]) = pk;
+      }
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+
+    for (int s = warp; s < cr / kKStep; s += kGemvWarps) {
+      const uint8_t* wr = sh.ws + s * kKStep * kWRowBytes + 4 * gq;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq) * kWRowBytes);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq + 1) * kWRowBytes);
+      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq + 8) * kWRowBytes);
+      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(wr + (2 * tq + 9) * kWRowBytes);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        uint32_t a[4];
+        ldsm4(a, &xs[h][(lane & 15) * kXRow + s * kKStep + (lane >> 4) * 8]);
+        uint32_t u0, u1, u2, u3;
+        float magic;
+        if (INT4) {  // nibble n encodes (n ^ 8) - 8
+          const int sh4 = 4 * h;
+          u0 = ((w0 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+          u1 = ((w1 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+          u2 = ((w2 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+          u3 = ((w3 >> sh4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+          magic = 8388616.f;  // 2^23 + 8
+        } else {
+          u0 = w0 ^ 0x80808080u;
+          u1 = w1 ^ 0x80808080u;
+          u2 = w2 ^ 0x80808080u;
+          u3 = w3 ^ 0x80808080u;
+          magic = 8388736.f;  // 2^23 + 128
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma(acc[h][j], a, pack(biased_byte(u0, j, magic), biased_byte(u1, j, magic)),
+              pack(biased_byte(u2, j, magic), biased_byte(u3, j, magic)));
+      }
     }
   }
 
@@ -358,6 +391,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv_kernel(const Gemv g) {
     const int br = split + S * (warp + kGemvWarps * i), b = b0 + br;
     res[i] = g.resid != nullptr && br < kBT && b < g.B ? g.resid[(size_t)b * g.N + n] : 0.f;
   }
+  if (FD_CUT & kCutFinish) return;
   cluster.sync();
   float sum[kRows];
 #pragma unroll
@@ -446,6 +480,10 @@ __device__ void favor_block(const Attn& a, uint8_t* smem) {
   cp_commit();
   pdl_wait();  // qkv
   pdl_trigger();
+  if (FD_CUT & kCutFavor) {
+    cp_wait<0>();
+    return;
+  }
 
   const float* row = a.qkv + (size_t)b * 3 * HD + hh * dh;
   for (int d = tid; d < dh; d += kAttnThreads) {
@@ -594,6 +632,10 @@ __device__ void local_block(const Attn& a, uint8_t* smem, int c) {
   }
   pdl_wait();  // qkv
   pdl_trigger();
+  if (FD_CUT & kCutLocal) {
+    cp_wait<0>();
+    return;
+  }
 
   const float* row = a.qkv + (size_t)b * 3 * HD + (a.gh + hl) * dh;
   for (int d = tid; d < dh; d += kAttnThreads) {

@@ -29,7 +29,7 @@ constexpr int kGemvWarps = 4;
 constexpr int kGemvThreads = 32 * kGemvWarps;
 constexpr int kMinBlocks = 132;  // the H100's SMs: each GEMV spreads over at least as many blocks
 constexpr int kMaxSplits = 16;   // splits of K: one cluster (16 needs the non-portable opt-in)
-constexpr int kMaxRows = 256;    // packed weight rows of one split (shared memory)
+constexpr int kMaxRows = 256;    // packed weight rows staged at once (shared memory)
 // A staged weight row: 32 bytes and 16 of padding.  A lane reads 4 bytes
 // of rows 2t, 2t + 1, 2t + 8 and 2t + 9 of a k-step; at a 48-byte stride
 // (12 banks) each of the four reads of a warp falls on 32 distinct banks.
@@ -53,7 +53,9 @@ FD_HD constexpr int pow2_at_least(int x) {
 
 // Packed rows of one split: K is cut into the least power of two of
 // splits that gives kMinBlocks blocks (more where a split would pass
-// kMaxRows, at most kMaxSplits), in whole k-steps.
+// kMaxRows, at most kMaxSplits), in whole k-steps.  Past kMaxSplits x
+// kMaxRows packed rows a split holds more than kMaxRows, and its block
+// walks them kMaxRows at a time.
 FD_HD constexpr int split_rows(int Kp, int N, int B) {
   return imax(kKStep, ceil_div(ceil_div(Kp, imin(kMaxSplits, imax(pow2_at_least(ceil_div(
       kMinBlocks, col_tiles(N) * batch_tiles(B))), ceil_div(Kp, kMaxRows)))), kKStep) * kKStep);
@@ -77,13 +79,12 @@ FD_HD constexpr int gemv_n(int i, int D, int HD, int F) {
   return i == 0 ? 3 * HD : i == 1 ? D : i == 2 ? F : D;
 }
 
-// Whether the GEMVs take these widths: whole k-steps and column tiles,
-// each split within kMaxRows (K up to 4096 int8, 8192 packed int4).
+// Whether the GEMVs take these widths: whole k-steps and column tiles.
 FD_HD constexpr bool gemv_fits(int D, int HD, int F, int int4) {
   bool ok = true;
   for (int i = 0; i < 4; ++i) {
     const int Kp = packed_rows(gemv_k(i, D, HD, F), int4), N = gemv_n(i, D, HD, F);
-    ok = ok && Kp % kKStep == 0 && N % kNT == 0 && Kp <= kMaxSplits * kMaxRows;
+    ok = ok && Kp % kKStep == 0 && N % kNT == 0;
   }
   return ok;
 }

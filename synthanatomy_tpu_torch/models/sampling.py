@@ -36,6 +36,7 @@ from synthanatomy_tpu_torch.models.ordering import Ordering
 from synthanatomy_tpu_torch.models.performer import _row
 from synthanatomy_tpu_torch.ops.fused_decode import (
     FusedDecodeConfig,
+    count_graph_replay,
     fused_decode_step,
     init_fused_state,
     pack_fused_params,
@@ -205,7 +206,6 @@ def fused_logits_stepper(
     conditionings: Optional[Sequence[torch.Tensor]] = None,
     ring_quant: bool = False,
     weight_quant: str = "int8",
-    graph: bool = True,
 ):
     """The fused engine as ``step(tok (B,), t) -> logits (B, V) f32``,
     steps taken in order from t = 0: each step embeds the token, runs the
@@ -221,8 +221,7 @@ def fused_logits_stepper(
     stays outside.  Step 0 (the conditioning branch) runs eagerly; step 1
     runs eagerly on the capture stream, to warm up, and the capture
     follows.  ``fused_decode_step.launches`` counts each replay as one
-    step.  ``graph=False`` steps eagerly on the card too.  On the CPU every
-    step runs eagerly through the plain version."""
+    step.  On the CPU every step runs eagerly through the plain version."""
     device = model.token_emb.weight.device
     vocab = model.num_tokens
     cfg = _config(model, batch, ring_quant, weight_quant)
@@ -266,7 +265,7 @@ def fused_logits_stepper(
             return run(cond_sum, t)
         return run(embed(tok), t)
 
-    if device.type != "cuda" or not graph:
+    if device.type != "cuda":
         return eager
     stream = torch.cuda.Stream(device)
     static_tok = torch.zeros(batch, dtype=torch.long, device=device)
@@ -291,7 +290,7 @@ def fused_logits_stepper(
         static_tok.copy_(tok)
         static_t.copy_(t if isinstance(t, torch.Tensor) else positions[t])
         captured.replay()
-        fused_decode_step.launches += 1
+        count_graph_replay()
         return out.clone()
 
     return step

@@ -28,6 +28,7 @@ approximation (``jax.nn.gelu``'s default).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -52,6 +53,7 @@ __all__ = [
     "update_rings",
     "fused_decode_step_ref",
     "fused_decode_step",
+    "count_graph_replay",
 ]
 
 
@@ -98,21 +100,42 @@ def supports_fused_decode(model) -> bool:
     """The fused step covers causal softmax-kernel FAVOR heads with a
     projection plus optional local heads, pre-LayerNorm or ReZero blocks,
     no biases on q/k/v/out, non-GLU FF, no per-layer rotary — at widths
-    the kernels tile (dh 64 or 128, dim a multiple of 128)."""
+    the kernels tile (dh 64 or 128, dim a multiple of 128).  For a model
+    on a card, the kernel library's plan (``csrc/fused_plan.h``) must
+    also take its launches, with either weight and ring format: what
+    :func:`fused_decode_step` checks before it launches."""
     plain_heads = (model.causal and not model.generalized_attention
                    and not model.no_projection and not model.qkv_bias
                    and not model.attn_out_bias and not model.use_scalenorm
                    and not model.ff_glu and not model.rotary_position_emb)
-    return plain_heads and _widths_ok(
-        model.heads - model.local_attn_heads, model.dim_head, model.dim,
-        model.dim * model.ff_mult,
-    )
+    if not (plain_heads and _widths_ok(model.heads - model.local_attn_heads, model.dim_head,
+                                       model.dim, model.dim * model.ff_mult)):
+        return False
+    if model.token_emb.weight.device.type != "cuda":
+        return True
+    cfg = FusedDecodeConfig(
+        depth=model.depth, batch=1, dim=model.dim, heads=model.heads, dim_head=model.dim_head,
+        local_heads=model.local_attn_heads, local_window=model.local_window_size,
+        nb_features=model.nb_features, ff_mult=model.ff_mult)
+    return all(_plan_refusal(_lib(), dataclasses.replace(cfg, weight_quant=wq, ring_quant=rq))
+               is None for wq in ("int8", "int4") for rq in (False, True))
 
 
 def _widths_ok(gh: int, dim_head: int, dim: int, ff_inner: int) -> bool:
-    # csrc/fused_plan.h: a product's K at most 16 splits of 256 rows
-    return (gh > 0 and dim_head in (64, 128) and dim % 128 == 0 and ff_inner % 128 == 0
-            and dim <= 4096 and ff_inner <= 4096)
+    return gh > 0 and dim_head in (64, 128) and dim % 128 == 0 and ff_inner % 128 == 0
+
+
+def _plan_refusal(lib, cfg: FusedDecodeConfig):
+    """Why the library's plan (``csrc/fused_plan.h``) refuses ``cfg``'s
+    launches, or None where it takes them."""
+    smem = int(lib.fused_decode_attn_smem(cfg.dim_head, cfg.nb_features, cfg.local_heads,
+                                          cfg.ring_size, cfg.local_window, int(cfg.ring_quant)))
+    if smem > SMEM_PER_BLOCK:
+        return f"the attention launch needs {smem} B of shared memory, more than {SMEM_PER_BLOCK}"
+    if not lib.fused_decode_fits(cfg.dim, cfg.heads, cfg.dim_head, cfg.ff_inner,
+                                 int(cfg.weight_quant == "int4")):
+        return "the GEMVs do not tile these widths"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -474,13 +497,9 @@ def _launch(lib, params, state, h, t_dev, cfg: FusedDecodeConfig, stream: int):
     B, D, H, dh, F = cfg.batch, cfg.dim, cfg.heads, cfg.dim_head, cfg.ff_inner
     L, lh, m = cfg.depth, cfg.local_heads, cfg.nb_features
     int4 = cfg.weight_quant == "int4"
-    smem = int(lib.fused_decode_attn_smem(dh, m, lh, cfg.ring_size, cfg.local_window,
-                                          int(cfg.ring_quant)))
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"the attention launch needs {smem} B of shared memory, more than "
-                         f"{SMEM_PER_BLOCK}: {cfg}")
-    if not lib.fused_decode_fits(D, H, dh, F, int(int4)):
-        raise ValueError(f"the GEMVs do not take these widths (K up to 4096 int8): {cfg}")
+    refusal = _plan_refusal(lib, cfg)
+    if refusal is not None:
+        raise ValueError(f"{refusal}: {cfg}")
     h_out = torch.empty_like(h)
     k_all = torch.empty(L, cfg.bl, dtype=torch.float32, device=dev)
     v_all = torch.empty(L, cfg.bl, dtype=torch.float32, device=dev)
@@ -551,3 +570,10 @@ def fused_decode_step(
 
 
 fused_decode_step.launches = 0
+
+
+def count_graph_replay() -> None:
+    """Count one step in ``fused_decode_step.launches`` for a replay of a
+    CUDA graph that captured :func:`fused_decode_step` (the capture
+    itself launched nothing and was not counted)."""
+    fused_decode_step.launches += 1

@@ -1,10 +1,48 @@
-"""What the probe tools share: the device choice and a chain timer."""
+"""What the probe tools share: the device choice and the timers."""
 
 from __future__ import annotations
 
 import time
 
 import torch
+
+
+SPIN_HZ = 2.0e9  # cycles a second of torch.cuda._sleep's spin (above the H100's SM clock)
+
+
+def event_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` on the card: CUDA events around ``reps``
+    back-to-back calls, after one warm-up call.  A call whose host side
+    is slower than its kernels reads the host's pace."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: as :func:`event_ms`, but the calls are
+    queued behind a GPU spin as long as 1.5x their host time, so a call
+    whose host side (autograd, allocations, launches) is slower than its
+    kernels times its kernels, not the host's gaps between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * SPIN_HZ))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def probe_device(cpu: bool) -> torch.device:

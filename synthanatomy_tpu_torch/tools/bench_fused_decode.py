@@ -12,10 +12,11 @@ torch.profiler, each kernel's mean duration by its place in the layer.
 The launches overlap (programmatic dependent launch), so the durations
 sum to more than the step, and the profiler stretches the step itself.
 
-``--ablate`` also builds copies of ``csrc/fused_decode.cu`` with one part
-cut out (their results are wrong: timing only) and times each in turns
-with the full step on the same inputs, so the difference is what that
-part adds to the step's critical path.  Needs a CUDA card.
+``--ablate`` also builds ``csrc/fused_decode.cu`` with one part of the
+step cut out after its wait (``-DFD_CUT=<mask>``, the source's own
+switch; the results are wrong: timing only) and times each in turns with
+the full step on the same inputs, so the difference is what that part
+adds to the step's critical path.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,39 +25,23 @@ import argparse
 import ctypes
 import math
 import subprocess
-import time
 
 import torch
 
 from synthanatomy_tpu_torch import _build
 from synthanatomy_tpu_torch.ops import fused_decode as fd
+from synthanatomy_tpu_torch.tools._probe_util import device_ms, event_ms
 
 PLACES = ("qkv", "attention", "out", "ff1", "ff2")
-SPIN_HZ = 2.0e9  # cycles a second of torch.cuda._sleep's spin (above the H100's SM clock)
 
-# each ablation: (the source it replaces, what replaces it), all of which
-# must be found in csrc/fused_decode.cu
-_FAVOR_WAIT = ("  pdl_wait();  // qkv\n  pdl_trigger();\n\n"
-               "  const float* row = a.qkv + (size_t)b * 3 * HD + hh * dh;")
-_LOCAL_WAIT = ("  pdl_wait();  // qkv\n  pdl_trigger();\n\n"
-               "  const float* row = a.qkv + (size_t)b * 3 * HD + (a.gh + hl) * dh;")
-
-
-def _cut_after_wait(text):
-    return text.replace("pdl_trigger();\n", "pdl_trigger();\n  cp_wait<0>();\n  return;\n", 1)
-
-
+# each ablation: its FD_CUT mask (csrc/fused_decode.cu: kCutFavor 1,
+# kCutLocal 2, kCutGemvWork 4, kCutFinish 8)
 ABLATIONS = {
-    "no attention work": [(_FAVOR_WAIT, _cut_after_wait(_FAVOR_WAIT)),
-                          (_LOCAL_WAIT, _cut_after_wait(_LOCAL_WAIT))],
-    "no FAVOR work": [(_FAVOR_WAIT, _cut_after_wait(_FAVOR_WAIT))],
-    "no local work": [(_LOCAL_WAIT, _cut_after_wait(_LOCAL_WAIT))],
-    "no GEMV work after the wait": [
-        ("  pdl_wait();\n  pdl_trigger();\n  if (g.x != nullptr) {",
-         "  pdl_wait();\n  pdl_trigger();\n  cp_commit();\n  cp_wait<0>();\n  cluster.sync();\n"
-         "  cluster.sync();\n  return;\n  if (g.x != nullptr) {")],
-    "no cluster sum and finish": [
-        ("  cluster.sync();\n  float sum[kRows];", "  return;\n  cluster.sync();\n  float sum[kRows];")],
+    "no attention work": 1 | 2,
+    "no FAVOR work": 1,
+    "no local work": 2,
+    "no GEMV work after the wait": 4,
+    "no cluster sum and finish": 8,
 }
 
 
@@ -88,35 +73,6 @@ def _model_and_inputs(weight_quant: str, dev):
     return cfg, params, st, h
 
 
-def _elapsed_ms(fn, reps):
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _device_ms(fn, reps):
-    """As _elapsed_ms, behind a spin as long as 1.5x the calls' host time."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * SPIN_HZ))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _by_place(run, depth):
     """Mean kernel duration (µs) by place in a layer, under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -135,22 +91,16 @@ def _by_place(run, depth):
 
 
 def _build_ablations(names):
-    """{name: library} of csrc/fused_decode.cu with each ablation applied,
-    built in parallel next to the package's own libraries."""
-    src = (_build._CSRC / "fused_decode.cu").read_text()
+    """{name: library} of csrc/fused_decode.cu built with each ablation's
+    FD_CUT mask, in parallel, next to the package's own libraries."""
     out = _build._BUILD_DIR / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for i, name in enumerate(names):
-        text = src
-        for old, new in ABLATIONS[name]:
-            if old not in text:
-                raise RuntimeError(f"ablation {name!r}: its source is no longer in fused_decode.cu")
-            text = text.replace(old, new)
-        cu, lib = out / f"ablate{i}.cu", out / f"libablate{i}.so"
-        cu.write_text(text)
+    for name in names:
+        lib = out / f"libfused_decode_cut{ABLATIONS[name]}.so"
         jobs.append((name, lib, subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-I", str(_build._CSRC), "-o", str(lib), str(cu)],
+            [_build._nvcc(), *_build._FLAGS, f"-DFD_CUT={ABLATIONS[name]}", "-o", str(lib),
+             str(_build._CSRC / "fused_decode.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     libs = {}
     for name, lib, proc in jobs:
@@ -180,7 +130,7 @@ def main(argv=None) -> dict:
         return lambda: fd._launch(lib, params, st, h, t, cfg, stream)
 
     full = with_lib(fd._lib())
-    out = {"elapsed_ms": _elapsed_ms(full, args.reps), "device_ms": _device_ms(full, args.reps)}
+    out = {"elapsed_ms": event_ms(full, args.reps), "device_ms": device_ms(full, args.reps)}
     out["places"] = _by_place(full, cfg.depth)
     print(f"row 1, B16 paper width, {args.weight_quant} weights, int8 rings, t 700: elapsed "
           f"{out['elapsed_ms']:.4f} ms, device {out['device_ms']:.4f} ms  [{smi}]")
@@ -193,7 +143,7 @@ def main(argv=None) -> dict:
         for order in (list(runs), list(runs)[::-1]):  # in turns, both ways
             for n in order:
                 runs[n]()
-                got[n].append(_device_ms(runs[n], args.reps))
+                got[n].append(device_ms(runs[n], args.reps))
         out["ablations"] = {n: sum(v) / len(v) for n, v in got.items()}
         base = out["ablations"]["full step"]
         for n, ms in out["ablations"].items():

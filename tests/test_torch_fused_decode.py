@@ -264,6 +264,24 @@ def test_supports_fused_decode_gating():
     assert not tfd.supports_fused_decode(tm)
 
 
+def test_wide_prior_routes_to_the_fused_step():
+    """A dim-2048 prior (FF 8192: its FF2 product's K is past 16 splits of
+    256 int8 rows) is one the fused step covers, as the JAX package's gate
+    says, so ``make_sampler("auto")`` takes the fused sampler."""
+    from synthanatomy_tpu_torch.models.ordering import Ordering
+    from synthanatomy_tpu_torch.models.performer import Performer
+    from synthanatomy_tpu_torch.models.sampling import make_sampler
+
+    kw = dict(num_tokens=17, max_seq_len=13, dim=2048, depth=1, heads=3, dim_head=128,
+              local_attn_heads=1, local_window_size=4, nb_features=64)
+    jm = JPerformer(**kw, dtype=jnp.bfloat16)
+    tm = Performer(**kw, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                   device="cpu")
+    assert jfd.supports_fused_decode(jm)
+    assert tfd.supports_fused_decode(tm)
+    assert make_sampler(tm, Ordering("raster_scan", 3, (2, 3, 2)), batch=2).fused
+
+
 def test_wrapper_rejects_meta_tensors():
     _, cfg_t = _cfgs(False, "int8", False)
     with pytest.raises(ValueError):

@@ -79,33 +79,47 @@ def test_paper_products_spread_over_the_sms(plan, int4):
 
 @pytest.mark.parametrize("B", [1, 2, 8, 16, 17, 40])
 def test_splits_cover_k_in_whole_steps(plan, B):
-    """Any batch and width the step takes: whole k-steps, at most kMaxRows
-    rows and kMaxSplits splits (one cluster), no empty split, at least
-    half of min(132, what K allows) blocks (rounding rows to whole k-steps
-    may drop a split), and the split depends on the product's shape and
-    the batch alone (never on the depth)."""
-    for K in (128, 256, 384, 512, 1024, 2048, 4096):
+    """Any batch and width the step takes: whole k-steps, at most
+    kMaxSplits splits (one cluster), no empty split, at least half of
+    min(132, what K allows) blocks (rounding rows to whole k-steps may
+    drop a split), and the split depends on the product's shape and the
+    batch alone (never on the depth).  A split holds at most kMaxRows
+    rows (one staging of its block) until K passes kMaxSplits x kMaxRows
+    packed rows; past that the 16 splits are as even as whole k-steps
+    allow, and a block walks its rows kMaxRows at a time."""
+    for K in (128, 256, 384, 512, 1024, 2048, 4096, 8192, 9216, 16384):
         for N in (128, 384, 512, 1536, 2048, 4096, 6144):
             for kp in (K, K // 2):
                 rows, n = plan.split_rows(kp, N, B), plan.splits(kp, N, B)
-                assert rows % 16 == 0 and 16 <= rows <= plan.max_rows()
+                assert rows % 16 == 0 and rows >= 16
                 assert (n - 1) * rows < kp <= n * rows and n <= 16
+                if kp <= plan.max_splits() * plan.max_rows():
+                    assert rows <= plan.max_rows(), (kp, N, B)
+                else:
+                    assert n == plan.max_splits() and rows == -(-kp // 256) * 16, (kp, N, B)
                 tiles = (N // 32) * -(-B // 16)
                 assert 2 * tiles * n >= min(132, tiles * min(16, kp // 16))
 
 
 def test_gemv_fits_the_wrapper_gate(plan):
-    """The widths the wrapper lets through (``_widths_ok``: dim and FF up
-    to 4096) are those the GEMVs take."""
+    """Every width the wrapper's gate lets through (``_widths_ok``: dim
+    and FF multiples of 128, dh 64 or 128, any number of heads) is one the
+    GEMVs take, with int8 and with packed int4 weights: the plan sets no
+    upper bound on K."""
     from synthanatomy_tpu_torch.ops.fused_decode import _widths_ok
 
-    for D in (128, 512, 1024, 4096, 8192):
-        for F in (4 * D, D):
-            for int4 in (0, 1):
-                if _widths_ok(8, 64, D, F) and D <= 4096:
-                    assert plan.gemv_fits(D, D, F, int4), (D, F, int4)
-    assert _widths_ok(8, 64, 4096, 4096) and not _widths_ok(8, 64, 4096, 8192)
-    assert not plan.gemv_fits(4096, 4096, 8192, 0) and plan.gemv_fits(4096, 4096, 8192, 1)
+    seen = 0
+    for D in (128, 384, 512, 1152, 2048, 4096, 8192):
+        for F in (D, 4 * D, 128 * 72):
+            for dh in (64, 128):
+                for H in (2, 3, 16, 40):
+                    assert _widths_ok(1, dh, D, F)
+                    for int4 in (0, 1):
+                        assert plan.gemv_fits(D, H * dh, F, int4), (D, H, dh, F, int4)
+                        seen += 1
+    assert seen == 7 * 3 * 2 * 4 * 2
+    assert not _widths_ok(1, 64, 4096 + 64, 4 * 4096) and not _widths_ok(1, 32, 512, 2048)
+    assert not plan.gemv_fits(512, 512, 2048 + 16, 0)  # an FF width off the column tiles
 
 
 def test_gemv_shared_memory(plan):

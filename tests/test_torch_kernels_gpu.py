@@ -37,8 +37,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(rezero, device):
-    model = Performer(VOCAB, 64, DIM, DEPTH, HEADS, DH, LH, WIN, nb_features=M,
+def _model(rezero, device, max_seq_len=64):
+    model = Performer(VOCAB, max_seq_len, DIM, DEPTH, HEADS, DH, LH, WIN, nb_features=M,
                       use_rezero=rezero, generator=torch.Generator().manual_seed(0))
     if rezero:
         with torch.no_grad():
@@ -117,30 +117,38 @@ def test_fused_decode_kernel_matches_plain(cuda, weight_quant, ring_quant, rezer
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("wide", ["B17", "d128-chunked"])
+@pytest.mark.parametrize("wide", ["B17", "d128-chunked", "ff9216-chunked-k"])
 def test_fused_decode_kernel_wide_shapes(cuda, wide):
-    """Two batch tiles (B17), and d 128 with bf16 rings at window 420,
-    whose ring slice does not fit shared memory whole (the local blocks
-    stream it in chunks, fused_plan.h): against the plain step, layer by
+    """Two batch tiles (B17); d 128 with bf16 rings at window 420, whose
+    ring slice does not fit shared memory whole (the local blocks stream
+    it in chunks, fused_plan.h); and FF 9216, whose FF2 splits hold more
+    than kMaxRows packed rows with int8 (576) and int4 (288) weights (a
+    GEMV block walks them in chunks): against the plain step, layer by
     layer, and the whole depth equal to the chain of its layers."""
     import dataclasses
 
+    ff_mult, formats = 4, [("int8", False), ("int8", True)]
     if wide == "B17":
         kw, mkw = dict(batch=17, heads=4, local_heads=2, local_window=40, nb_features=64), \
             dict(heads=4, dim_head=64, local_heads=2, window=40, m=64, dim=DIM)
         ts = (0, 45, 300)
-    else:
+    elif wide == "d128-chunked":
         kw, mkw = dict(batch=3, dim=256, heads=2, dim_head=128, local_heads=1, local_window=420,
                        nb_features=64), dict(heads=2, dim_head=128, local_heads=1, window=420,
                                               m=64, dim=256)
         ts = (5, 1000)
+    else:
+        ff_mult, formats = 72, [("int8", True), ("int4", False)]
+        kw, mkw = dict(ff_mult=ff_mult), dict(heads=HEADS, dim_head=DH, local_heads=LH,
+                                              window=WIN, m=M, dim=DIM)
+        ts = (0, 200)
     model = Performer(VOCAB, 64, mkw["dim"], DEPTH, mkw["heads"], mkw["dim_head"],
-                      mkw["local_heads"], mkw["window"], nb_features=mkw["m"],
+                      mkw["local_heads"], mkw["window"], nb_features=mkw["m"], ff_mult=ff_mult,
                       generator=torch.Generator().manual_seed(3)).to(cuda)
-    for rq in (False, True):
-        cfg = _fused_cfg("int8", rq, False, **kw)
+    for wq, rq in formats:
+        cfg = _fused_cfg(wq, rq, False, **kw)
         one = dataclasses.replace(cfg, depth=1)
-        params = tfd.strip_reference_weights(tfd.pack_fused_params(model))
+        params = tfd.strip_reference_weights(tfd.pack_fused_params(model, weight_quant=wq))
         layers = [{k: v[i:i + 1].clone() for k, v in params.items()} for i in range(DEPTH)]
         gen = torch.Generator(device=cuda).manual_seed(4)
         for t in ts:
@@ -169,7 +177,7 @@ def test_fused_decode_kernel_wide_shapes(cuda, wide):
                 hr, _, kr, vr = tfd.fused_decode_step_ref(p, sr, x, t, one)
                 for name, a, b in (("h", hk, hr), ("k", kk, kr), ("v", vk, vr),
                                    ("z", sk["z"], sr["z"]), ("S", sk["S"], sr["S"])):
-                    _fused_close(f"{wide} rq={rq} layer {i} {name} t={t}", a, b)
+                    _fused_close(f"{wide} {wq} rq={rq} layer {i} {name} t={t}", a, b)
                 assert torch.equal(kf[i], kk[0]) and torch.equal(full["S"][i], sk["S"][0])
                 x = hk
             assert torch.equal(hf, x), f"{wide} t={t}: whole depth differs from the chain"
@@ -202,23 +210,67 @@ def test_fused_decode_launches_per_step(cuda):
 @pytest.mark.parametrize("ring_quant", [False, True], ids=["bf16rings", "int8rings"])
 def test_fused_stepper_graph_matches_eager(cuda, ring_quant):
     """The fused stepper's graph replays equal eager stepping bit for bit
-    over 30 tokens (past the 12-token window and its ring of 128: no wrap
-    at this length, but every slot of the window), and each token counts
-    one step."""
-    from synthanatomy_tpu_torch.models.sampling import fused_logits_stepper
+    over 140 tokens, past the ring's wrap at its 128 slots (window 12),
+    and each token counts one step.  Eager stepping is the step's parts
+    called directly at an int t: embedding, positional row,
+    ``fused_decode_step``, ``update_rings``, final LayerNorm and head."""
+    from synthanatomy_tpu_torch.models.sampling import (
+        _config,
+        combined_position_table,
+        fused_logits_stepper,
+    )
 
-    model = _model(True, cuda)
-    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, VOCAB - 1, (B, 30)), device=cuda)
+    n = 140
+    model = _model(True, cuda, max_seq_len=n)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, VOCAB - 1, (B, n)), device=cuda)
     with torch.no_grad():
         before = tfd.fused_decode_step.launches
         step = fused_logits_stepper(model, batch=B, ring_quant=ring_quant)
-        got = torch.stack([step(tokens[:, t], t) for t in range(30)], dim=1)
+        got = torch.stack([step(tokens[:, t], t) for t in range(n)], dim=1)
         torch.cuda.synchronize()
-        assert tfd.fused_decode_step.launches == before + 30
-        eager = fused_logits_stepper(model, batch=B, ring_quant=ring_quant, graph=False)
-        want = torch.stack([eager(tokens[:, t], t) for t in range(30)], dim=1)
+        assert tfd.fused_decode_step.launches == before + n
+
+        cfg = _config(model, B, ring_quant, "int8")
+        assert cfg.ring_size == 128 and not model.tie_embed
+        params = tfd.strip_reference_weights(tfd.pack_fused_params(model))
+        state = tfd.init_fused_state(cfg, device=cuda)
+        emb = model.token_emb.weight.to(torch.bfloat16)
+        pos = combined_position_table(model, n)
+        fn_s, fn_b = model.final_norm.weight.float(), model.final_norm.bias.float()
+        head_w = model.to_out.weight.T.to(torch.bfloat16).float()
+        head_b = model.to_out.bias.float()
+        want = []
+        for t in range(n):
+            x = emb[tokens[:, t]].float() + pos[t]
+            h, _, k_all, v_all = tfd.fused_decode_step(params, state, x, t, cfg)
+            tfd.update_rings(state, k_all, v_all, t, cfg)
+            mu = h.mean(-1, keepdim=True)
+            var = (h - mu).square().mean(-1, keepdim=True)
+            hn = (h - mu) * torch.rsqrt(var + 1e-6) * fn_s + fn_b
+            want.append(hn.to(torch.bfloat16).float() @ head_w + head_b)
+        want = torch.stack(want, dim=1)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fused_routing_agrees_with_the_launch(cuda):
+    """On the card the gate asks the kernel library's plan: a prior whose
+    FAVOR slice passes a block's shared memory (m 1024 at dh 128) is
+    refused by ``supports_fused_decode`` and by the step alike (before any
+    launch), and the small prior passes both."""
+    big = Performer(VOCAB, 64, 256, 1, 2, 128, 1, WIN, nb_features=1024,
+                    generator=torch.Generator().manual_seed(0)).to(cuda)
+    assert not tfd.supports_fused_decode(big)
+    cfg = tfd.FusedDecodeConfig(depth=1, batch=B, dim=256, heads=2, dim_head=128,
+                                local_heads=1, local_window=WIN, nb_features=1024)
+    params = tfd.strip_reference_weights(tfd.pack_fused_params(big))
+    st = tfd.init_fused_state(cfg, device=cuda)
+    before = tfd.fused_decode_step.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tfd.fused_decode_step(params, st, torch.zeros(B, 256, device=cuda), 0, cfg)
+    assert tfd.fused_decode_step.launches == before
+    assert tfd.supports_fused_decode(_model(False, cuda))
 
 
 @pytest.mark.gpu
