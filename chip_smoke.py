@@ -9,8 +9,8 @@ result, without them.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed),
-   then the SASS of rows 6 and 8 (``cuobjdump -sass``): HMMA or HGMMA in
-   every bf16 instantiation of their kernels, with each kernel's
+   then the SASS of rows 6, 7 and 8 (``cuobjdump -sass``): HMMA or HGMMA
+   in every bf16 instantiation of their kernels, with each kernel's
    registers, spills and stack (``ptxas -v``) and the dynamic shared
    memory of their launches;
 3. the fused decode kernel against its plain PyTorch version, at paper
@@ -63,9 +63,10 @@ result, without them.  Phases, each fatal on failure:
    stated margin, counts exact, sums within tolerance, two runs
    bit-identical); the fused residual layer at the paper shape (1 x 128 x
    80x112x80 bf16, R 128) and at awkward ones (D/H/W not multiples of the
-   tile, C != R, f32 and bf16): y and h, then the backward on the same
-   saved x, h, y and gy (dx, dW1, db1, dW2, db2), two backward runs
-   bit-identical;
+   tile, C != R, f32 and bf16, shapes of the tile route and of the GEMM
+   route), each with x in NCDHW and in channels-last memory: y and h,
+   then the backward on the same saved x, h, y and gy (dx, dW1, db1, dW2,
+   db2), two backward runs bit-identical;
 10. the paper stage 1 at full width from seeded random weights (4 levels,
    (4,2,1,1) down, (4,2,1,0,1) up, codebook 2048 x 32, 256 channels, 3
    slim residual layers per level, bf16, remat, fused residual auto):
@@ -82,10 +83,14 @@ result, without them.  Phases, each fatal on failure:
    with ``FUSED_EMA_STATS`` gives the indices and EMA state of the step
    without it;
 11. timings on the card: extraction + decode ms per volume; the stage-1
-   train step, kernels vs plain (ms, volumes/s, peak memory); each new
-   kernel vs its plain version and its yardstick (addmm + argmin; cuDNN
-   conv3d -> relu -> conv3d -> add -> relu); a torch.profiler breakdown of
-   one kernel step;
+   train step, kernels vs plain (ms, volumes/s, peak memory); a
+   torch.profiler breakdown of one kernel step; rows 3 and 4 vs their
+   plain versions and addmm + argmin; row 7's forward and backward at the
+   paper shape on channels-last x, in turns with its plain version and
+   cuDNN's chain (conv3d -> relu -> conv3d -> add -> relu), elapsed and
+   device time, with the chain on NCDHW too, its launches by kernel
+   (torch.profiler), the conversion to channels-last and cuDNN's
+   neighbouring convolutions on either layout;
 12. the splash local-attention kernels (forward, dq, dk/dv, fused
    backward) against their plain version on the same seeded, zero-padded
    inputs: at the paper shape (B6 x 8 heads x L 1401 x d 64, w 420) in
@@ -191,11 +196,15 @@ BENCH_BANDED = ["--pallas-local"] + BENCH_SPLASH[1:]
 BENCH_STEPS = ["--steps", "4", "--warmup", "1"]  # + the first step: 6 steps a run
 PROBE_REPS = 20  # launches per measurement of the kernel-body probe (min of 5)
 SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two backward launches
-# the row 6 and row 8 kernels whose bf16 instantiations must hold
-# tensor-core instructions (phase 2b)
+# the row 6, 7 and 8 kernels whose bf16 instantiations must hold
+# tensor-core instructions (phase 2b); row 7's tile-route kernels
+# (res_tile_*) are bf16 only
 TENSOR_CORE_KERNELS = {
     "local_attention": ("local_fwd_kernel", "local_bwd_dq_kernel", "local_bwd_dkv_kernel"),
     "local_attention_splash": ("splash_fwd_kernel", "splash_dq_kernel", "splash_dkv_kernel"),
+    "res_stack": ("res_fwd_kernel", "res_bwd_dx_kernel", "res_bwd_dw1_kernel",
+                  "res_tile_fwd_kernel", "res_tile_da_kernel", "res_tile_dx_kernel",
+                  "res_tile_dw1_kernel"),
 }
 
 
@@ -205,23 +214,26 @@ def _require(cond, msg):
 
 
 def _check_sass():
-    """Phase 2b: every bf16 instantiation of the row 6 (tile form) and row 8
-    kernels runs its products on the tensor cores: HMMA or HGMMA in its
-    SASS (``cuobjdump -sass``).  Prints each kernel's tensor-core
-    instructions, registers, spills and stack from ``ptxas -v``, and the
-    dynamic shared memory the launches ask for.  Row 6's band form (d >
-    128, the earlier FMA kernels) and splash's dq reduction (no product)
-    are listed without the requirement."""
+    """Phase 2b: every bf16 instantiation of the row 6 (tile form), row 7
+    and row 8 kernels runs its products on the tensor cores: HMMA or
+    HGMMA in its SASS (``cuobjdump -sass``).  Prints each kernel's
+    tensor-core instructions, registers, spills and stack from ``ptxas
+    -v``, and the dynamic shared memory the launches ask for.  Row 6's
+    band form (d > 128, the earlier FMA kernels), row 7's f32
+    instantiations and partial sums, and splash's dq reduction (no
+    product) are listed without the requirement."""
     from synthanatomy_tpu_torch import _build
     from synthanatomy_tpu_torch.ops import local_attention_flash as lf
     from synthanatomy_tpu_torch.ops import local_attention_splash as ls
+    from synthanatomy_tpu_torch.ops import res_stack as rs
 
     for lib, kernels in TENSOR_CORE_KERNELS.items():
         regs = _build.ptxas_kernels(lib)
         held = 0
         for mangled, (label, body) in sorted(_build.sass(lib).items(), key=lambda kv: kv[1][0]):
             hmma, hgmma = body.count("HMMA"), body.count("HGMMA")
-            must = label.split("<")[0] in kernels and "__nv_bfloat16" in label
+            base = label.split("<")[0].split("::")[-1]
+            must = base in kernels and ("__nv_bfloat16" in label or base.startswith("res_tile_"))
             if must:
                 _require(hmma + hgmma > 0, f"{lib}: {label} has no tensor-core instruction")
                 held += 1
@@ -235,6 +247,9 @@ def _check_sass():
         print(f"[smem] {dtype} at d 64, w 420: row 6's largest kernel "
               f"{lf._lib().local_smem_bytes(64, 420, code)} B of dynamic shared memory, splash's "
               f"{ls._lib().splash_smem_bytes(code)} B")
+    print(f"[smem] row 7 at C = R = 128: bf16 (tile route: {bool(rs._lib().res_route(128, 128, 1))}) "
+          f"{rs._lib().res_smem_bytes(128, 128, 1)} B, f32 (GEMM route) "
+          f"{rs._lib().res_smem_bytes(128, 128, 0)} B of dynamic shared memory, largest launch")
 
 
 def _random_state(cfg, gen, device):
@@ -708,40 +723,51 @@ def _res_inputs(shape, r, dtype, seed, dev):
 
 def _check_res_kernels(dev):
     """Phase 9, row 7: the forward on the same inputs, then the backward
-    on the same saved x, h, y and gy (the plain forward's); returns max
-    errors at the paper shape."""
+    on the same saved x, h, y and gy (the plain forward's), with x in
+    NCDHW and in channels-last memory; returns max errors at the paper
+    shape (at B1 and at the main path's B3, over both formats)."""
     import torch
     from synthanatomy_tpu_torch.ops import res_stack as rs
 
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = [("paper", (1, 128, 80, 112, 80), 128, bf16),
+              ("paper, B3 as stage 1 calls it", (3, 128, 80, 112, 80), 128, bf16),
               ("tiny, C != R", (1, 3, 5, 6, 7), 4, f32),
               ("D/H/W % tile, C != R", (2, 8, 9, 10, 11), 12, bf16),
               ("W 70, C 24, R 40", (1, 24, 7, 9, 70), 40, bf16),
-              ("f32, C 16, R 32", (1, 16, 6, 7, 33), 32, f32)]
-    errs = {}
+              ("f32, C 16, R 32", (1, 16, 6, 7, 33), 32, f32),
+              ("C 64, R 128", (1, 64, 5, 6, 11), 128, bf16),
+              ("C 136, R 64", (1, 136, 4, 5, 6), 64, bf16),
+              ("B2, C 128 > R 64", (2, 128, 9, 10, 11), 64, bf16),
+              ("B3, dW1 chunks of 2 tiles across volumes", (3, 128, 9, 10, 17), 128, bf16)]
+    formats = (("NCDHW", torch.contiguous_format), ("NDHWC", torch.channels_last_3d))
+    errs = {"fwd": 0.0, "bwd": 0.0}
     for label, shape, r, dtype in shapes:
-        x, w1, b1, w2, b2, gy = _res_inputs(shape, r, dtype, sum(shape) + r, dev)
+        x0, w1, b1, w2, b2, gy0 = _res_inputs(shape, r, dtype, sum(shape) + r, dev)
         w1c, b1c, w2c, b2c = (t.to(dtype) for t in (w1, b1, w2, b2))
-        yk, hk = rs._kernel_fwd(x, w1c, b1c, w2c, b2c, True)
-        yp, hp = rs.residual_layer_plain(x, w1c, b1c, w2c, b2c)
-        torch.cuda.synchronize()
-        fwd_err = max(_compare_grad(f"res {label} y", yk, yp),
-                      _compare_grad(f"res {label} h", hk, hp))
-        got = rs._kernel_bwd(x, hp, yp, gy, w1c, w2c)
-        want = rs.residual_layer_bwd_plain(x, hp, yp, gy, w1c, w2c)
-        again = rs._kernel_bwd(x, hp, yp, gy, w1c, w2c)
-        torch.cuda.synchronize()
-        bwd_err = max(_compare_grad(f"res {label} {n}", a, b)
-                      for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want))
-        _require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                 f"res {label}: two backward runs differ")
-        if label == "paper":
-            errs = {"fwd": fwd_err, "bwd": bwd_err}
-        print(f"[check] fused_residual_layer == plain ({label}: {shape}, R {r}, "
-              f"{str(dtype)[6:]}): y/h max abs err {fwd_err:.3e}; on the same saved x, h, y, "
-              f"gy: dx/dW1/db1/dW2/db2 max abs err {bwd_err:.3e} (tol 2e-2 of max |plain|, "
-              f"1e-2 in norm); two backward runs bit-identical")
+        route = "tile" if rs._tile_route(shape[1], r, dtype) else "GEMM"
+        for fname, fmt in formats:
+            x, gy = x0.contiguous(memory_format=fmt), gy0.contiguous(memory_format=fmt)
+            _, yk, hk = rs._kernel_fwd(x, w1c, b1c, w2c, b2c, True)
+            yp, hp = rs.residual_layer_plain(x, w1c, b1c, w2c, b2c)
+            torch.cuda.synchronize()
+            fwd_err = max(_compare_grad(f"res {label} {fname} y", yk, yp),
+                          _compare_grad(f"res {label} {fname} h", hk, hp))
+            got = rs._kernel_bwd(x, hp, yp, gy, w1c, w2c)
+            want = rs.residual_layer_bwd_plain(x, hp, yp, gy, w1c, w2c)
+            again = rs._kernel_bwd(x, hp, yp, gy, w1c, w2c)
+            torch.cuda.synchronize()
+            bwd_err = max(_compare_grad(f"res {label} {fname} {n}", a, b)
+                          for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want))
+            _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"res {label} {fname}: two backward runs differ")
+            if label.startswith("paper"):
+                errs = {"fwd": max(errs["fwd"], fwd_err), "bwd": max(errs["bwd"], bwd_err)}
+            print(f"[check] fused_residual_layer == plain ({label}: {shape}, R {r}, "
+                  f"{str(dtype)[6:]}, x {fname}, {route} route): y/h max abs err {fwd_err:.3e}; "
+                  f"on the same saved x, h, y, gy: dx/dW1/db1/dW2/db2 max abs err "
+                  f"{bwd_err:.3e} (tol 2e-2 of max |plain|, 1e-2 in norm); two backward runs "
+                  f"bit-identical")
     return errs
 
 
@@ -1087,45 +1113,107 @@ def _time_stage1_kernels(dev, smi):
                   lambda: vq.nearest_codeword_stats_plain(x, w), yard_argmin,
                   _bound(2 * n * k * d + n * d, io + k * (d + 1) * 4, PEAK_F32)),
     }
-    xs, w1, b1, w2, b2, gy = _res_inputs((1, 128, 80, 112, 80), 128, torch.bfloat16, 51, dev)
-    bf = torch.bfloat16
-    w1c, b1c, w2c, b2c = (t.to(bf) for t in (w1, b1, w2, b2))
-    yp, hp = rs.residual_layer_plain(xs, w1c, b1c, w2c, b2c)
-    m = xs.shape[2] * xs.shape[3] * xs.shape[4]
-    c = r = 128
-    act = xs.numel() * 2  # one bf16 activation tensor
-
-    def yard_fwd():  # cuDNN: conv3d -> relu -> conv3d -> add -> relu, biases inside
-        return torch.relu(F.conv3d(torch.relu(F.conv3d(xs, w1c, b1c, padding=1)), w2c, b2c) + xs)
-
-    leaves = [t.detach().clone().requires_grad_() for t in (xs, w1c, b1c, w2c, b2c)]
-
-    def yard_bwd():
-        y = torch.relu(F.conv3d(torch.relu(F.conv3d(leaves[0], leaves[1], leaves[2], padding=1)),
-                                leaves[3], leaves[4]) + leaves[0])
-        return torch.autograd.grad(y, leaves, gy)
-
-    pairs["res_fwd"] = (lambda: rs._kernel_fwd(xs, w1c, b1c, w2c, b2c, True),
-                        lambda: rs.residual_layer_plain(xs, w1c, b1c, w2c, b2c), yard_fwd,
-                        _bound(2 * m * c * r * 28, 3 * act + _nbytes(w1c, w2c), PEAK_BF16))
-    pairs["res_bwd"] = (lambda: rs._kernel_bwd(xs, hp, yp, gy, w1c, w2c),
-                        lambda: rs.residual_layer_bwd_plain(xs, hp, yp, gy, w1c, w2c),
-                        yard_bwd,
-                        _bound(2 * m * c * r * 56, 5 * act + _nbytes(w1c, w2c) * 3, PEAK_BF16))
-    yard_name = {"argmin": "addmm + argmin", "stats": "addmm + argmin",
-                 "res_fwd": "cuDNN conv3d chain, forward",
-                 "res_bwd": "cuDNN conv3d chain, forward + backward"}
     for name, (kern, plain, yard, bound) in pairs.items():
-        reps = 20 if name in ("argmin", "stats") else 3
-        p1, k1, k2, p2 = (_time_ms(plain, reps), _time_ms(kern, reps), _time_ms(kern, reps),
-                          _time_ms(plain, reps))
-        y_ms = _time_ms(yard, reps)
+        p1, k1, k2, p2 = (_time_ms(plain, 20), _time_ms(kern, 20), _time_ms(kern, 20),
+                          _time_ms(plain, 20))
+        y_ms = _time_ms(yard, 20)
         out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "yard_ms": y_ms,
                      "bound_ms": bound[0], "bound_by": bound[1]}
         print(f"[time] {name}: kernel {out[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
               f"{out[name]['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), yardstick "
-              f"({yard_name[name]}) {y_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})  "
-              f"[{smi}]")
+              f"(addmm + argmin) {y_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})  [{smi}]")
+
+    # row 7 at the paper shape, x channels-last as the VQ-VAE hands a fused
+    # stack; kernel, plain version and cuDNN's chain in turns (_turns),
+    # elapsed and device time
+    cl = torch.channels_last_3d
+    x0, w1, b1, w2, b2, g0 = _res_inputs((1, 128, 80, 112, 80), 128, torch.bfloat16, 51, dev)
+    xs, gy = x0.contiguous(memory_format=cl), g0.contiguous(memory_format=cl)
+    bf = torch.bfloat16
+    w1c, b1c, w2c, b2c = (t.to(bf) for t in (w1, b1, w2, b2))
+    yp, hp = rs.residual_layer_plain(xs, w1c, b1c, w2c, b2c)
+    yp, hp = yp.contiguous(memory_format=cl), hp.contiguous(memory_format=cl)
+    m = xs.shape[2] * xs.shape[3] * xs.shape[4]
+    c = r = 128
+    act = xs.numel() * 2  # one bf16 activation tensor
+
+    def chain(t, w1_, b1_, w2_, b2_):  # cuDNN: conv3d -> relu -> conv3d -> add -> relu
+        return torch.relu(F.conv3d(torch.relu(F.conv3d(t, w1_, b1_, padding=1)), w2_, b2_) + t)
+
+    def yard_bwd(x_, g_):
+        leaves = [t.detach().requires_grad_() for t in (x_, w1c, b1c, w2c, b2c)]
+        return torch.autograd.grad(chain(*leaves), leaves, g_)
+
+    rows = {
+        "res_fwd": (lambda: rs._kernel_fwd(xs, w1c, b1c, w2c, b2c, True),
+                    lambda: rs.residual_layer_plain(xs, w1c, b1c, w2c, b2c),
+                    lambda: chain(xs, w1c, b1c, w2c, b2c), lambda: chain(x0, w1c, b1c, w2c, b2c),
+                    _bound(2 * m * c * r * 28, 3 * act + _nbytes(w1c, w2c), PEAK_BF16)),
+        "res_bwd": (lambda: rs._kernel_bwd(xs, hp, yp, gy, w1c, w2c),
+                    lambda: rs.residual_layer_bwd_plain(xs, hp, yp, gy, w1c, w2c),
+                    lambda: yard_bwd(xs, gy), lambda: yard_bwd(x0, g0),
+                    _bound(2 * m * c * r * 56, 5 * act + _nbytes(w1c, w2c) * 3, PEAK_BF16)),
+    }
+    what = {"res_fwd": "forward", "res_bwd": "backward (cuDNN: forward + backward)"}
+    for name, (kern, plain, yard, yard_ncdhw, bound) in rows.items():
+        t = _turns(kern, plain, yard, 3)
+        nc, nc_dev = _time_ms(yard_ncdhw, 3), _device_ms(yard_ncdhw, 3)
+        out[name] = {"ms": t["ms"], "plain_ms": t["plain_ms"], "yard_ms": t["library_ms"],
+                     "dev_ms": t["dev_ms"], "dev_yard_ms": t["dev_library_ms"],
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"[time] row 7 {what[name]}, 1 x 128 x 80x112x80 bf16, x NDHWC: kernel "
+              f"{t['ms']:.4f} ms elapsed, {t['dev_ms']:.4f} device; plain {t['plain_ms']:.4f} / "
+              f"{t['dev_plain_ms']:.4f}; cuDNN chain (NDHWC) {t['library_ms']:.4f} / "
+              f"{t['dev_library_ms']:.4f}, (NCDHW) {nc:.4f} / {nc_dev:.4f}; bound {bound[0]:.4f} "
+              f"ms ({bound[1]}); turns elapsed {[round(v, 4) for v in t['each']]}, device "
+              f"{[round(v, 4) for v in t['dev_each']]}  [{smi}]")
+    # like for like: the kernels' forward + backward against cuDNN's, and
+    # both under remat, the one setting that fuses (a layer runs its
+    # forward twice and its backward once: 12 forward and 6 backward calls
+    # at B3 a stage-1 step, 18 volumes of each pair)
+    fw, bw = out["res_fwd"], out["res_bwd"]
+    for label, key, yard in (("elapsed", "ms", "yard_ms"), ("device", "dev_ms", "dev_yard_ms")):
+        pair, remat = fw[key] + bw[key], 2 * fw[key] + bw[key]
+        c_pair, c_remat = bw[yard], fw[yard] + bw[yard]
+        print(f"[time] row 7 {label} time, 1 x 128 x 80x112x80 bf16, x NDHWC: kernels fwd+bwd "
+              f"{pair:.4f} ms vs cuDNN chain fwd+bwd {c_pair:.4f} ({c_pair / pair:.3f}x); under "
+              f"remat (2 fwd + 1 bwd) {remat:.4f} vs {c_remat:.4f} ({c_remat / remat:.3f}x), "
+              f"{18 * remat:.2f} vs {18 * c_remat:.2f} ms a stage-1 step (18 volumes)  [{smi}]")
+
+    # row 7's kernels: two forward and two backward calls (the profiler may
+    # miss the first launch it sees)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            rows["res_fwd"][0]()
+            rows["res_bwd"][0]()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        name = evt.key.split("(")[0]
+        if evt.device_type == torch.autograd.DeviceType.CUDA and name.startswith("rt::"):
+            dt = getattr(evt, "self_device_time_total", None)
+            dt = evt.self_cuda_time_total if dt is None else dt
+            print(f"[profile] row 7 at the paper shape, two forward and two backward calls: "
+                  f"{name} {dt / 1e3 / evt.count:.4f} ms a launch, {evt.count} launches  [{smi}]")
+
+    # what the channels-last layout costs and buys around a fused stack: the
+    # one conversion of its input, and cuDNN's neighbouring convolutions
+    # (the encoder's next 4³ stride-2 conv, the decoder's last 4³ transposed
+    # conv to one channel) on either layout
+    gen = torch.Generator(device=dev).manual_seed(52)
+    w_enc = (torch.randn(128, 128, 4, 4, 4, generator=gen, device=dev) * 0.01).to(bf)
+    w_dec = (torch.randn(128, 1, 4, 4, 4, generator=gen, device=dev) * 0.01).to(bf)
+    for label, fn in (
+            ("conversion NCDHW -> NDHWC", lambda: x0.contiguous(memory_format=cl)),
+            ("encoder 4³ s2 conv 128->128, NCDHW", lambda: F.conv3d(x0, w_enc, stride=2, padding=1)),
+            ("encoder 4³ s2 conv 128->128, NDHWC", lambda: F.conv3d(xs, w_enc, stride=2, padding=1)),
+            ("decoder 4³ s2 transposed conv 128->1, NCDHW",
+             lambda: F.conv_transpose3d(x0, w_dec, stride=2, padding=1)),
+            ("decoder 4³ s2 transposed conv 128->1, NDHWC",
+             lambda: F.conv_transpose3d(xs, w_dec, stride=2, padding=1))):
+        print(f"[time] {label}, 1 x 128 x 80x112x80 bf16: {_time_ms(fn, 10):.4f} ms elapsed, "
+              f"{_device_ms(fn, 10):.4f} device  [{smi}]")
     return out
 
 

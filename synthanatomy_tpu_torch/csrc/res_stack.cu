@@ -7,9 +7,8 @@
 // PyTorch twin is ops/res_stack.py (residual_layer_plain,
 // residual_layer_bwd_plain).
 //
-// x is (B, C, D, H, W) in T (bf16 or f32), PyTorch's NCDHW, read in
-// place: no layout copy and no padded copy.  With w1 (27, C, R) the 3³
-// taps, w2 (R, C) the 1³ conv and b1 (R,), b2 (C,), all in T:
+// With x (B, C, D, H, W) in T (bf16 or f32), w1 the 3³ taps, w2 the 1³
+// conv and b1 (R,), b2 (C,), all in T:
 //
 //   h = relu(rnd(rnd(W1 ⊛ x) + b1)),   y = relu(rnd(rnd(rnd(W2·h) + b2) + x))
 //
@@ -23,14 +22,20 @@
 //
 // the weight and bias gradients in f32.
 //
-// Every product goes through one block-wide tiled GEMM whose operand
-// accessors compute the conv taps, masks and layouts: in bf16 a
-// tensor-core product (GemmTC below: 64 x 128 tiles, mma.sync
-// m16n8k16 with f32 accumulators, operands staged in shared memory as
-// bf16, which is exact because every operand is already rounded to
-// bf16); in f32 block_gemm.cuh's FMA product (64 x 64 tiles), so that
-// the f32 instantiation stays exact f32.  256 threads either way.
-// Kernels:
+// Two routes, chosen from the shape by res_plan.h (tile_route), never
+// from a failed launch:
+//   - the tile route (bf16, C and R multiples of 8 up to 128: the paper
+//     VQ-VAE's fused layers): res_tile.cuh, on channels-last (NDHWC)
+//     volumes, halo-staged implicit-GEMM tiles on the tensor cores fed by
+//     cp.async rings;
+//   - the GEMM route (everything else: f32, odd or wider channels), below,
+//     on NCDHW volumes read in place.  Every product goes through one
+//     block-wide tiled GEMM whose operand accessors compute the conv taps,
+//     masks and layouts: in bf16 a tensor-core product (GemmTC: 64 x 128
+//     tiles, mma.sync m16n8k16 with f32 accumulators, operands staged one
+//     element per thread); in f32 block_gemm.cuh's FMA product (64 x 64
+//     tiles), so that the f32 instantiation stays exact f32.  256 threads
+//     either way.  Kernels:
 //   res_fwd_kernel     one block per 64 voxels of one volume: the 27-tap
 //                      implicit GEMM (K = 27·C, halo and borders masked
 //                      in the operand accessor), h kept in shared memory
@@ -44,25 +49,24 @@
 //                      partial sums;
 //   res_bwd_dw2_kernel the same for dW2;
 //   res_bwd_bias_kernel per-chunk partial sums of da and g_r per channel;
-//   res_reduce_kernel  sums the partials over the chunks in chunk order.
-// No float atomics: two runs give identical bits.
+//   rt::reduce_kernel  sums the partials over the chunks in chunk order.
+// No float atomics on either route: two runs give identical bits.
 //
 // What bounds it on the card: operations.  At the paper shape (C = R =
 // 128, 80 x 112 x 80 voxels) the forward is 2·28·C·R ≈ 0.92 MFLOP per
 // voxel, 0.66 TFLOP per volume against ~0.37 GB moved in bf16, far above
 // the card's ~295 FLOP/byte balance; the backward about twice that.  The
 // bound is the bf16 tensor-core rate, 0.66 ms per volume forward.  The
-// bf16 products run on the tensor cores through mma.sync; what keeps
-// the kernels from that bound is the operand staging (each element
-// passes through an accessor that finds its tap and masks the halo, one
-// element per thread at a time, with no cp.async or TMA pipeline) and
-// the synchronous k-loop.  wgmma with TMA-staged tiles is later work.
+// GEMM route is far from it (its operand staging, one element per thread
+// through an accessor, with a synchronous k-loop); the tile route is the
+// paper shape's.
 
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "block_gemm.cuh"
+#include "res_tile.cuh"
 
 using sa::from_f;
 using sa::rnd;
@@ -418,16 +422,6 @@ res_bwd_bias_kernel(Vol v, Chunks ch, const T* __restrict__ da, const T* __restr
   if (threadIdx.x == 0) part[q * ch.stride + (int64_t)28 * C * R + c] = red[0];
 }
 
-__global__ void res_reduce_kernel(const float* __restrict__ part, int nq, int64_t stride,
-                                  float* __restrict__ out) {
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < stride;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < nq; ++q) s += part[q * stride + e];
-    out[e] = s;
-  }
-}
-
 Vol make_vol(int B, int C, int R, int D, int H, int W) {
   Vol v{B, C, R, D, H, W, D * H * W, 1.f / (H * W), 1.f / W, 1.f / C, 1.f / R};
   return v;
@@ -479,44 +473,74 @@ int bwd(const Vol& v, int chunk, const void* x, const void* h, const void* y, co
   if ((err = (int)cudaGetLastError())) return err;
   res_bwd_bias_kernel<T><<<dim3(v.R + v.C, nq), kThreads, 0, s>>>(v, ch, dat, yt, gt, part);
   if ((err = (int)cudaGetLastError())) return err;
-  res_reduce_kernel<<<(int)((ch.stride + 255) / 256 < 4096 ? (ch.stride + 255) / 256 : 4096),
-                      256, 0, s>>>(part, nq, ch.stride, out);
-  return (int)cudaGetLastError();
+  return rt::reduce(part, nq, ch.stride, out, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory (bytes) of the forward kernel for R hidden channels.
-long long res_smem_bytes(int r) {
-  const long long a = fwd_smem_floats<float>(r), b = fwd_smem_floats<__nv_bfloat16>(r);
-  return (long long)sizeof(float) * (a > b ? a : b);
+// 1 if (C, R) in dtype (0 = f32, 1 = bf16) takes the tile route
+// (res_tile.cuh: channels-last volumes), 0 for the GEMM route (NCDHW).
+int res_route(int c, int r, int dtype) { return rp::tile_route(c, r, dtype == 1 ? 2 : 4); }
+
+// The largest dynamic shared memory (bytes) of the route's launches.
+long long res_smem_bytes(int c, int r, int dtype) {
+  if (res_route(c, r, dtype)) return rp::kMaxSmem;
+  return (long long)sizeof(float) *
+         (dtype == 1 ? fwd_smem_floats<__nv_bfloat16>(r) : fwd_smem_floats<float>(r));
 }
 
-// dtype: 0 = f32, 1 = bf16.  h may be null (no gradient wanted).
-// Returns a cudaError_t.
+// Floats of the backward's partial-sum scratch (chunk: voxels per
+// partial on the GEMM route).
+long long res_part_floats(int B, int C, int R, int D, int H, int W, int dtype, int chunk) {
+  if (res_route(C, R, dtype)) return rp::part_floats(B, C, R, D, H, W);
+  const long long S = (long long)D * H * W;
+  return B * ((S + chunk - 1) / chunk) * (28LL * C * R + R + C);
+}
+
+// dtype: 0 = f32, 1 = bf16.  h may be null (no gradient wanted).  On the
+// tile route x, y and h are NDHWC, w1 (27, R, C) and w2 (C, R); on the
+// GEMM route NCDHW, (27, C, R) and (R, C).  Returns a cudaError_t.
 int res_fwd(int B, int C, int R, int D, int H, int W, int dtype, const void* x, const void* w1,
             const void* b1, const void* w2, const void* b2, void* y, void* h, void* stream) {
-  const Vol v = make_vol(B, C, R, D, H, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res_route(C, R, dtype)) {
+    using rt::bf16;
+    return rt::fwd(rt::Geo{B, D, H, W}, C, R, static_cast<const bf16*>(x),
+                   static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+                   static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
+                   static_cast<bf16*>(y), static_cast<bf16*>(h), s);
+  }
+  const Vol v = make_vol(B, C, R, D, H, W);
   return dtype == 1 ? fwd<__nv_bfloat16>(v, x, w1, b1, w2, b2, y, h, s)
                     : fwd<float>(v, x, w1, b1, w2, b2, y, h, s);
 }
 
-// Seven launches: da, dx, the dW1 / dW2 / bias partials, the reduction.
-// w1t is (27, R, C); da (B, R, D, H, W) in T and part (B·⌈S/chunk⌉,
-// 28·C·R + R + C) f32 are scratch; out (28·C·R + R + C) f32 receives
-// [dW1 (27, C, R) | dW2 (R, C) | db1 (R) | db2 (C)].
+// The tile route: five launches (da with the dW2 / db partials, dx, the
+// dW1 partials, two reductions); x, h, y, gy, dx and da NDHWC, w2t W2ᵀ
+// (R, C), w1 (27, C, R).  The GEMM route: seven launches (da, dx, the
+// dW1 / dW2 / bias partials, the reduction); NCDHW, w2t (R, C), w1 (27,
+// R, C).  da (the shape of h) and part (res_part_floats) are scratch;
+// out (28·C·R + R + C) f32 receives [dW1 (27, C, R) | dW2 (R, C) | db1
+// (R) | db2 (C)].
 int res_bwd(int B, int C, int R, int D, int H, int W, int dtype, int chunk, const void* x,
-            const void* h, const void* y, const void* gy, const void* w2, const void* w1t,
+            const void* h, const void* y, const void* gy, const void* w2t, const void* w1,
             void* dx, void* da, void* part, void* out, void* stream) {
-  const Vol v = make_vol(B, C, R, D, H, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   float* o = static_cast<float*>(out);
-  return dtype == 1 ? bwd<__nv_bfloat16>(v, chunk, x, h, y, gy, w2, w1t, dx, da, p, o, s)
-                    : bwd<float>(v, chunk, x, h, y, gy, w2, w1t, dx, da, p, o, s);
+  if (res_route(C, R, dtype)) {
+    using rt::bf16;
+    return rt::bwd(rt::Geo{B, D, H, W}, C, R, static_cast<const bf16*>(x),
+                   static_cast<const bf16*>(h), static_cast<const bf16*>(y),
+                   static_cast<const bf16*>(gy), static_cast<const bf16*>(w2t),
+                   static_cast<const bf16*>(w1), static_cast<bf16*>(dx), static_cast<bf16*>(da),
+                   p, o, s);
+  }
+  const Vol v = make_vol(B, C, R, D, H, W);
+  return dtype == 1 ? bwd<__nv_bfloat16>(v, chunk, x, h, y, gy, w2t, w1, dx, da, p, o, s)
+                    : bwd<float>(v, chunk, x, h, y, gy, w2t, w1, dx, da, p, o, s);
 }
 
 }  // extern "C"

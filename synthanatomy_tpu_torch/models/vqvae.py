@@ -10,9 +10,11 @@ its convolution in ``dtype``, as JAX's ``TorchConv3d`` rounds.  The slim
 residual layer takes the fused kernel (ops/res_stack.py) where JAX takes
 its Pallas kernel: ``use_fused=None`` fuses on the card in remat
 training at ≥ ``_FUSED_MIN_VOXELS`` voxels (``SYNTH_FUSED_MIN_VOXELS``
-overrides), with no active dropout; True/False force the route.
-``use_remat`` checkpoints each residual layer (``torch.utils.checkpoint``,
-non-reentrant), as JAX's ``nn.remat`` does.
+overrides), with no active dropout; True/False force the route.  A
+fused layer hands the kernels their layout (``kernel_layout``:
+channels-last volumes on the tensor-core tile route), and what follows
+it runs on that layout.  ``use_remat`` checkpoints each residual layer
+(``torch.utils.checkpoint``, non-reentrant), as JAX's ``nn.remat`` does.
 
 Layout is NCDHW (PyTorch's), against the reference's NDHWC; tests
 permute when they compare.  The codebook stays f32.  TF32: the module
@@ -37,7 +39,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from synthanatomy_tpu_torch.ops import vq as vq_ops
-from synthanatomy_tpu_torch.ops.res_stack import fused_residual_layer, supports_fused_residual
+from synthanatomy_tpu_torch.ops.res_stack import (
+    fused_residual_layer,
+    kernel_layout,
+    supports_fused_residual,
+)
 from synthanatomy_tpu_torch.ops.vq import VQState, embed_indices
 
 __all__ = ["BaselineVQVAE", "ResidualLayer", "SubpixelUpsample3d", "TorchConv3d",
@@ -137,7 +143,10 @@ class ResidualLayer(nn.Module):
 
     def forward(self, x, *, deterministic: bool = True, seed: Optional[int] = None):
         if self.fused(x, deterministic):
-            return fused_residual_layer(x.to(self.dtype), self.conv1.weight, self.conv1.bias,
+            # in the kernels' layout (channels-last on the tile route): y
+            # keeps it, so a stack of fused layers converts its input once
+            x = kernel_layout(x.to(self.dtype), self.res_channels)
+            return fused_residual_layer(x, self.conv1.weight, self.conv1.bias,
                                         self.conv2.weight, self.conv2.bias)
         h = torch.relu(self.conv1(x))
         if self.dropout > 0.0 and not deterministic:

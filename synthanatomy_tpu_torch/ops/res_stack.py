@@ -6,25 +6,33 @@ layer is
 
     y = relu(x + conv1³(relu(conv3³(x) + b1)) + b2)
 
-on x (B, C, D, H, W) in the compute dtype (NCDHW, the port's layout),
-with PyTorch's conv weights: w1 (R, C, 3, 3, 3), b1 (R,), w2 (C, R, 1,
-1, 1), b2 (C,), each cast to x's dtype as JAX's ``TorchConv3d`` casts
-them.  Rounding as JAX's module path: each conv sums in f32 and is
-rounded to the compute dtype before its bias is added; bias adds, relus
-and the residual are in the compute dtype.  The backward, from saved x,
-h and y, follows the Pallas kernel: g_r = gy·[y>0], da = rnd(g_r·W2ᵀ)·
-[h>0], dx = rnd(conv3ᵀ(da, W1)) + g_r, and dW1, dW2, db1, db2 in f32.
+on x (B, C, D, H, W) in the compute dtype, with PyTorch's conv weights:
+w1 (R, C, 3, 3, 3), b1 (R,), w2 (C, R, 1, 1, 1), b2 (C,), each cast to
+x's dtype as JAX's ``TorchConv3d`` casts them.  Rounding as JAX's module
+path: each conv sums in f32 and is rounded to the compute dtype before
+its bias is added; bias adds, relus and the residual are in the compute
+dtype.  The backward, from saved x, h and y, follows the Pallas kernel:
+g_r = gy·[y>0], da = rnd(g_r·W2ᵀ)·[h>0], dx = rnd(conv3ᵀ(da, W1)) + g_r,
+and dW1, dW2, db1, db2 in f32.
 
 A CUDA tensor launches ``csrc/res_stack.cu`` or raises; a CPU tensor
 takes the plain version (``residual_layer_plain`` /
 ``residual_layer_bwd_plain``: the same products in f32 on operands
 rounded to the compute dtype, rounded at the same points;
 ``residual_layer_reference`` is its output alone, the twin of JAX's
-``residual_layer_reference``).
+``residual_layer_reference``).  The library picks the kernels from the
+shape (``csrc/res_plan.h``): bf16 with C and R multiples of 8 up to 128
+take the tensor-core tile route (``csrc/res_tile.cuh``), which reads
+and writes channels-last volumes (``torch.channels_last_3d`` strides);
+the rest the GEMM route, on NCDHW.  x may come in either memory format:
+only what is not in the kernels' layout is converted, and y and dx come
+back in x's format, so a stack of fused layers handed channels-last
+volumes (``kernel_layout``) converts nothing.
 ``fused_residual_layer.launches`` counts forward calls into the library
 and ``fused_residual_layer.bwd_launches`` backward calls (each backward
-call enqueues seven kernels: da, dx, three partial-sum kernels and their
-fixed-order reduction).
+call enqueues five kernels on the tile route: da with the dW2 and bias
+partials, dx, the dW1 partials and two fixed-order reductions; seven on
+the GEMM route: da, dx, three partial-sum kernels and their reduction).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from synthanatomy_tpu_torch._build import SMEM_PER_BLOCK, load_library
 __all__ = [
     "fused_residual_layer",
     "fused_residual_layer_plain",
+    "kernel_layout",
     "residual_layer_bwd_plain",
     "residual_layer_plain",
     "residual_layer_reference",
@@ -48,8 +57,8 @@ __all__ = [
 
 _MAX_R = 512  # csrc/res_stack.cu kMaxR: a block's h tile lives in shared memory
 _MAX_VOXELS = 1 << 24  # the kernels' float-reciprocal voxel index split
-# voxels per partial sum of the weight gradients: 44 chunks per paper
-# volume, so the dW2 product (two 64 x 128 tiles) still fills the card
+# voxels per partial sum of the weight gradients on the GEMM route (the
+# tile route's chunks are in csrc/res_plan.h)
 _CHUNK = 16384
 
 
@@ -116,10 +125,45 @@ def _lib():
     lib = load_library("res_stack")
     lib.res_fwd.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
     lib.res_bwd.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 11
-    lib.res_fwd.restype = lib.res_bwd.restype = ctypes.c_int
-    lib.res_smem_bytes.argtypes = [ctypes.c_int]
-    lib.res_smem_bytes.restype = ctypes.c_longlong
+    lib.res_fwd.restype = lib.res_bwd.restype = lib.res_route.restype = ctypes.c_int
+    lib.res_route.argtypes = [ctypes.c_int] * 3
+    lib.res_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.res_part_floats.argtypes = [ctypes.c_int] * 8
+    lib.res_smem_bytes.restype = lib.res_part_floats.restype = ctypes.c_longlong
     return lib
+
+
+def _code(dtype):
+    return int(dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_route(c, r, dtype) -> bool:
+    """Whether the library takes (C, R) in dtype on its tile route."""
+    return bool(_lib().res_route(c, r, _code(dtype)))
+
+
+def _memory_format(x):
+    """channels_last_3d where x is laid out so (and not also plainly
+    contiguous, as a tensor with one channel is), else contiguous."""
+    if x.is_contiguous(memory_format=torch.channels_last_3d) and not x.is_contiguous():
+        return torch.channels_last_3d
+    return torch.contiguous_format
+
+
+def kernel_layout(x, res_channels: int):
+    """x in the memory format that the kernels of a layer with
+    ``res_channels`` hidden channels read: channels-last on the tile
+    route, NCDHW on the GEMM route (a copy only where x is not so
+    already).  A CPU tensor comes back as it is: the plain version takes
+    either format."""
+    if x.device.type != "cuda":
+        return x
+    return _in_layout(x, _tile_route(x.shape[1], res_channels, x.dtype))
+
+
+def _in_layout(t, tile):
+    return t.contiguous(memory_format=torch.channels_last_3d if tile else torch.contiguous_format)
 
 
 def _check_kernel_inputs(x, w1, b1, w2, b2):
@@ -137,7 +181,7 @@ def _check_kernel_inputs(x, w1, b1, w2, b2):
             raise ValueError(f"weights on {t.device}, x on {x.device}")
     if not supports_fused_residual(x.shape, r):
         raise ValueError(f"the residual kernel does not take x {tuple(x.shape)} with R={r}")
-    smem = _lib().res_smem_bytes(r)
+    smem = _lib().res_smem_bytes(c, r, _code(x.dtype))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"R={r} needs {smem} bytes of shared memory per block")
 
@@ -147,36 +191,52 @@ def _stream(x):
 
 
 def _kernel_fwd(x, w1, b1, w2, b2, need_h):
+    """→ (x, y, h) in the route's layout: x as the kernels read it, for
+    the backward to save (h None unless need_h)."""
     b, c, d, hh, w = x.shape
     r = w1.shape[0]
-    w1k = w1.permute(2, 3, 4, 1, 0).reshape(27, c, r).contiguous()
-    w2k = w2.reshape(c, r).t().contiguous()
+    tile = _tile_route(c, r, x.dtype)
+    x = _in_layout(x, tile)
+    if tile:  # w1 (27, R, C), w2 (C, R)
+        w1k = w1.permute(2, 3, 4, 0, 1).reshape(27, r, c).contiguous()
+        w2k = w2.reshape(c, r).contiguous()
+    else:  # w1 (27, C, R), w2 (R, C)
+        w1k = w1.permute(2, 3, 4, 1, 0).reshape(27, c, r).contiguous()
+        w2k = w2.reshape(c, r).t().contiguous()
     y = torch.empty_like(x)
-    h = torch.empty(b, r, d, hh, w, dtype=x.dtype, device=x.device) if need_h else None
+    h = torch.empty(b, r, d, hh, w, dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last_3d if tile else torch.contiguous_format
+                    ) if need_h else None
     err = _lib().res_fwd(
-        b, c, r, d, hh, w, int(x.dtype == torch.bfloat16), x.data_ptr(), w1k.data_ptr(),
+        b, c, r, d, hh, w, _code(x.dtype), x.data_ptr(), w1k.data_ptr(),
         b1.contiguous().data_ptr(), w2k.data_ptr(), b2.contiguous().data_ptr(), y.data_ptr(),
         None if h is None else h.data_ptr(), _stream(x))
     if err:
         raise RuntimeError(f"res_fwd: CUDA error {err}")
     fused_residual_layer.launches += 1
-    return y, h
+    return x, y, h
 
 
 def _kernel_bwd(x, h, y, gy, w1, w2):
+    """→ (dx in the route's layout, dw1, db1, dw2, db2 in f32)."""
     b, c, d, hh, w = x.shape
     r = w1.shape[0]
-    w1t = w1.permute(2, 3, 4, 0, 1).reshape(27, r, c).contiguous()
-    w2k = w2.reshape(c, r).t().contiguous()
-    n_part = b * -(-(d * hh * w) // _CHUNK)
+    tile = _tile_route(c, r, x.dtype)
+    x, h, y, gy = (_in_layout(t, tile) for t in (x, h, y, gy))
+    if tile:  # w1 (27, C, R)
+        w1k = w1.permute(2, 3, 4, 1, 0).reshape(27, c, r).contiguous()
+    else:  # w1 (27, R, C)
+        w1k = w1.permute(2, 3, 4, 0, 1).reshape(27, r, c).contiguous()
+    w2t = w2.reshape(c, r).t().contiguous()
     size = 28 * c * r + r + c
     dx = torch.empty_like(x)
     da = torch.empty_like(h)
-    part = torch.empty(n_part, size, dtype=torch.float32, device=x.device)
+    part = torch.empty(_lib().res_part_floats(b, c, r, d, hh, w, _code(x.dtype), _CHUNK),
+                       dtype=torch.float32, device=x.device)
     out = torch.empty(size, dtype=torch.float32, device=x.device)
     err = _lib().res_bwd(
-        b, c, r, d, hh, w, int(x.dtype == torch.bfloat16), _CHUNK, x.data_ptr(), h.data_ptr(),
-        y.data_ptr(), gy.data_ptr(), w2k.data_ptr(), w1t.data_ptr(), dx.data_ptr(),
+        b, c, r, d, hh, w, _code(x.dtype), _CHUNK, x.data_ptr(), h.data_ptr(),
+        y.data_ptr(), gy.data_ptr(), w2t.data_ptr(), w1k.data_ptr(), dx.data_ptr(),
         da.data_ptr(), part.data_ptr(), out.data_ptr(), _stream(x))
     if err:
         raise RuntimeError(f"res_bwd: CUDA error {err}")
@@ -192,8 +252,11 @@ def _kernel_bwd(x, h, y, gy, w1, w2):
 # ---------------------------------------------------------------------------
 
 
-class _Plain:
-    fwd = staticmethod(lambda x, w1, b1, w2, b2, need_h: residual_layer_plain(x, w1, b1, w2, b2))
+class _Plain:  # either memory format
+    @staticmethod
+    def fwd(x, w1, b1, w2, b2, need_h):
+        return (x, *residual_layer_plain(x, w1, b1, w2, b2))
+
     bwd = staticmethod(residual_layer_bwd_plain)
 
 
@@ -206,19 +269,18 @@ class _Fused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, impl, need_grad):
         dt = x.dtype
-        x = x.contiguous()
+        ctx.fmt, ctx.impl = _memory_format(x), impl
         w1c, w2c = w1.to(dt), w2.to(dt)
-        y, h = impl.fwd(x, w1c, b1.to(dt), w2c, b2.to(dt), need_grad)
+        x, y, h = impl.fwd(x, w1c, b1.to(dt), w2c, b2.to(dt), need_grad)
         if need_grad:  # h is written only when a gradient is wanted
             ctx.save_for_backward(x, h, y, w1c, w2c)
-        ctx.impl = impl
-        return y
+        return y.contiguous(memory_format=ctx.fmt)
 
     @staticmethod
     def backward(ctx, gy):
         x, h, y, w1, w2 = ctx.saved_tensors
-        dx, dw1, db1, dw2, db2 = ctx.impl.bwd(x, h, y, gy.to(x.dtype).contiguous(), w1, w2)
-        return dx, dw1, db1, dw2, db2, None, None
+        dx, dw1, db1, dw2, db2 = ctx.impl.bwd(x, h, y, gy.to(x.dtype), w1, w2)
+        return dx.contiguous(memory_format=ctx.fmt), dw1, db1, dw2, db2, None, None
 
 
 def _apply(impl, x, w1, b1, w2, b2):

@@ -7,11 +7,16 @@ At (B, 128, 80, 112, 80) with C = R = 128, three slim layers:
   - "XLA module stack": the module path, ``models/vqvae.ResidualLayer``
     with the fused kernel off (cuDNN ``F.conv3d`` in bf16, then bias,
     relu and the residual);
+  - "XLA module stack, NDHWC": the same on channels-last volumes (cuDNN's
+    layout downstream of a fused stack in the model);
   - "fused": row 7, ``ops/res_stack.fused_residual_layer``
-    (``csrc/res_stack.cu``), forward and backward kernels;
+    (``csrc/res_stack.cu``), forward and backward kernels, on the memory
+    format the model gives it (``kernel_layout``: channels-last on the
+    tile route);
 
 forward only and forward + backward (d(Σ y²) by autograd, gradients of
-the weights and of x).  Each time is the best of 3 runs of ``--reps``
+the weights and of x); the fused stack's ratio is printed against the
+module stack on either layout.  Each time is the best of 3 runs of ``--reps``
 stacks between CUDA events (the host clock with ``--cpu``, where the
 plain versions run on the host); "exactness" compares the two stacks'
 sums first.
@@ -19,7 +24,7 @@ sums first.
     python -m synthanatomy_tpu_torch.tools.bench_res_stack [--batch=1 --reps=10 --fwd-only]
     python -m synthanatomy_tpu_torch.tools.bench_res_stack --cpu --shape 4,6,4 --reps 1
 
-``main`` returns {(name, with_bwd): ms}.
+``main`` returns {(name, with_bwd): ms} for "module" (NCDHW) and "fused".
 """
 
 from __future__ import annotations
@@ -29,7 +34,11 @@ import argparse
 import torch
 
 from synthanatomy_tpu_torch.models.vqvae import ResidualLayer
-from synthanatomy_tpu_torch.ops.res_stack import fused_residual_layer, supports_fused_residual
+from synthanatomy_tpu_torch.ops.res_stack import (
+    fused_residual_layer,
+    kernel_layout,
+    supports_fused_residual,
+)
 from synthanatomy_tpu_torch.tools._probe_util import device_name, elapsed_s, probe_device
 
 C = R = 128
@@ -74,7 +83,7 @@ def main(argv=None) -> dict:
     # ---- exactness first (kernel vs module, same inputs) ----------------
     with torch.no_grad():
         y_ref = float(module_stack(x).float().sum())
-        y_k = float(fused_stack(x).float().sum())
+        y_k = float(fused_stack(kernel_layout(x, R)).float().sum())
     rel = abs(y_k - y_ref) / (abs(y_ref) + 1e-6)
     print(f"exactness: sum ref={y_ref:.1f} fused={y_k:.1f} rel={rel:.2e}")
 
@@ -82,7 +91,10 @@ def main(argv=None) -> dict:
     params = [t for m in layers for t in (m.conv1.weight, m.conv1.bias, m.conv2.weight,
                                           m.conv2.bias)]
 
-    def timed(name, stack_fn, with_bwd):
+    x_cl = x.contiguous(memory_format=torch.channels_last_3d)
+    x_k = kernel_layout(x, R)  # the model hands its fused stacks this
+
+    def timed(name, stack_fn, with_bwd, x):
         if with_bwd:
             def once():
                 xx = x.detach().requires_grad_()
@@ -103,9 +115,10 @@ def main(argv=None) -> dict:
 
     out = {}
     for with_bwd in ([False] if args.fwd_only else [False, True]):
-        t_x = out[("module", with_bwd)] = timed("XLA module stack", module_stack, with_bwd)
-        t_f = out[("fused", with_bwd)] = timed("fused", fused_stack, with_bwd)
-        print(f"    -> fused vs XLA: {t_x / t_f:.2f}x")
+        t_x = out[("module", with_bwd)] = timed("XLA module stack", module_stack, with_bwd, x)
+        t_cl = timed("XLA module stack, NDHWC", module_stack, with_bwd, x_cl)
+        t_f = out[("fused", with_bwd)] = timed("fused", fused_stack, with_bwd, x_k)
+        print(f"    -> fused vs XLA: {t_x / t_f:.2f}x (NCDHW), {t_cl / t_f:.2f}x (NDHWC)")
     return out
 
 

@@ -570,18 +570,24 @@ def test_vq_kernels_match_plain(cuda, shape):
 
 RES_SHAPES = [  # (B, C, D, H, W, R, dtype)
     (1, 3, 5, 6, 7, 4, torch.float32),
-    (2, 8, 9, 10, 11, 12, torch.bfloat16),
-    (1, 24, 7, 9, 70, 40, torch.bfloat16),
+    (2, 8, 9, 10, 11, 12, torch.bfloat16),  # R 12: the GEMM route
+    (1, 24, 7, 9, 70, 40, torch.bfloat16),  # the tile route, ragged tiles and chunks
     (1, 16, 6, 7, 33, 32, torch.float32),
+    (1, 64, 5, 6, 11, 128, torch.bfloat16),  # the tile route, C != R
+    (1, 136, 4, 5, 6, 64, torch.bfloat16),  # C 136: the GEMM route
+    (2, 128, 9, 10, 11, 64, torch.bfloat16),  # the tile route, B2, C > R
+    (3, 128, 9, 10, 17, 128, torch.bfloat16),  # the tile route, dW1 chunks across volumes
     (1, 128, 80, 112, 80, 128, torch.bfloat16),  # the paper shape
 ]
+RES_FORMATS = {"ncdhw": torch.contiguous_format, "ndhwc": torch.channels_last_3d}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", RES_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
-def test_residual_kernels_match_plain(cuda, shape):
-    """The forward on the same inputs; the backward on the same saved x,
-    h, y and gy; two backward runs bit-identical."""
+def _tile_route_expected(c, r, dtype):
+    """csrc/res_plan.h: bf16 with C and R multiples of 8 up to 128."""
+    return dtype == torch.bfloat16 and all(8 <= n <= 128 and n % 8 == 0 for n in (c, r))
+
+
+def _res_case(shape, cuda, fmt):
     *xs, r, dtype = shape
     gen = torch.Generator(device=cuda).manual_seed(sum(xs) + r)
     c = xs[1]
@@ -591,8 +597,22 @@ def test_residual_kernels_match_plain(cuda, shape):
     w2 = (torch.randn(c, r, 1, 1, 1, generator=gen, device=cuda) * r ** -0.5).to(dtype)
     b2 = (torch.randn(c, generator=gen, device=cuda) * 0.1).to(dtype)
     gy = torch.randn(*xs, generator=gen, device=cuda).to(dtype)
+    fmt = RES_FORMATS[fmt]
+    return (x.contiguous(memory_format=fmt), w1, b1, w2, b2,
+            gy.contiguous(memory_format=fmt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", list(RES_FORMATS))
+@pytest.mark.parametrize("shape", RES_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_residual_kernels_match_plain(cuda, shape, fmt):
+    """The forward on the same inputs; the backward on the same saved x,
+    h, y and gy; two backward runs bit-identical; in either memory format
+    of x (the kernels convert what is not in their layout)."""
+    x, w1, b1, w2, b2, gy = _res_case(shape, cuda, fmt)
+    dtype = x.dtype
     before = trs.fused_residual_layer.launches
-    yk, hk = trs._kernel_fwd(x, w1, b1, w2, b2, True)
+    _, yk, hk = trs._kernel_fwd(x, w1, b1, w2, b2, True)
     assert trs.fused_residual_layer.launches == before + 1
     yp, hp = trs.residual_layer_plain(x, w1, b1, w2, b2)
     _assert_kernel_close(f"res {shape} y", yk, yp, dtype)
@@ -603,6 +623,27 @@ def test_residual_kernels_match_plain(cuda, shape):
         _assert_kernel_close(f"res {shape} {name}", a, b_, dtype)
     again = trs._kernel_bwd(x, hp, yp, gy, w1, w2)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", list(RES_FORMATS))
+@pytest.mark.parametrize("shape", RES_SHAPES[:-1], ids=lambda s: "x".join(map(str, s[:6])))
+def test_residual_route_and_memory_format(cuda, shape, fmt):
+    """The library takes the tile route exactly where the plan says
+    (bf16, C and R multiples of 8 up to 128), and reads its layout
+    (channels-last there, NCDHW on the GEMM route); through autograd, y
+    and dx come back in x's memory format."""
+    x, w1, b1, w2, b2, gy = _res_case(shape, cuda, fmt)
+    c, r = x.shape[1], w1.shape[0]
+    tile = _tile_route_expected(c, r, x.dtype)
+    assert trs._tile_route(c, r, x.dtype) == tile
+    want = torch.channels_last_3d if tile else torch.contiguous_format
+    assert trs.kernel_layout(x, r).is_contiguous(memory_format=want)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    y = trs.fused_residual_layer(*leaves)
+    (dx,) = torch.autograd.grad(y, leaves[:1], gy)
+    for t in (y, dx):
+        assert t.is_contiguous(memory_format=RES_FORMATS[fmt])
 
 
 @pytest.mark.gpu

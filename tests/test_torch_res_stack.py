@@ -131,3 +131,34 @@ def test_support_gate_and_refusals():
                                 torch.zeros(4, device="meta"),
                                 torch.zeros(4, 4, 1, 1, 1, device="meta"),
                                 torch.zeros(4, device="meta"))
+
+
+@pytest.mark.parametrize("dtype,jdtype,tol", [(torch.float32, jnp.float32, 1e-5),
+                                              (torch.bfloat16, jnp.bfloat16, 2e-2)])
+def test_channels_last_input_matches_ncdhw_and_jax(dtype, jdtype, tol):
+    """x in channels-last memory (the format the VQ-VAE hands a fused
+    stack): y, h and the gradients equal the NCDHW call's, agree with
+    JAX's reference at this file's tolerances, and y and dx keep x's
+    memory format."""
+    cl = torch.channels_last_3d
+    x, w1, b1, w2, b2, gy = _make((2, 5, 4, 6, 16), 8, seed=6)
+    args = _to_port(x, w1, b1, w2, b2, dtype)
+    args_cl = (args[0].contiguous(memory_format=cl),) + args[1:]
+    assert args_cl[0].is_contiguous(memory_format=cl) and not args_cl[0].is_contiguous()
+
+    got = _port_grads(rs.fused_residual_layer, args_cl, gy, dtype)
+    ref = _port_grads(rs.fused_residual_layer, args, gy, dtype)
+    want = _jax_grads(jrs.residual_layer_reference, x, w1, b1, w2, b2, gy, jdtype)
+    for name, a, b, w in zip(NAMES, got, ref, want):
+        _close(a, b, tol, name)
+        _close(a, w, tol, name)
+    wc = (args_cl[1].to(dtype), args_cl[2].to(dtype), args_cl[3].to(dtype), args_cl[4].to(dtype))
+    _, h_cl = rs.residual_layer_plain(args_cl[0], *wc)
+    _, h = rs.residual_layer_plain(args[0], *wc)
+    _close(h_cl.float().numpy(), h.float().numpy(), tol, "h")
+
+    leaves = [a.clone().requires_grad_() for a in args_cl]
+    y = rs.fused_residual_layer(*leaves)
+    (dx,) = torch.autograd.grad(y, leaves[:1], torch.ones_like(y))
+    assert y.is_contiguous(memory_format=cl) and dx.is_contiguous(memory_format=cl)
+    assert rs.kernel_layout(args_cl[0], 8) is args_cl[0]  # a CPU tensor stays as it is
