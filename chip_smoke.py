@@ -9,10 +9,11 @@ result, without them.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed),
-   then the SASS of rows 6, 7 and 8 (``cuobjdump -sass``): HMMA or HGMMA
-   in every bf16 instantiation of their kernels, with each kernel's
-   registers, spills and stack (``ptxas -v``) and the dynamic shared
-   memory of their launches;
+   then the SASS of rows 5, 6, 7 and 8 (``cuobjdump -sass``): HMMA or
+   HGMMA in every bf16 instantiation of their kernels (row 5: the
+   chunk-parallel route's state, forward, dq and dk/dv kernels and their
+   probe ablations), with each kernel's registers, spills and stack
+   (``ptxas -v``) and the dynamic shared memory of their launches;
 3. the fused decode kernel against its plain PyTorch version, at paper
    width and at the small test shape, for int8 weights + bf16 rings and
    int4 weights + int8 rings, pre-LayerNorm and ReZero, at t in
@@ -38,7 +39,9 @@ result, without them.  Phases, each fatal on failure:
    the same seeded inputs, at the paper shape (B6, 8 + 8 heads, L 1400,
    d 64, m 256, w 420, bf16) and at awkward small shapes (L not a
    multiple of the chunk or block, L < w, w not a multiple of the
-   block; for local attention also L one off a 64-row tile, w 1, 64, 65
+   block; for FAVOR also the bench's L 1401, the validation prior's m
+   128, L < chunk, exact row-max ties in bf16 and d 128 on the earlier
+   kernels; for local attention also L one off a 64-row tile, w 1, 64, 65
    and ≥ L, d 16 to 128 and d 200): output, dq, dk and dv
    (``_compare_grad``), and two backward runs bit-identical;
 7. the paper training path: ``create_transformer_train_state`` +
@@ -49,12 +52,14 @@ result, without them.  Phases, each fatal on failure:
    one step through the kernels against the same step through the plain
    versions (loss, gradients), then a few steps on a repeated batch with
    a projection redraw: finite losses, a lower loss after than at step 0,
-   and exactly 24 layers x 3 launches of each kernel per step;
+   and exactly 24 layers x 7 launches of row 5 (forward: state, scan,
+   consumer; backward: state, scan, dq, dk/dv) and 24 x 3 of row 6 per
+   step;
 8. timings on the card: train step kernels vs plain (ms, tokens/s, peak
-   memory), forward + backward of each kernel vs its plain version (row 6
-   also forward and backward alone, each in turns with SDPA with the
-   banded mask, read as elapsed time and as device time, beside its
-   bound and useful TFLOP/s), and a
+   memory), forward, backward and forward + backward of rows 5 and 6 vs
+   their plain versions (row 6 each in turns with SDPA with the banded
+   mask), read as elapsed time and as device time, beside each bound
+   and useful TFLOP/s (row 5's counted by ``_favor_flops``), and a
    torch.profiler breakdown of one kernel step;
 9. the stage-1 kernels against their plain versions on the same seeded
    inputs: the VQ argmin and argmin + EMA statistics at the paper shape
@@ -181,7 +186,7 @@ INT8_GEMV = [(16, 512, 1024), (16, 1024, 512), (16, 512, 2048), (16, 2048, 512)]
 INT8_AWKWARD = [(1, 512, 1024), (5, 200, 96), (33, 512, 1000), (16, 200, 1000)]
 TRAIN_BATCH = 6  # the paper batch of tools/bench_transformer.py
 TRAIN_STEPS = 5
-LAUNCHES_PER_STEP = 24 * 3  # per kernel family: forward + two backward launches per layer
+LAUNCHES_PER_STEP = 24 * 3  # row 6: forward + two backward launches per layer
 VQ_BATCH = 3  # the stage-1 batch (synthanatomy_tpu/config.py batch_size)
 VQ_STEPS = 4
 VOLUME = (160, 224, 160)
@@ -196,10 +201,15 @@ BENCH_BANDED = ["--pallas-local"] + BENCH_SPLASH[1:]
 BENCH_STEPS = ["--steps", "4", "--warmup", "1"]  # + the first step: 6 steps a run
 PROBE_REPS = 20  # launches per measurement of the kernel-body probe (min of 5)
 SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two backward launches
-# the row 6, 7 and 8 kernels whose bf16 instantiations must hold
+# the row 5, 6, 7 and 8 kernels whose bf16 instantiations must hold
 # tensor-core instructions (phase 2b); row 7's tile-route kernels
-# (res_tile_*) are bf16 only
+# (res_tile_*) are bf16 only; row 5's scan has no product
+FAVOR_ROUTE_KERNELS = ("favor_state_kernel", "favor_fwd_kernel", "favor_dq_kernel",
+                       "favor_dkv_kernel")
 TENSOR_CORE_KERNELS = {
+    "favor_attention": FAVOR_ROUTE_KERNELS,
+    "favor_probe_idfeat": FAVOR_ROUTE_KERNELS,
+    "favor_probe_nomask": FAVOR_ROUTE_KERNELS,
     "local_attention": ("local_fwd_kernel", "local_bwd_dq_kernel", "local_bwd_dkv_kernel"),
     "local_attention_splash": ("splash_fwd_kernel", "splash_dq_kernel", "splash_dkv_kernel"),
     "res_stack": ("res_fwd_kernel", "res_bwd_dx_kernel", "res_bwd_dw1_kernel",
@@ -214,15 +224,17 @@ def _require(cond, msg):
 
 
 def _check_sass():
-    """Phase 2b: every bf16 instantiation of the row 6 (tile form), row 7
-    and row 8 kernels runs its products on the tensor cores: HMMA or
-    HGMMA in its SASS (``cuobjdump -sass``).  Prints each kernel's
-    tensor-core instructions, registers, spills and stack from ``ptxas
-    -v``, and the dynamic shared memory the launches ask for.  Row 6's
-    band form (d > 128, the earlier FMA kernels), row 7's f32
-    instantiations and partial sums, and splash's dq reduction (no
-    product) are listed without the requirement."""
+    """Phase 2b: every bf16 instantiation of the row 5 (chunk-parallel
+    route), row 6 (tile form), row 7 and row 8 kernels runs its products
+    on the tensor cores: HMMA or HGMMA in its SASS (``cuobjdump -sass``).
+    Prints each kernel's tensor-core instructions, registers, spills and
+    stack from ``ptxas -v``, and the dynamic shared memory the launches
+    ask for.  Row 5's one-block-per-head kernels (d above 64, m above 256)
+    and its scan, row 6's band form (d > 128, the earlier FMA kernels),
+    row 7's f32 instantiations and partial sums, and splash's dq reduction
+    (no product) are listed without the requirement."""
     from synthanatomy_tpu_torch import _build
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
     from synthanatomy_tpu_torch.ops import local_attention_flash as lf
     from synthanatomy_tpu_torch.ops import local_attention_splash as ls
     from synthanatomy_tpu_torch.ops import res_stack as rs
@@ -247,6 +259,11 @@ def _check_sass():
         print(f"[smem] {dtype} at d 64, w 420: row 6's largest kernel "
               f"{lf._lib().local_smem_bytes(64, 420, code)} B of dynamic shared memory, splash's "
               f"{ls._lib().splash_smem_bytes(code)} B")
+    for dtype, code in (("bfloat16", 1), ("float32", 0)):
+        launches = {name: fa._lib().favor_launch_smem(kind, 256, code)
+                    for name, kind in (("state", 0), ("forward", 2), ("dq", 3), ("dk/dv", 4))}
+        print(f"[smem] row 5 {dtype} at m 256: " + ", ".join(
+            f"{name} {b} B ({233472 // (b + 1024)} blocks an SM)" for name, b in launches.items()))
     print(f"[smem] row 7 at C = R = 128: bf16 (tile route: {bool(rs._lib().res_route(128, 128, 1))}) "
           f"{rs._lib().res_smem_bytes(128, 128, 1)} B, f32 (GEMM route) "
           f"{rs._lib().res_smem_bytes(128, 128, 0)} B of dynamic shared memory, largest launch")
@@ -401,6 +418,52 @@ def _attention_inputs(shape, dtype, seed, dev):
     return q.to(dtype), k.to(dtype), (v * 0.5).to(dtype), g
 
 
+def _favor_tie_inputs(shape, m, dev):
+    """Row 5 inputs whose every product is exact (d 16, so dn = 1/2;
+    small integers times powers of two), with projection rows 0 and 1
+    equal and the longest and every query along them: each row's max over
+    features is an exact tie, which the kernel and the plain version both
+    see and split its cotangent over."""
+    import numpy as np
+    import torch
+
+    b, h, n, d = shape
+    rng = np.random.default_rng(n + m)
+    p = rng.integers(-2, 3, size=(m, d)).astype(np.float32) * 0.25
+    p[0] = p[1] = 1.0
+    q = (0.25 * (4.0 + rng.integers(0, 3, size=(b, h, n, 1)))
+         + 0.125 * rng.integers(-1, 2, size=(b, h, n, d)))
+    k, v, g = (s * rng.integers(-3, 4, size=(b, h, n, d)) for s in (0.125, 0.25, 0.25))
+    t = [torch.tensor(x, dtype=torch.float32, device=dev).to(torch.bfloat16) for x in (q, k, v)]
+    proj = torch.tensor(p, device=dev)
+    u = (t[0].float() * 0.5).to(torch.bfloat16).float() @ proj.to(torch.bfloat16).float().T
+    _require(bool((u[..., 0] == u[..., 1]).all() and (u.argmax(-1) <= 1).all()),
+             "the tie inputs hold no tie")
+    return (*t, torch.tensor(g, dtype=torch.float32, device=dev), proj)
+
+
+def _favor_flops(b, h, n, d, m, chunk):
+    """(forward, backward) FLOP of row 5's chunked algorithm at this
+    shape: the products it needs (2 FLOP a multiply-add), each chunk of c
+    rows (the last one ragged) with p = c(c+1)/2 causal pairs, the
+    features recomputed in the backward as the TPU kernel does.
+    Forward: U = rnd(x·dn)·rnd(P)ᵀ for q and k (2 · 2cdm), qc·kcᵀ over
+    the pairs (2pm), rnd(scores)·v (2pd), qc·rnd(S) (2cmd), qc·rnd(z)
+    (2cm), the chunk's own kcᵀ·v (2cmd).  Backward: U for q and k (2 ·
+    2cdm), the scores again for dv (2pm), ds = rnd(dnum)·vᵀ (2pd), dq_p =
+    rnd(ds)·kc (2pm) + rnd(dnum)·rnd(S)ᵀ (2cdm), dk_p = rnd(ds)ᵀ·qc (2pm) +
+    v·rnd(dS)ᵀ (2cdm), dv = rnd(scores)ᵀ·rnd(dnum) (2pd) + kc·rnd(dS)
+    (2cdm), dq = rnd(du)·rnd(P) and dk = rnd(dE)·rnd(P) (2 · 2cmd), the
+    chunk's own kcᵀ·v and qcᵀ·rnd(dnum) (2 · 2cmd)."""
+    fwd = bwd = 0
+    for c0 in range(0, n, chunk):
+        c = min(chunk, n - c0)
+        p = c * (c + 1) // 2
+        fwd += 2 * (4 * c * d * m + p * (m + d) + c * m)
+        bwd += 2 * (9 * c * d * m + p * (3 * m + 2 * d))
+    return b * h * fwd, b * h * bwd
+
+
 def _check_training_kernels(dev):
     """Phase 6; returns {kernel: max abs err at the paper shape}."""
     import torch
@@ -411,7 +474,13 @@ def _check_training_kernels(dev):
     bf16, f32 = torch.bfloat16, torch.float32
     favor_shapes = [("paper", (6, 8, 1400, 64), 256, 128, bf16),
                     ("L % chunk != 0", (1, 2, 37, 16), 32, 16, f32),
-                    ("L % chunk != 0, bf16", (2, 3, 300, 64), 256, 128, bf16)]
+                    ("L % chunk != 0, bf16", (2, 3, 300, 64), 256, 128, bf16),
+                    ("the bench's L 1401", (6, 8, 1401, 64), 256, 128, bf16),
+                    ("the validation prior's m 128", (8, 2, 1400, 64), 128, 128, bf16),
+                    ("L < chunk", (1, 2, 100, 64), 256, 128, bf16),
+                    ("m 128, chunk 64, f32", (1, 2, 100, 64), 128, 64, f32),
+                    ("row-max ties, bf16", (2, 2, 300, 16), 256, 128, "ties"),
+                    ("d 128 (the earlier kernels)", (1, 2, 70, 128), 64, 32, f32)]
     local_shapes = [("paper", (6, 8, 1400, 64), 420, bf16),
                     ("L < w", (1, 2, 20, 16), 40, bf16),
                     ("w % block != 0", (2, 2, 100, 64), 45, bf16),
@@ -431,10 +500,18 @@ def _check_training_kernels(dev):
                     ("d 200 (band form)", (1, 1, 100, 200), 37, bf16)]
     errs = {"favor": 0.0, "local": 0.0}
     for label, shape, m, chunk, dtype in favor_shapes:
-        q, k, v, g = _attention_inputs(shape, dtype, shape[2], dev)
-        proj = gaussian_orthogonal_random_matrix(
-            m, shape[-1], generator=torch.Generator().manual_seed(1)).to(dev)
+        if dtype == "ties":
+            q, k, v, g, proj = _favor_tie_inputs(shape, m, dev)
+            dtype = bf16
+        else:
+            q, k, v, g = _attention_inputs(shape, dtype, shape[2], dev)
+            proj = gaussian_orthogonal_random_matrix(
+                m, shape[-1], generator=torch.Generator().manual_seed(1)).to(dev)
+        before = fa.favor_attention_fused.launches
         got = _fwd_bwd(lambda *x: fa.favor_attention_fused(*x, proj, chunk), q, k, v, g)
+        torch.cuda.synchronize()
+        _require(fa.favor_attention_fused.launches - before == fa.launches_per_call(q, proj, chunk),
+                 f"favor {label}: {fa.favor_attention_fused.launches - before} launches")
         want = _fwd_bwd(lambda *x: fa.favor_attention_fused_plain(*x, proj, chunk), q, k, v, g)
         torch.cuda.synchronize()
         err = max(_compare_grad(f"favor {label} {n}", a, b)
@@ -445,8 +522,10 @@ def _check_training_kernels(dev):
         if label == "paper":
             errs["favor"] = err
         print(f"[check] favor_attention_fused == plain ({label}: {tuple(shape)}, m {m}, "
-              f"chunk {chunk}, {str(dtype)[6:]}): out/dq/dk/dv max abs err {err:.3e} (tol "
-              f"2e-2 of max |plain|, 1e-2 in norm); two runs bit-identical")
+              f"chunk {chunk}, {str(dtype)[6:]}, "
+              f"{'chunk-parallel route' if fa.launches_per_call(q, proj, chunk) == 7 else 'one block per head'}, "
+              f"{fa.launches_per_call(q, proj, chunk)} launches): out/dq/dk/dv max abs err "
+              f"{err:.3e} (tol 2e-2 of max |plain|, 1e-2 in norm); two runs bit-identical")
     for label, shape, w, dtype in local_shapes:
         q, k, v, g = _attention_inputs(shape, dtype, shape[2] + w, dev)
         got = _fwd_bwd(lambda *x: lf.local_attention_flash_core(*x, w), q, k, v, g)
@@ -569,6 +648,49 @@ def _turns(kernel, plain, library, reps):
         out.update({pre + "ms": (k1 + k2) / 2, pre + "plain_ms": (p1 + p2) / 2,
                     pre + "library_ms": (y1 + y2) / 2, pre + "each": (p1, k1, y1, y2, k2, p2)})
     return out
+
+
+def _time_favor(smi, q, k, v, g, proj, fwd_bwd_pair):
+    """Phase 8's row 5 at the paper shape (chunk 128): forward, backward
+    and both, each in turns with its plain version (plain, kernel, kernel,
+    plain), read as elapsed time (``_time_ms``) and as device time
+    (``_device_ms``), beside its bound (``_favor_flops``; bytes: q, k, v
+    and g read once, out, den, dq, dk and dv written) and the useful
+    TFLOP/s.  No single PyTorch call computes it."""
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+
+    chunk = 128
+    gb = g.to(q.dtype)
+    out, den = fa._kernel_fwd(q, k, v, proj, chunk)
+    fwd_flops, bwd_flops = _favor_flops(*q.shape, proj.shape[0], chunk)
+    io, o32 = _nbytes(q), _nbytes(q) * 2  # a (B, H, L, d) bf16 tensor, and one in f32
+    fb_kernel, fb_plain = fwd_bwd_pair
+    cases = {
+        "fwd": (lambda: fa._kernel_fwd(q, k, v, proj, chunk),
+                lambda: fa._Plain.fwd(q, k, v, proj, chunk), fwd_flops,
+                3 * io + _nbytes(proj) + o32 + _nbytes(den)),
+        "bwd": (lambda: fa._kernel_bwd(q, k, v, proj, gb, out, den, chunk),
+                lambda: fa._Plain.bwd(q, k, v, proj, gb, out, den, chunk), bwd_flops,
+                4 * io + _nbytes(proj) + o32 + _nbytes(den) + 3 * o32),
+        "fwd+bwd": (fb_kernel, fb_plain, fwd_flops + bwd_flops,
+                    4 * io + _nbytes(proj) + 4 * o32),
+    }
+    res = {}
+    for name, (kern, plain, flops, nbytes) in cases.items():
+        r = res[name] = {"flops": flops, "bound": _bound(flops, nbytes, PEAK_BF16)}
+        for pre, timer in (("", _time_ms), ("dev_", _device_ms)):
+            p1, k1, k2, p2 = timer(plain, 2), timer(kern, 10), timer(kern, 10), timer(plain, 2)
+            r.update({pre + "ms": (k1 + k2) / 2, pre + "plain_ms": (p1 + p2) / 2,
+                      pre + "each": (p1, k1, k2, p2)})
+        for pre, how in (("", "elapsed"), ("dev_", "device time")):
+            p1, k1, k2, p2 = r[pre + "each"]
+            print(f"[time] row 5 {name} ({how}), B{q.shape[0]} x {q.shape[1]} heads x L{q.shape[2]}"
+                  f" x d{q.shape[3]}, m {proj.shape[0]}, chunk {chunk}, bf16: kernel "
+                  f"{r[pre + 'ms']:.4f} ms ({k1:.4f}, {k2:.4f}), "
+                  f"{flops / r[pre + 'ms'] / 1e9:.1f} useful TFLOP/s ({flops / 1e9:.2f} GFLOP); "
+                  f"plain {r[pre + 'plain_ms']:.3f} ms ({p1:.3f}, {p2:.3f}); bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  [{smi}]")
+    return res
 
 
 def _time_local(dev, smi, q, k, v, g, fwd_bwd_pair):
@@ -1804,7 +1926,6 @@ def _check_kernel_body(dev, smi):
     q, k, v, gy = (torch.randn(B, H, L, D, generator=g, device=dev).mul(0.5).to(torch.bfloat16)
                    for _ in range(4))
     proj = torch.full((M, D), 0.05, device=dev)
-    bhld = B * H * L * D
     pairs = sum(min(i + 1, W) for i in range(L))
     i_, j_ = torch.arange(L, device=dev)[:, None], torch.arange(L, device=dev)[None, :]
     band = (j_ <= i_) & (j_ > i_ - W)
@@ -1837,10 +1958,10 @@ def _check_kernel_body(dev, smi):
         # five products (scores, dP, dq, dk, dv) over q, k, v, g read and
         # dq, dk, dv written
         "local_bwd": _bound(10 * B * H * pairs * D, 7 * io, PEAK_BF16),
-        # row 5's count at this shape (phase 8): q, k, v, g read, out, den,
-        # dq, dk, dv written in f32
-        "favor": _bound(24 * bhld * M, 4 * io + _nbytes(proj) + 8 * io + B * H * L * 4,
-                        PEAK_BF16),
+        # row 5's products at this shape (_favor_flops, phase 8's count): q,
+        # k, v, g read, out, den, dq, dk, dv written in f32
+        "favor": _bound(sum(_favor_flops(B, H, L, D, M, CH)),
+                        4 * io + _nbytes(proj) + 8 * io + B * H * L * 4, PEAK_BF16),
     }
     out = {
         "kernel_body_local_fwd": (lf_n, rows["local_fwd"]["err"], rows["local_fwd"]["s"] * 1e3,
@@ -2155,8 +2276,12 @@ def main() -> int:
     torch.cuda.synchronize()
     train_launches = {"favor": fa.favor_attention_fused.launches,
                       "local": lf.local_attention_flash.launches}
-    want = TRAIN_STEPS * LAUNCHES_PER_STEP
-    for name, got in train_launches.items():
+    # row 5's launches a layer at the paper shape, from the library's plan
+    favor_per_step = 24 * fa.launches_per_call(
+        torch.empty(1, 1, 1, 64, dtype=torch.bfloat16, device=dev),
+        model.blocks[0].attn.projection, model.blocks[0].attn.scan_chunk)
+    for name, got, want in (("favor", train_launches["favor"], TRAIN_STEPS * favor_per_step),
+                            ("local", train_launches["local"], TRAIN_STEPS * LAUNCHES_PER_STEP)):
         _require(got == want, f"{name} kernel: {got} launches in {TRAIN_STEPS} steps, "
                               f"want {want}")
     _require(not torch.equal(proj0, model.blocks[0].attn.projection), "no redraw")
@@ -2166,8 +2291,9 @@ def main() -> int:
     _require(final < losses[0], f"loss did not fall: {losses} then {final}")
     print(f"[train] paper prior B{TRAIN_BATCH} x {SEQ} tokens, bf16, {TRAIN_STEPS} steps "
           f"(redraw every 2): losses {[round(x, 4) for x in losses]}, after {final:.4f}; "
-          f"launches per step favor {train_launches['favor'] // TRAIN_STEPS}, local "
-          f"{train_launches['local'] // TRAIN_STEPS} (24 layers x fwd + 2 bwd)")
+          f"launches per step favor {train_launches['favor'] // TRAIN_STEPS} (24 layers x 3 "
+          f"fwd + 4 bwd), local {train_launches['local'] // TRAIN_STEPS} (24 layers x fwd + 2 "
+          f"bwd)")
 
     # 8. timings
     tokens = TRAIN_BATCH * SEQ
@@ -2212,12 +2338,8 @@ def main() -> int:
                                    q, k, v, g)),
     }
     ktimes = {}
-    kern, plain = pairs["favor"]
-    p1, k1, k2, p2 = _time_ms(plain, 3), _time_ms(kern, 5), _time_ms(kern, 5), _time_ms(plain, 3)
-    ktimes["favor"] = ((k1 + k2) / 2, (p1 + p2) / 2)
-    print(f"[time] favor fwd+bwd, B{TRAIN_BATCH} x 8 heads x L{SEQ} x d64 bf16 (one layer): "
-          f"kernel {ktimes['favor'][0]:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
-          f"{ktimes['favor'][1]:.3f} ms ({p1:.3f}, {p2:.3f})  [{smi}]")
+    favor = _time_favor(smi, q, k, v, g, proj, pairs["favor"])
+    ktimes["favor"] = (favor["fwd+bwd"]["ms"], favor["fwd+bwd"]["plain_ms"])
     local = _time_local(dev, smi, q, k, v, g, pairs["local"])
     ktimes["local"] = (local["fwd+bwd"]["ms"], local["fwd+bwd"]["plain_ms"])
 
@@ -2240,9 +2362,7 @@ def main() -> int:
 
     # bounds of the training kernels at the timed shape; the library call
     # beside local attention: SDPA with the banded causal mask
-    bhld = TRAIN_BATCH * 8 * SEQ * 64
-    io = _nbytes(q, k, v, g) * 2  # q, k, v, g read; out, dq, dk, dv written
-    favor_bound = _bound(24 * bhld * 256, io + _nbytes(proj), PEAK_BF16)
+    favor_bound = favor["fwd+bwd"]["bound"]
     local_bound, sdpa_ms = local["fwd+bwd"]["bound"], local["fwd+bwd"]["library_ms"]
     print(f"[time] bounds: favor {favor_bound[0]:.4f} ms ({favor_bound[1]}), local "
           f"{local_bound[0]:.4f} ms ({local_bound[1]})  [{smi}]")

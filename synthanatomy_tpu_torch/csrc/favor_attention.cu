@@ -1,5 +1,5 @@
 // Causal FAVOR+ attention with fused softmax-kernel feature maps, for
-// Hopper (sm_90a): forward, and the two-sweep backward.
+// Hopper (sm_90a): forward, and the backward's dq and dk/dv.
 //
 // Replaces the TPU kernels of synthanatomy_tpu/ops/favor_pallas.py:
 // _fwd_kernel (:148), _bwd_dq_kernel (:180) and _bwd_dkv_kernel (:218),
@@ -7,36 +7,28 @@
 // points; the plain PyTorch twin is ops/favor_attention.py
 // (favor_fwd_plain, favor_bwd_plain).
 //
-// Per (batch·head) row block of L rows, walked in chunks of `chunk`:
-//   features  φ(x) = r·(exp(x·dn·Pᵀ − ‖x‖²·dn²/2 − stab) + ε), with the
-//             row max over features as the query stabilizer and zero
-//             for keys; x·dn and P rounded to T for the product;
-//   forward   out = (tril(qc·kcᵀ)·v + qc·S) / max(den, 1e-12), with the
-//             f32 carry S (m x d) and z (m) rounded to T only where they
-//             enter a product; den is saved for the backward;
-//   dq sweep  forward order, recomputing the prefix (S, z);
-//   dkv sweep reverse order, carrying the suffix (Σ qcᵀ·dnum, Σ qp·gd).
+// Two routes, chosen from the shape by favor_plan.h (tile_route):
+//   - the chunk-parallel route (favor_core.cuh): d a multiple of 8 up to
+//     64 and m up to 256, every shape of the port's models.  Forward: a
+//     state launch, the scan, the consumer (3 launches); backward: the
+//     state launch (keys and queries), the scan of both directions, dq,
+//     dk/dv (4).  bf16 products on the tensor cores.
+//   - the earlier kernels below (head_*_kernel) for the rest (d above 64,
+//     m above 256, d not a multiple of 8): one block per (batch, head)
+//     walking the chunks, the carry S (or dS) and z in shared memory, the
+//     per-chunk tiles (features, scores, cotangents; ~0.7 MB per head) in
+//     a global workspace that stays in L2, products as f32 FMAs over
+//     staged tiles (block_gemm.cuh); forward 1 launch, backward 2.
 // Rows past L are absent: the TPU kernel pads them with zeros, and such
 // rows change no real output or gradient.
 //
-// What bounds it on the card: at the paper shape (48 rows of heads, L
-// 1400, d 64, m 256) a layer's forward is ~0.3 GFLOP per head, backward
-// ~3x, so operations, not bytes.  This first version is the simple
-// design: one block per (batch, head) walking the chunks, the carry S
-// (or dS) and z in shared memory, and the per-chunk tiles (features,
-// scores, cotangents; ~0.7 MB per head) in a global workspace that stays
-// in L2.  Products are f32 FMAs over staged tiles (block_gemm.cuh), so
-// the kernel runs on 48 of 132 SMs and off the tensor cores; wgmma, TMA
-// and splitting a head across blocks are later work.
-//
-// probe_*_kernel are the same bodies under compile-time ablations: they
-// replace the TPU probe tools/probe_kernel_body.py::favor_variant
-// (:264), which patches _features and _tri of favor_pallas.py; wrappers
-// in ops/kernel_body.py.
+// The kernel-body probe's ablations of the route's kernels are built from
+// favor_core.cuh by favor_probe_idfeat.cu and favor_probe_nomask.cu.
 
 #include <stdint.h>
 
 #include "block_gemm.cuh"
+#include "favor_core.cuh"
 
 using sa::from_f;
 using sa::rnd;
@@ -50,17 +42,6 @@ using G = sa::Gemm<64, 64>;
 constexpr int kThreads = G::kThreads;  // 256
 constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-4f;  // the feature map's epsilon
-
-// Bodies of the kernel-body probe (ops/kernel_body.py), compile-time
-// ablations of the three kernels; the production kernels instantiate
-// kFull.  kIdFeat: the features are the raw products U = x·rnd(P)ᵀ (the
-// TPU probe's patched _features: no d^-1/4 scale and no diag/max/exp
-// chain, so query_exp and key_exp are skipped; the backward's chain
-// through φ runs with e = U, as that patch hands it); kNoMask: the
-// causal j <= i selects are unconditional.
-namespace FavorBody {
-enum { kFull = 0, kIdFeat, kNoMask };
-}
 
 struct Dims {
   int n, d, m, chunk;
@@ -79,7 +60,7 @@ __host__ __device__ inline int stage_offset(int d, int m, int chunk, int rows) {
 }
 
 // U (c x m) = rnd(x·dn) · rnd(P)ᵀ, x the chunk's c rows (kIdFeat: x · rnd(P)ᵀ)
-template <class T, int Body>
+template <class T>
 __device__ void feature_dash(const Dims& D, int c, const T* x, const float* P, float* U,
                              float* stage) {
   const int d = D.d, m = D.m;
@@ -87,8 +68,7 @@ __device__ void feature_dash(const Dims& D, int c, const T* x, const float* P, f
   G::run<true, true>(
       c, m, d,
       [&](int i, int k) {
-        if constexpr (Body == FavorBody::kIdFeat) return to_f(x[i * d + k]);
-        else return rnd<T>(to_f(x[i * d + k]) * dn);
+        return rnd<T>(to_f(x[i * d + k]) * dn);
       },
       [&](int k, int f) { return rnd<T>(P[f * d + k]); },
       [&](int i, int f, float acc) { U[i * m + f] = acc; }, stage);
@@ -155,7 +135,7 @@ __device__ void out_cotangent(const Dims& D, int c, const T* g, const float* out
 }
 
 // DS (c x c) = tril(rnd(dnum)·vᵀ + gd)
-template <class T, int Body>
+template <class T>
 __device__ void dscores(const Dims& D, int c, const float* DNUM, const T* v, const float* gd,
                         float* DS, float* stage) {
   const int d = D.d, ch = D.chunk;
@@ -163,7 +143,7 @@ __device__ void dscores(const Dims& D, int c, const float* DNUM, const T* v, con
       c, c, d, [&](int i, int e) { return rnd<T>(DNUM[i * d + e]); },
       [&](int e, int j) { return to_f(v[j * d + e]); },
       [&](int i, int j, float acc) {
-        DS[i * ch + j] = (Body == FavorBody::kNoMask || j <= i) ? acc + gd[i] : 0.f;
+        DS[i * ch + j] = j <= i ? acc + gd[i] : 0.f;
       },
       stage);
 }
@@ -186,7 +166,7 @@ __device__ void prefix_update(const Dims& D, int c, const float* KP, const T* v,
 }
 
 // One block's forward sweep over the (batch·head) row bh.
-template <class T, int Body>
+template <class T>
 __device__ __forceinline__ void favor_fwd_body(const Dims& D, long long bh,
                                                const T* __restrict__ q,
                                                const T* __restrict__ k,
@@ -216,18 +196,16 @@ __device__ __forceinline__ void favor_fwd_body(const Dims& D, long long bh,
     const T* qc = q + c0 * d;
     const T* kc = k + c0 * d;
     const T* vc = v + c0 * d;
-    feature_dash<T, Body>(D, c, qc, P, U, stage);
-    feature_dash<T, Body>(D, c, kc, P, KP, stage);
-    if constexpr (Body != FavorBody::kIdFeat) {
-      query_exp<T, true>(D, c, qc, U, U);
-      key_exp<T, true>(D, c, kc, KP);
-    }
+    feature_dash<T>(D, c, qc, P, U, stage);
+    feature_dash<T>(D, c, kc, P, KP, stage);
+    query_exp<T, true>(D, c, qc, U, U);
+    key_exp<T, true>(D, c, kc, KP);
     __syncthreads();
     G::run<true, true>(
         c, c, m, [&](int i, int f) { return rnd<T>(U[i * m + f]); },
         [&](int f, int j) { return rnd<T>(KP[j * m + f]); },
         [&](int i, int j, float acc) {
-          SC[i * ch + j] = (Body == FavorBody::kNoMask || j <= i) ? acc : 0.f;
+          SC[i * ch + j] = j <= i ? acc : 0.f;
         },
         stage);
     // den = Σ_j scores + rnd(qp)·rnd(z)
@@ -258,7 +236,7 @@ __device__ __forceinline__ void favor_fwd_body(const Dims& D, long long bh,
 }
 
 // One block's dq sweep over row bh.
-template <class T, int Body>
+template <class T>
 __device__ __forceinline__ void favor_bwd_dq_body(const Dims& D, long long bh,
                                                   const T* __restrict__ q,
                                                   const T* __restrict__ k,
@@ -282,7 +260,7 @@ __device__ __forceinline__ void favor_bwd_dq_body(const Dims& D, long long bh,
   den += bh * n;
   dq += bh * n * d;
   float* U = work + bh * work_per_bh(ch, d, m);  // q dash (kept: the tie mask)
-  float* E = Body == FavorBody::kIdFeat ? U : U + ch * m;  // e_q
+  float* E = U + ch * m;  // e_q
   float* KP = U + 2 * ch * m;                      // kp
   float* DQ = KP + ch * m;                         // dq_p, then du
   float* DS = DQ + ch * m;                         // chunk x chunk
@@ -296,15 +274,13 @@ __device__ __forceinline__ void favor_bwd_dq_body(const Dims& D, long long bh,
     const T* qc = q + c0 * d;
     const T* kc = k + c0 * d;
     const T* vc = v + c0 * d;
-    feature_dash<T, Body>(D, c, qc, P, U, stage);
-    feature_dash<T, Body>(D, c, kc, P, KP, stage);
-    if constexpr (Body != FavorBody::kIdFeat) {
-      query_exp<T, false>(D, c, qc, U, E);
-      key_exp<T, true>(D, c, kc, KP);
-    }
+    feature_dash<T>(D, c, qc, P, U, stage);
+    feature_dash<T>(D, c, kc, P, KP, stage);
+    query_exp<T, false>(D, c, qc, U, E);
+    key_exp<T, true>(D, c, kc, KP);
     out_cotangent<T>(D, c, g + c0 * d, out + c0 * d, den + c0, DNUM, gd);
     __syncthreads();
-    dscores<T, Body>(D, c, DNUM, vc, gd, DS, stage);
+    dscores<T>(D, c, DNUM, vc, gd, DS, stage);
     // dq_p = rnd(ds)·rnd(kp) + rnd(dnum)·rnd(S)ᵀ + gd·z
     G::run<true, false>(
         c, m, c, [&](int i, int j) { return rnd<T>(DS[i * ch + j]); },
@@ -348,7 +324,7 @@ __device__ __forceinline__ void favor_bwd_dq_body(const Dims& D, long long bh,
 }
 
 // One block's reverse dk/dv sweep over row bh.
-template <class T, int Body>
+template <class T>
 __device__ __forceinline__ void favor_bwd_dkv_body(const Dims& D, long long bh,
                                                    const T* __restrict__ q,
                                                    const T* __restrict__ k,
@@ -389,26 +365,21 @@ __device__ __forceinline__ void favor_bwd_dkv_body(const Dims& D, long long bh,
     const T* kc = k + c0 * d;
     const T* vc = v + c0 * d;
     const T* gc = g + c0 * d;
-    feature_dash<T, Body>(D, c, qc, P, QP, stage);
-    feature_dash<T, Body>(D, c, kc, P, EK, stage);
-    if constexpr (Body != FavorBody::kIdFeat) {
-      query_exp<T, true>(D, c, qc, QP, QP);
-      key_exp<T, false>(D, c, kc, EK);
-    }
+    feature_dash<T>(D, c, qc, P, QP, stage);
+    feature_dash<T>(D, c, kc, P, EK, stage);
+    query_exp<T, true>(D, c, qc, QP, QP);
+    key_exp<T, false>(D, c, kc, EK);
     out_cotangent<T>(D, c, gc, out + c0 * d, den + c0, DNUM, gd);
     __syncthreads();
-    auto kp = [&](int j, int f) {
-      if constexpr (Body == FavorBody::kIdFeat) return rnd<T>(EK[j * m + f]);
-      else return rnd<T>(r * (EK[j * m + f] + kEps));
-    };
+    auto kp = [&](int j, int f) { return rnd<T>(r * (EK[j * m + f] + kEps)); };
     G::run<true, true>(
         c, c, m, [&](int i, int f) { return rnd<T>(QP[i * m + f]); },
         [&](int f, int j) { return kp(j, f); },
         [&](int i, int j, float acc) {
-          SC[i * ch + j] = (Body == FavorBody::kNoMask || j <= i) ? acc : 0.f;
+          SC[i * ch + j] = j <= i ? acc : 0.f;
         },
         stage);
-    dscores<T, Body>(D, c, DNUM, vc, gd, DS, stage);
+    dscores<T>(D, c, DNUM, vc, gd, DS, stage);
     // dk_p = rnd(ds)ᵀ·rnd(qp) + v·rnd(dS)ᵀ + dz  (suffix of later chunks)
     G::run<false, false>(
         c, m, c, [&](int j, int i) { return rnd<T>(DS[i * ch + j]); },
@@ -463,63 +434,33 @@ __device__ __forceinline__ void favor_bwd_dkv_body(const Dims& D, long long bh,
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-favor_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+head_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ P, float* out, float* den,
                  float* work) {
   extern __shared__ float smem[];
-  favor_fwd_body<T, FavorBody::kFull>(D, blockIdx.x, q, k, v, P, out, den, work, smem);
+  favor_fwd_body<T>(D, blockIdx.x, q, k, v, P, out, den, work, smem);
 }
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-favor_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+head_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ P,
                     const T* __restrict__ g, const float* __restrict__ out,
                     const float* __restrict__ den, float* dq, float* work) {
   extern __shared__ float smem[];
-  favor_bwd_dq_body<T, FavorBody::kFull>(D, blockIdx.x, q, k, v, P, g, out, den, dq, work,
+  favor_bwd_dq_body<T>(D, blockIdx.x, q, k, v, P, g, out, den, dq, work,
                                          smem);
 }
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-favor_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
+head_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ P,
                      const T* __restrict__ g, const float* __restrict__ out,
                      const float* __restrict__ den, float* dk, float* dv, float* work) {
   extern __shared__ float smem[];
-  favor_bwd_dkv_body<T, FavorBody::kFull>(D, blockIdx.x, q, k, v, P, g, out, den, dk, dv,
+  favor_bwd_dkv_body<T>(D, blockIdx.x, q, k, v, P, g, out, den, dk, dv,
                                           work, smem);
-}
-
-// The probe's kernels: the same bodies under a FavorBody ablation.
-template <class T, int Body>
-__global__ void __launch_bounds__(kThreads)
-probe_fwd_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ P, float* out, float* den,
-                 float* work) {
-  extern __shared__ float smem[];
-  favor_fwd_body<T, Body>(D, blockIdx.x, q, k, v, P, out, den, work, smem);
-}
-
-template <class T, int Body>
-__global__ void __launch_bounds__(kThreads)
-probe_bwd_dq_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ P,
-                    const T* __restrict__ g, const float* __restrict__ out,
-                    const float* __restrict__ den, float* dq, float* work) {
-  extern __shared__ float smem[];
-  favor_bwd_dq_body<T, Body>(D, blockIdx.x, q, k, v, P, g, out, den, dq, work, smem);
-}
-
-template <class T, int Body>
-__global__ void __launch_bounds__(kThreads)
-probe_bwd_dkv_kernel(Dims D, const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ P,
-                     const T* __restrict__ g, const float* __restrict__ out,
-                     const float* __restrict__ den, float* dk, float* dv, float* work) {
-  extern __shared__ float smem[];
-  favor_bwd_dkv_body<T, Body>(D, blockIdx.x, q, k, v, P, g, out, den, dk, dv, work, smem);
 }
 
 size_t smem_bytes(int d, int m, int chunk, int rows) {
@@ -546,154 +487,114 @@ Dims make_dims(int n, int d, int m, int chunk, float dn, float half_dn2, float d
   return D;
 }
 
-// The probe's launches: which 0 = forward (o1 = out, o2 = den), 1 = dq
-// sweep (o1 = dq), 2 = dk/dv sweep (o1 = dk, o2 = dv).
-template <class T, int Body>
-int probe(int which, const Dims& D, int bh, const void* q, const void* k, const void* v,
-          const float* P, const void* g, const float* out, const float* den, float* o1,
-          float* o2, float* work, cudaStream_t s) {
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tg = static_cast<const T*>(g);
-  if (which == 0) {
-    const size_t smem = smem_bytes(D.d, D.m, D.chunk, 1);
-    auto kern = probe_fwd_kernel<T, Body>;
+template <class T>
+int earlier_bwd(int parts, const Dims& D, int bh, const void* q, const void* k, const void* v,
+                const float* P, const void* g, const float* out, const float* den, float* dq,
+                float* dk, float* dv, float* work, cudaStream_t s) {
+  const size_t smem = smem_bytes(D.d, D.m, D.chunk, 2);
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *tg = static_cast<const T*>(g);
+  if (parts & 1) {
+    auto kern = head_dq_kernel<T>;
     if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, o1, o2, work);
-  } else if (which == 1) {
-    const size_t smem = smem_bytes(D.d, D.m, D.chunk, 2);
-    auto kern = probe_bwd_dq_kernel<T, Body>;
+    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, tg, out, den, dq, work);
+    if (int e = int(cudaGetLastError())) return e;
+  }
+  if (parts & 2) {
+    auto kern = head_dkv_kernel<T>;
     if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, tg, out, den, o1, work);
-  } else {
-    const size_t smem = smem_bytes(D.d, D.m, D.chunk, 2);
-    auto kern = probe_bwd_dkv_kernel<T, Body>;
-    if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, tg, out, den, o1, o2, work);
+    kern<<<bh, kThreads, smem, s>>>(D, tq, tk, tv, P, tg, out, den, dk, dv, work);
   }
   return int(cudaGetLastError());
-}
-
-template <class T>
-int probe(int body, int which, const Dims& D, int bh, const void* q, const void* k,
-          const void* v, const float* P, const void* g, const float* out, const float* den,
-          float* o1, float* o2, float* work, cudaStream_t s) {
-  switch (body) {
-    case FavorBody::kFull:
-      return probe<T, FavorBody::kFull>(which, D, bh, q, k, v, P, g, out, den, o1, o2, work, s);
-    case FavorBody::kIdFeat:
-      return probe<T, FavorBody::kIdFeat>(which, D, bh, q, k, v, P, g, out, den, o1, o2, work,
-                                          s);
-    case FavorBody::kNoMask:
-      return probe<T, FavorBody::kNoMask>(which, D, bh, q, k, v, P, g, out, den, o1, o2, work,
-                                          s);
-  }
-  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace floats a launch needs for `bh` (batch, head) rows.
-long long favor_work_floats(int bh, int chunk, int d, int m) {
-  return bh * work_per_bh(chunk, d, m);
+// 1 where favor_plan.h's chunk-parallel route serves the shape
+// (dtype 0 = f32, 1 = bf16 for q, k, v and g)
+int favor_route(int d, int m, int chunk, int dtype) {
+  return fp::tile_route(d, m, chunk, dtype ? 2 : 4);
 }
 
-// Dynamic shared memory one block needs (bytes); the wrapper refuses
-// shapes above the card's per-block limit.
-long long favor_smem_bytes(int d, int m, int chunk) {
+// Workspace bytes of one forward (bwd 0) or backward (bwd 1) call.
+long long favor_work_bytes(int bh, int n, int d, int m, int chunk, int dtype, int bwd) {
+  if (fp::tile_route(d, m, chunk, dtype ? 2 : 4))
+    return fp::work_bytes(bh, n, chunk, fp::padded_m(m), dtype ? 2 : 4, bwd != 0);
+  return 4LL * bh * work_per_bh(chunk, d, m);
+}
+
+// Dynamic shared memory of the largest launch that serves the shape
+// (bytes); the wrapper refuses shapes above the card's per-block limit.
+long long favor_smem_bytes(int d, int m, int chunk, int dtype) {
+  if (fp::tile_route(d, m, chunk, dtype ? 2 : 4))
+    return fp::route_smem_bytes(dtype ? 2 : 4, fp::padded_m(m));
   return (long long)smem_bytes(d, m, chunk, 2);
 }
 
-// dtype: 0 = f32, 1 = bf16 for q, k, v (and g).  Returns a cudaError_t.
+// Kernel launches of one forward (bwd 0) or backward (bwd 1) call.
+int favor_launches(int d, int m, int chunk, int dtype, int bwd) {
+  if (fp::tile_route(d, m, chunk, dtype ? 2 : 4)) return bwd ? fp::kBwdLaunches : fp::kFwdLaunches;
+  return bwd ? 2 : 1;
+}
+
+// The route's launch `kind` (favor_plan.h: 0 state, 2 forward, 3 dq, 4
+// dk/dv): dynamic shared memory (bytes) at m's padded width.
+long long favor_launch_smem(int kind, int m, int dtype) {
+  return fp::smem_bytes(kind, dtype ? 2 : 4, fp::padded_m(m));
+}
+
+// out (bh, n, d) f32 and den (bh, n) f32.  Returns a cudaError_t.
 int favor_fwd(int bh, int n, int d, int m, int chunk, int dtype, float dn, float half_dn2,
               float dn2, float r, const void* q, const void* k, const void* v, const float* P,
-              float* out, float* den, float* work, void* stream) {
+              float* out, float* den, void* work, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp::tile_route(d, m, chunk, dtype ? 2 : 4)) {
+    const fv::Args A = fv::make_args(bh, n, d, m, chunk, dtype ? 2 : 4, false, dn, half_dn2, dn2,
+                                     r, q, k, v, nullptr, P, nullptr, nullptr, out, den, nullptr,
+                                     nullptr, nullptr, work);
+    return dtype ? fv::run_m<__nv_bfloat16, fv::FavorBody::kFull>(0, 0, A, s)
+                 : fv::run_m<float, fv::FavorBody::kFull>(0, 0, A, s);
+  }
   const Dims D = make_dims(n, d, m, chunk, dn, half_dn2, dn2, r);
   const size_t smem = smem_bytes(d, m, chunk, 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* wk = static_cast<float*>(work);
   if (dtype == 1) {
-    auto kern = favor_fwd_kernel<__nv_bfloat16>;
+    auto kern = head_fwd_kernel<__nv_bfloat16>;
     if (int e = allow_smem(kern, smem)) return e;
     kern<<<bh, kThreads, smem, s>>>(D, static_cast<const __nv_bfloat16*>(q),
                                     static_cast<const __nv_bfloat16*>(k),
-                                    static_cast<const __nv_bfloat16*>(v), P, out, den, work);
+                                    static_cast<const __nv_bfloat16*>(v), P, out, den, wk);
   } else {
-    auto kern = favor_fwd_kernel<float>;
+    auto kern = head_fwd_kernel<float>;
     if (int e = allow_smem(kern, smem)) return e;
     kern<<<bh, kThreads, smem, s>>>(D, static_cast<const float*>(q),
                                     static_cast<const float*>(k),
-                                    static_cast<const float*>(v), P, out, den, work);
+                                    static_cast<const float*>(v), P, out, den, wk);
   }
   return int(cudaGetLastError());
 }
 
-int favor_bwd_dq(int bh, int n, int d, int m, int chunk, int dtype, float dn, float half_dn2,
-                 float dn2, float r, const void* q, const void* k, const void* v, const float* P,
-                 const void* g, const float* out, const float* den, float* dq, float* work,
-                 void* stream) {
-  const Dims D = make_dims(n, d, m, chunk, dn, half_dn2, dn2, r);
-  const size_t smem = smem_bytes(d, m, chunk, 2);
+// The backward: dq (parts bit 0) and dk, dv (bit 1), each (bh, n, d) f32,
+// from g in the compute dtype and the forward's out and den.
+int favor_bwd(int parts, int bh, int n, int d, int m, int chunk, int dtype, float dn,
+              float half_dn2, float dn2, float r, const void* q, const void* k, const void* v,
+              const float* P, const void* g, const float* out, const float* den, float* dq,
+              float* dk, float* dv, void* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    auto kern = favor_bwd_dq_kernel<T>;
-    if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, static_cast<const T*>(q), static_cast<const T*>(k),
-                                    static_cast<const T*>(v), P, static_cast<const T*>(g), out,
-                                    den, dq, work);
-  } else {
-    using T = float;
-    auto kern = favor_bwd_dq_kernel<T>;
-    if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, static_cast<const T*>(q), static_cast<const T*>(k),
-                                    static_cast<const T*>(v), P, static_cast<const T*>(g), out,
-                                    den, dq, work);
+  if (fp::tile_route(d, m, chunk, dtype ? 2 : 4)) {
+    const fv::Args A = fv::make_args(bh, n, d, m, chunk, dtype ? 2 : 4, true, dn, half_dn2, dn2,
+                                     r, q, k, v, g, P, out, den, nullptr, nullptr, dq, dk, dv,
+                                     work);
+    return dtype ? fv::run_m<__nv_bfloat16, fv::FavorBody::kFull>(1, parts, A, s)
+                 : fv::run_m<float, fv::FavorBody::kFull>(1, parts, A, s);
   }
-  return int(cudaGetLastError());
-}
-
-int favor_bwd_dkv(int bh, int n, int d, int m, int chunk, int dtype, float dn, float half_dn2,
-                  float dn2, float r, const void* q, const void* k, const void* v,
-                  const float* P, const void* g, const float* out, const float* den, float* dk,
-                  float* dv, float* work, void* stream) {
   const Dims D = make_dims(n, d, m, chunk, dn, half_dn2, dn2, r);
-  const size_t smem = smem_bytes(d, m, chunk, 2);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    auto kern = favor_bwd_dkv_kernel<T>;
-    if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, static_cast<const T*>(q), static_cast<const T*>(k),
-                                    static_cast<const T*>(v), P, static_cast<const T*>(g), out,
-                                    den, dk, dv, work);
-  } else {
-    using T = float;
-    auto kern = favor_bwd_dkv_kernel<T>;
-    if (int e = allow_smem(kern, smem)) return e;
-    kern<<<bh, kThreads, smem, s>>>(D, static_cast<const T*>(q), static_cast<const T*>(k),
-                                    static_cast<const T*>(v), P, static_cast<const T*>(g), out,
-                                    den, dk, dv, work);
-  }
-  return int(cudaGetLastError());
-}
-
-// The kernel-body probe (ops/kernel_body.py): body 0-2 = full (the
-// production kernels' body), idfeat, nomask; which and o1/o2 as for
-// probe() above.  Same workspace and shared memory as the production
-// launches.
-int favor_probe(int body, int which, int bh, int n, int d, int m, int chunk, int dtype,
-                float dn, float half_dn2, float dn2, float r, const void* q, const void* k,
-                const void* v, const float* P, const void* g, const float* out,
-                const float* den, float* o1, float* o2, float* work, void* stream) {
-  const Dims D = make_dims(n, d, m, chunk, dn, half_dn2, dn2, r);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? probe<__nv_bfloat16>(body, which, D, bh, q, k, v, P, g, out, den, o1,
-                                           o2, work, s)
-                    : probe<float>(body, which, D, bh, q, k, v, P, g, out, den, o1, o2, work,
-                                   s);
+  float* wk = static_cast<float*>(work);
+  return dtype ? earlier_bwd<__nv_bfloat16>(parts, D, bh, q, k, v, P, g, out, den, dq, dk, dv,
+                                            wk, s)
+               : earlier_bwd<float>(parts, D, bh, q, k, v, P, g, out, den, dq, dk, dv, wk, s);
 }
 
 }  // extern "C"

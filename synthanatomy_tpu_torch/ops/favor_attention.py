@@ -13,11 +13,16 @@ forward order recomputing the prefix (S, z), dk/dv in reverse order
 carrying the suffix; the output cotangent is rounded to the compute
 dtype first, as JAX rounds it, and the projection's cotangent is zeros.
 
-A CUDA tensor launches ``csrc/favor_attention.cu`` (forward: one launch;
-backward: two) or raises; a CPU tensor takes the plain version
-(``favor_fwd_plain`` / ``favor_bwd_plain``, the same sweeps in PyTorch
-at the same rounding points).  ``favor_attention_fused.launches`` counts
-kernel launches.
+A CUDA tensor launches ``csrc/favor_attention.cu`` or raises; a CPU
+tensor takes the plain version (``favor_fwd_plain`` / ``favor_bwd_plain``,
+the same sweeps in PyTorch at the same rounding points).  The library's
+plan (``csrc/favor_plan.h``) picks the route from the shape: d a multiple
+of 8 up to 64 and m up to 256 (every model of the port) take the
+chunk-parallel route (``csrc/favor_core.cuh``: a state launch, the state
+scan, the consumer; forward 3 launches, backward 4), the rest the earlier
+one-block-per-(batch, head) kernels (forward 1, backward 2).
+``favor_attention_fused.launches`` counts kernel launches;
+:func:`launches_per_call` gives a forward + backward call's count.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ __all__ = [
     "favor_attention_fused_plain",
     "favor_fwd_plain",
     "favor_bwd_plain",
+    "launches_per_call",
 ]
 
 _EPS = 1e-4  # the feature map's epsilon
@@ -175,17 +181,27 @@ def favor_bwd_plain(q, k, v, proj, g, out, den, chunk, body="full"):
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = load_library("favor_attention")
-    ints, flts, ptr = [ctypes.c_int] * 6, [ctypes.c_float] * 4, ctypes.c_void_p
-    lib.favor_fwd.argtypes = ints + flts + [ptr] * 8
-    lib.favor_bwd_dq.argtypes = ints + flts + [ptr] * 10
-    lib.favor_bwd_dkv.argtypes = ints + flts + [ptr] * 11
-    for fn in (lib.favor_fwd, lib.favor_bwd_dq, lib.favor_bwd_dkv):
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib.favor_fwd.argtypes = [i] * 6 + [f] * 4 + [p] * 8
+    lib.favor_bwd.argtypes = [i] * 7 + [f] * 4 + [p] * 12
+    for fn in (lib.favor_fwd, lib.favor_bwd, lib.favor_route, lib.favor_launches):
         fn.restype = ctypes.c_int
-    lib.favor_work_floats.argtypes = [ctypes.c_int] * 4
-    lib.favor_work_floats.restype = ctypes.c_longlong
-    lib.favor_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.favor_smem_bytes.restype = ctypes.c_longlong
+    lib.favor_route.argtypes = [i] * 4
+    lib.favor_launches.argtypes = [i] * 5
+    lib.favor_work_bytes.argtypes = [i] * 7
+    lib.favor_smem_bytes.argtypes = [i] * 4
+    lib.favor_launch_smem.argtypes = [i] * 3
+    for fn in (lib.favor_work_bytes, lib.favor_smem_bytes, lib.favor_launch_smem):
+        fn.restype = ctypes.c_longlong
     return lib
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _code(dtype):
+    return int(dtype == torch.bfloat16)
 
 
 def _check_kernel_inputs(q, k, v, proj, chunk):
@@ -203,10 +219,24 @@ def _check_kernel_inputs(q, k, v, proj, chunk):
                          f"{tuple(proj.shape)} on {proj.device}")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    smem = _lib().favor_smem_bytes(q.shape[-1], proj.shape[0], chunk)
+    smem = _lib().favor_smem_bytes(q.shape[-1], proj.shape[0], chunk, _code(q.dtype))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"projection {tuple(proj.shape)} with chunk {chunk} needs {smem} "
                          f"bytes of shared memory per block; the card has {SMEM_PER_BLOCK}")
+
+
+def launches_per_call(q, proj, chunk: int = 128) -> int:
+    """Kernel launches of one forward + backward call on q's shape and
+    dtype (the library's plan: 7 on the chunk-parallel route, 3 on the
+    earlier kernels)."""
+    d, m, code = q.shape[-1], proj.shape[0], _code(q.dtype)
+    return sum(_lib().favor_launches(d, m, chunk, code, bwd) for bwd in (0, 1))
+
+
+def _work(q, m, chunk, bwd):
+    b, h, n, d = q.shape
+    nbytes = _lib().favor_work_bytes(b * h, n, d, m, chunk, _code(q.dtype), bwd)
+    return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
 
 
 def _consts(d, m):
@@ -216,42 +246,32 @@ def _consts(d, m):
 
 def _kernel_fwd(q, k, v, proj, chunk):
     b, h, n, d = q.shape
-    m = proj.shape[0]
-    bh = b * h
+    m, code = proj.shape[0], _code(q.dtype)
     out = torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
-    den = torch.empty(bh, n, dtype=torch.float32, device=q.device)
-    work = torch.empty(_lib().favor_work_floats(bh, chunk, d, m), dtype=torch.float32,
-                       device=q.device)
+    den = torch.empty(b * h, n, dtype=torch.float32, device=q.device)
+    work = _work(q, m, chunk, 0)
     err = _lib().favor_fwd(
-        bh, n, d, m, chunk, int(q.dtype == torch.bfloat16), *_consts(d, m),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(), out.data_ptr(),
-        den.data_ptr(), work.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        b * h, n, d, m, chunk, code, *_consts(d, m), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        proj.data_ptr(), out.data_ptr(), den.data_ptr(), work.data_ptr(), _stream(q))
     if err:
         raise RuntimeError(f"favor_fwd: CUDA error {err}")
-    favor_attention_fused.launches += 1
+    favor_attention_fused.launches += _lib().favor_launches(d, m, chunk, code, 0)
     return out, den
 
 
 def _kernel_bwd(q, k, v, proj, g, out, den, chunk):
     b, h, n, d = q.shape
-    m = proj.shape[0]
-    bh = b * h
+    m, code = proj.shape[0], _code(q.dtype)
     dq, dk, dv = (torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
                   for _ in range(3))
-    work = torch.empty(_lib().favor_work_floats(bh, chunk, d, m), dtype=torch.float32,
-                       device=q.device)
-    common = [bh, n, d, m, chunk, int(q.dtype == torch.bfloat16), *_consts(d, m),
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(), g.data_ptr(),
-              out.data_ptr(), den.data_ptr()]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().favor_bwd_dq(*common, dq.data_ptr(), work.data_ptr(), stream)
+    work = _work(q, m, chunk, 1)
+    err = _lib().favor_bwd(
+        3, b * h, n, d, m, chunk, code, *_consts(d, m), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), proj.data_ptr(), g.data_ptr(), out.data_ptr(), den.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), _stream(q))
     if err:
-        raise RuntimeError(f"favor_bwd_dq: CUDA error {err}")
-    favor_attention_fused.launches += 1
-    err = _lib().favor_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), work.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"favor_bwd_dkv: CUDA error {err}")
-    favor_attention_fused.launches += 1
+        raise RuntimeError(f"favor_bwd: CUDA error {err}")
+    favor_attention_fused.launches += _lib().favor_launches(d, m, chunk, code, 1)
     return dq, dk, dv
 
 

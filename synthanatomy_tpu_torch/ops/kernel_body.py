@@ -7,7 +7,7 @@ Port of the Pallas kernels of ``tools/probe_kernel_body.py``
 rebuilds the bodies of the banded local-attention kernels and patches
 the FAVOR+ kernels' ``_features`` and ``_tri``; here the ablations are
 compile-time template parameters of the port's own bodies
-(``csrc/local_attention.cu``, ``csrc/favor_attention.cu``), so the
+(``csrc/local_attention.cu``, ``csrc/favor_core.cuh``), so the
 production kernels keep their instantiations.
 
 - :func:`local_fwd_body` — the banded forward with body one of
@@ -27,6 +27,11 @@ production kernels keep their instantiations.
   the features and for exp(u − diag − stab) in the backward's chain, as
   the TPU probe's patched ``_features`` hands them) or "nomask" (the
   causal selects of the chunk's scores and dscores are unconditional).
+  They run on row 5's chunk-parallel route (``csrc/favor_core.cuh``): "full"
+  is production's own launches (``csrc/favor_attention.cu``), each
+  ablation a library of its own (``csrc/favor_probe_idfeat.cu``,
+  ``csrc/favor_probe_nomask.cu``); a shape off the route (d above 64, m
+  above 256) raises ValueError, as do the f32 ablations above m 64.
 
 Both local kernels take ``heads_per_block``: the (batch·head) rows one
 block walks in turn with the same shared memory, the counterpart of the
@@ -170,12 +175,8 @@ def _lib(name):
         lib.local_bwd_probe.argtypes = [i] * 8 + [f] + [p] * 11
         lib.local_fwd_probe.restype = lib.local_bwd_probe.restype = i
     else:
-        lib.favor_probe.argtypes = [i] * 8 + [f] * 4 + [p] * 11
+        lib.favor_probe.argtypes = [i] * 7 + [f] * 4 + [p] * 11
         lib.favor_probe.restype = i
-        lib.favor_work_floats.argtypes = [i] * 4
-        lib.favor_work_floats.restype = ctypes.c_longlong
-        lib.favor_smem_bytes.argtypes = [i] * 3
-        lib.favor_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -252,19 +253,29 @@ local_bwd_body.launches = 0
 
 
 def _favor_launch(which, body, q, k, v, proj, chunk, g=None, out=None, den=None):
-    """One launch of a FAVOR probe kernel: which 0 forward → (out, den),
-    1 dq sweep → dq, 2 dk/dv sweep → (dk, dv)."""
+    """One FAVOR probe call: which 0 forward → (out, den), 1 dq sweep → dq,
+    2 dk/dv sweep → (dk, dv).  Body "full" is production's own launches
+    (``csrc/favor_attention.cu``), the others ``csrc/favor_probe_*.cu``'s;
+    either way the route's state and scan launches, then the consumer (3
+    launches).  Returns the outputs and the launch count."""
     name = ("favor_fwd_body", "favor_bwd_body", "favor_bwd_body")[which]
+    _body_index(body, FAVOR_BODIES)
     _require_cuda(name, q)
-    lib = _lib("favor_attention")
-    smem = lib.favor_smem_bytes(q.shape[-1], proj.shape[0], chunk)
+    lib, code = fa._lib(), fa._code(q.dtype)
+    d, m = q.shape[-1], proj.shape[0]
+    smem = lib.favor_smem_bytes(d, m, chunk, code)
     if smem > SMEM_PER_BLOCK:
         raise DoesNotFit(name, smem)
     fa._check_kernel_inputs(q, k, v, proj, chunk)
+    if not lib.favor_route(d, m, chunk, code):
+        raise ValueError(f"{name}: the probe's bodies run on the chunk-parallel route (d a "
+                         f"multiple of 8 up to 64, m up to 256); got d {d}, m {m}")
+    if body != "full" and q.dtype == torch.float32 and m > 64:
+        raise ValueError(f"{name}: the f32 ablations are built for m up to 64; got {m}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     proj = proj.to(torch.float32).contiguous()
-    b, h, n, d = q.shape
-    m, bh = proj.shape[0], b * h
+    b, h, n, _ = q.shape
+    bh = b * h
     if which:
         if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
             raise ValueError(f"g must match q ({q.dtype}, {tuple(q.shape)}); got {g.dtype}, "
@@ -277,26 +288,33 @@ def _favor_launch(which, body, q, k, v, proj, chunk, g=None, out=None, den=None)
     o1 = torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
     o2 = (torch.empty(bh, n, dtype=torch.float32, device=q.device) if which == 0 else
           torch.empty_like(o1) if which == 2 else None)
-    work = torch.empty(lib.favor_work_floats(bh, chunk, d, m), dtype=torch.float32,
-                       device=q.device)
-    err = lib.favor_probe(
-        _body_index(body, FAVOR_BODIES), which, bh, n, d, m, chunk,
-        int(q.dtype == torch.bfloat16), *fa._consts(d, m), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), proj.data_ptr(), None if g is None else g.data_ptr(),
-        None if out is None else out.data_ptr(), None if den is None else den.data_ptr(),
-        o1.data_ptr(), None if o2 is None else o2.data_ptr(), work.data_ptr(), _stream(q))
+    work = fa._work(q, m, chunk, int(which > 0))
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    shape = [bh, n, d, m, chunk, code, *fa._consts(d, m)]
+    if body == "full" and which == 0:
+        err = lib.favor_fwd(*shape, q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
+                            o1.data_ptr(), o2.data_ptr(), work.data_ptr(), _stream(q))
+    elif body == "full":
+        err = lib.favor_bwd(which, *shape, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            proj.data_ptr(), g.data_ptr(), out.data_ptr(), den.data_ptr(),
+                            ptr(o1) if which == 1 else None, ptr(o1) if which == 2 else None,
+                            ptr(o2), work.data_ptr(), _stream(q))
+    else:
+        err = _lib(f"favor_probe_{body}").favor_probe(
+            which, *shape, q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
+            ptr(g), ptr(out), ptr(den), o1.data_ptr(), ptr(o2), work.data_ptr(), _stream(q))
     if err:
         raise RuntimeError(f"{name} ({body}): CUDA error {err}")
-    return o1 if which == 1 else (o1, o2)
+    return (o1 if which == 1 else (o1, o2)), 3
 
 
 def favor_fwd_body(q, k, v, proj, chunk=128, body="full"):
     """The FAVOR+ forward by body ``body`` → (out (B, H, L, d) f32, den
-    (B·H, L) f32).  One launch."""
+    (B·H, L) f32).  Three launches (state, scan, forward)."""
     if q.device.type == "cpu":
         return favor_fwd_body_plain(q, k, v, proj, chunk, body)
-    res = _favor_launch(0, body, q, k, v, proj, chunk)
-    favor_fwd_body.launches += 1
+    res, launches = _favor_launch(0, body, q, k, v, proj, chunk)
+    favor_fwd_body.launches += launches
     return res
 
 
@@ -306,12 +324,12 @@ favor_fwd_body.launches = 0
 def favor_bwd_body(q, k, v, proj, g, out, den, chunk=128, body="full", sweep="dq"):
     """One backward sweep by body ``body``: dq (``sweep="dq"``) or (dk,
     dv) (``sweep="dkv"``), f32; out and den from :func:`favor_fwd_body`
-    of the same body.  One launch."""
+    of the same body.  Three launches (state, scan, the sweep's consumer)."""
     if q.device.type == "cpu":
         return favor_bwd_body_plain(q, k, v, proj, g, out, den, chunk, body, sweep)
-    res = _favor_launch(1 + _body_index(sweep, FAVOR_SWEEPS), body, q, k, v, proj, chunk,
-                        g, out, den)
-    favor_bwd_body.launches += 1
+    res, launches = _favor_launch(1 + _body_index(sweep, FAVOR_SWEEPS), body, q, k, v, proj,
+                                  chunk, g, out, den)
+    favor_bwd_body.launches += launches
     return res
 
 

@@ -17,8 +17,9 @@ FAVOR heads of d 64, L 1401, w 420, m 256, chunk 128, bf16) it times:
 Each row launches its kernel ``--reps`` times between CUDA events and
 reports the minimum of 5 such measurements, as the TPU probe's
 ``timed`` does.  The port launches each FAVOR backward sweep on its
-own, so the dq and dk/dv rows print the sweep alone and the sum with
-the forward, which is what the TPU probe's rows measure.  Before
+own (the backward's state and scan launches, then the sweep's
+consumer), so the dq and dk/dv rows print the sweep alone and the sum
+with the forward, which is what the TPU probe's rows measure.  Before
 timing, every variant is held against its plain twin at a small shape,
 in bf16 and f32 (identity features with positive q, k and projection,
 so that their denominator stays positive); the production-equal
@@ -267,8 +268,10 @@ def main(argv=None) -> dict:
             ("local bwd", body),
             lambda body=body: kb.local_bwd_body_plain(q, k, v, g, W, body, True))
 
-    print(f"\n-- FAVOR kernels (chunk={CHUNK}, m={M_FEAT}, one block per (batch, head): {bh} "
-          f"blocks) --")
+    blocks = bh * -(-L // CHUNK) * -(-CHUNK // 64)  # one per 64-row sub-tile of a chunk
+    print(f"\n-- FAVOR kernels (chunk={CHUNK}, m={M_FEAT}, the chunk-parallel route: {blocks} "
+          f"blocks a consumer and a forward state launch, {2 * blocks} a backward one; a "
+          f"backward sweep alone also runs the backward's state and scan launches) --")
     rows = FAVOR_ROWS[:2] if args.quick else FAVOR_ROWS
     res["favor"] = {}
     fwd_res, fwd_s = {}, {}

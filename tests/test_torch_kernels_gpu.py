@@ -329,6 +329,10 @@ FAVOR_SHAPES = [  # (B, H, L, d, m, chunk, dtype)
     (2, 3, 300, 64, 256, 128, torch.bfloat16),
     (1, 2, 100, 64, 128, 64, torch.float32),
     (6, 8, 1400, 64, 256, 128, torch.bfloat16),  # the paper shape
+    (6, 8, 1401, 64, 256, 128, torch.bfloat16),  # the bench's length: a last chunk of 121
+    (8, 2, 1400, 64, 128, 128, torch.bfloat16),  # the validation prior's m
+    (1, 2, 100, 64, 256, 128, torch.bfloat16),   # L < chunk
+    (1, 2, 70, 128, 64, 32, torch.float32),      # d above 64: the earlier kernels
 ]
 
 
@@ -342,12 +346,45 @@ def test_favor_kernel_matches_plain(cuda, shape):
     before = tfa.favor_attention_fused.launches
     got = _fwd_bwd(lambda *x: tfa.favor_attention_fused(*x, proj, chunk), q, k, v, g)
     torch.cuda.synchronize()
-    assert tfa.favor_attention_fused.launches == before + 3
+    assert tfa.favor_attention_fused.launches == before + tfa.launches_per_call(q, proj, chunk)
+    assert tfa.launches_per_call(q, proj, chunk) == (7 if d <= 64 else 3)
     want = _fwd_bwd(lambda *x: tfa.favor_attention_fused_plain(*x, proj, chunk), q, k, v, g)
     for name, a, b_ in zip(("out", "dq", "dk", "dv"), got, want):
         _assert_kernel_close(f"favor {shape} {name}", a, b_, dtype)
     again = _fwd_bwd(lambda *x: tfa.favor_attention_fused(*x, proj, chunk), q, k, v, g)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+def favor_tie_inputs(b, h, n, d, m, seed, device):
+    """Inputs whose every product is exact, so the kernel and the plain
+    version see the same U = rnd(q·dn)·rnd(P)ᵀ bit for bit: d 16 (dn =
+    1/2), q, k, v, g and P small integers times powers of two.  Projection
+    rows 0 and 1 are equal and the longest, and every query points along
+    them, so each row's max over features is a tie of features 0 and 1."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(-2, 3, size=(m, d)).astype(np.float32) * 0.25
+    p[0] = p[1] = 1.0
+    q = (0.25 * (4.0 + rng.integers(0, 3, size=(b, h, n, 1)))
+         + 0.125 * rng.integers(-1, 2, size=(b, h, n, d)))
+    k, v, g = (s * rng.integers(-3, 4, size=(b, h, n, d)) for s in (0.125, 0.25, 0.25))
+    t = [torch.tensor(x, dtype=torch.float32, device=device).to(torch.bfloat16) for x in (q, k, v)]
+    return (*t, torch.tensor(g, dtype=torch.float32, device=device),
+            torch.tensor(p, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,chunk", [(100, 32, 16), (150, 64, 128), (300, 256, 128)])
+def test_favor_kernel_row_max_ties(cuda, n, m, chunk):
+    """bf16 with exact row-max ties (features 0 and 1 of every query): the
+    kernel splits the max's cotangent over both, as the plain version does;
+    the inputs make both find the same ties."""
+    q, k, v, g, proj = favor_tie_inputs(2, 2, n, 16, m, n + m, cuda)
+    u = (q.float() * 0.5).to(torch.bfloat16).float() @ proj.to(torch.bfloat16).float().T
+    assert (u[..., 0] == u[..., 1]).all() and (u.argmax(-1) <= 1).all()
+    got = _fwd_bwd(lambda *x: tfa.favor_attention_fused(*x, proj, chunk), q, k, v, g)
+    want = _fwd_bwd(lambda *x: tfa.favor_attention_fused_plain(*x, proj, chunk), q, k, v, g)
+    for name, a, b_ in zip(("out", "dq", "dk", "dv"), got, want):
+        _assert_kernel_close(f"favor ties n {n} m {m} {name}", a, b_, torch.bfloat16)
 
 
 LOCAL_SHAPES = [  # (B, H, L, d, window, dtype)
