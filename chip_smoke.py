@@ -9,11 +9,13 @@ result, without them.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed),
-   then the SASS of rows 5, 6, 7 and 8 (``cuobjdump -sass``): HMMA or
-   HGMMA in every bf16 instantiation of their kernels (row 5: the
+   then the SASS of rows 2, 5, 6, 7, 8 and 9a (``cuobjdump -sass``): HMMA
+   or HGMMA in every bf16 instantiation of their kernels (row 5: the
    chunk-parallel route's state, forward, dq and dk/dv kernels and their
-   probe ablations), with each kernel's registers, spills and stack
-   (``ptxas -v``) and the dynamic shared memory of their launches;
+   probe ablations) and in every instantiation of the weight-streaming
+   GEMVs (``matmul_kernel``, ``stream_kernel``), with each kernel's
+   registers, spills and stack (``ptxas -v``) and the dynamic shared
+   memory of their launches;
 3. the fused decode kernel against its plain PyTorch version, at paper
    width and at the small test shape, for int8 weights + bf16 rings and
    int4 weights + int8 rings, pre-LayerNorm and ReZero, at t in
@@ -133,12 +135,16 @@ result, without them.  Phases, each fatal on failure:
 15. the decode-side weight-streaming kernels: ``int8_matmul`` (row 2) at
    the paper decode GEMV shapes (R 16; K×N 512×1024, 1024×512, 512×2048,
    2048×512) and at awkward ones against its plain version, two runs
-   bit-identical, timed against the plain version and a dequantised bf16
-   copy through ``torch.matmul``; then the ``main()`` of the three probe
-   tools (``probe_int4``, ``probe_int4_unpack``,
-   ``probe_pallas_overhead``; each checks every variant against its plain
-   version and raises on a failure), and each probe kernel timed against
-   its plain version at the probe's shape;
+   bit-identical, timed (elapsed and device time) against the plain
+   version, a dequantised bf16 copy through ``torch.matmul`` and
+   ``torch._weight_int8pack_mm`` (the one PyTorch call of its function,
+   held against the plain version; its refusal printed if the build has
+   none); then the ``main()`` of the three probe tools (``probe_int4``,
+   ``probe_int4_unpack``, ``probe_pallas_overhead``; each checks every
+   variant against its plain version and raises on a failure), and each
+   probe kernel timed against its plain version at the probe's shape (the
+   weight stream and the packed product of E and F in elapsed and device
+   time, two runs bit-identical; GB/s from device time);
 16. row 9d, the kernel-body probe (``tools/probe_kernel_body.main`` with
    every row): the ablated bodies of the FAVOR+ and banded local-attention
    kernels (``ops/kernel_body.py``) at the paper shape (B6 x 8 heads x L
@@ -201,12 +207,17 @@ BENCH_BANDED = ["--pallas-local"] + BENCH_SPLASH[1:]
 BENCH_STEPS = ["--steps", "4", "--warmup", "1"]  # + the first step: 6 steps a run
 PROBE_REPS = 20  # launches per measurement of the kernel-body probe (min of 5)
 SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two backward launches
-# the row 5, 6, 7 and 8 kernels whose bf16 instantiations must hold
+# the row 2, 5, 6, 7, 8 and 9a kernels whose bf16 instantiations must hold
 # tensor-core instructions (phase 2b); row 7's tile-route kernels
-# (res_tile_*) are bf16 only; row 5's scan has no product
+# (res_tile_*) are bf16 only; row 5's scan has no product; the GEMVs of
+# rows 2 and 9a (GEMV_LIBS) run every instantiation, int8 or int4 weights,
+# on bf16 products
+GEMV_LIBS = ("int8_matmul", "weight_stream")
 FAVOR_ROUTE_KERNELS = ("favor_state_kernel", "favor_fwd_kernel", "favor_dq_kernel",
                        "favor_dkv_kernel")
 TENSOR_CORE_KERNELS = {
+    "int8_matmul": ("matmul_kernel",),
+    "weight_stream": ("stream_kernel",),
     "favor_attention": FAVOR_ROUTE_KERNELS,
     "favor_probe_idfeat": FAVOR_ROUTE_KERNELS,
     "favor_probe_nomask": FAVOR_ROUTE_KERNELS,
@@ -225,18 +236,22 @@ def _require(cond, msg):
 
 def _check_sass():
     """Phase 2b: every bf16 instantiation of the row 5 (chunk-parallel
-    route), row 6 (tile form), row 7 and row 8 kernels runs its products
-    on the tensor cores: HMMA or HGMMA in its SASS (``cuobjdump -sass``).
-    Prints each kernel's tensor-core instructions, registers, spills and
-    stack from ``ptxas -v``, and the dynamic shared memory the launches
-    ask for.  Row 5's one-block-per-head kernels (d above 64, m above 256)
-    and its scan, row 6's band form (d > 128, the earlier FMA kernels),
-    row 7's f32 instantiations and partial sums, and splash's dq reduction
-    (no product) are listed without the requirement."""
+    route), row 6 (tile form), row 7 and row 8 kernels, and every
+    instantiation of the row 2 and 9a GEMVs (``matmul_kernel``,
+    ``stream_kernel``: int8 or int4 weights, bf16 products), runs its
+    products on the tensor cores: HMMA or HGMMA in its SASS (``cuobjdump
+    -sass``).  Prints each kernel's tensor-core instructions, registers,
+    spills and stack from ``ptxas -v``, and the dynamic shared memory the
+    launches ask for.  Row 5's one-block-per-head kernels (d above 64, m
+    above 256) and its scan, row 6's band form (d > 128, the earlier FMA
+    kernels), row 7's f32 instantiations and partial sums, splash's dq
+    reduction and the stream's layer sum (no product) are listed without
+    the requirement."""
     from synthanatomy_tpu_torch import _build
     from synthanatomy_tpu_torch.ops import favor_attention as fa
     from synthanatomy_tpu_torch.ops import local_attention_flash as lf
     from synthanatomy_tpu_torch.ops import local_attention_splash as ls
+    from synthanatomy_tpu_torch.ops import probes, quant
     from synthanatomy_tpu_torch.ops import res_stack as rs
 
     for lib, kernels in TENSOR_CORE_KERNELS.items():
@@ -245,7 +260,8 @@ def _check_sass():
         for mangled, (label, body) in sorted(_build.sass(lib).items(), key=lambda kv: kv[1][0]):
             hmma, hgmma = body.count("HMMA"), body.count("HGMMA")
             base = label.split("<")[0].split("::")[-1]
-            must = base in kernels and ("__nv_bfloat16" in label or base.startswith("res_tile_"))
+            must = base in kernels and (lib in GEMV_LIBS or "__nv_bfloat16" in label
+                                        or base.startswith("res_tile_"))
             if must:
                 _require(hmma + hgmma > 0, f"{lib}: {label} has no tensor-core instruction")
                 held += 1
@@ -254,7 +270,17 @@ def _check_sass():
                   f"{r.get('registers')} registers, spills {r.get('spill_stores')}/"
                   f"{r.get('spill_loads')} bytes, stack {r.get('stack')} bytes")
         _require(held > 0, f"{lib}: no bf16 kernel found in the SASS")
-        print(f"[sass] {lib}: tensor-core instructions in all {held} bf16 instantiations")
+        print(f"[sass] {lib}: tensor-core instructions in all {held} "
+              f"{'' if lib in GEMV_LIBS else 'bf16 '}instantiations")
+    for r, k, n in INT8_GEMV:
+        print(f"[smem] row 2 int8_matmul R{r} K{k} N{n}: {quant._lib().gemv_matmul_blocks(r, k, n, 0)} "
+              f"one-warp blocks, {quant._lib().gemv_matmul_smem(r, k, n, 0)} B of dynamic shared "
+              f"memory each; packed int4 {quant._lib().gemv_matmul_smem(r, k, n, 1)} B")
+    ws = probes._lib("weight_stream")
+    for b in (16, 64):
+        print(f"[smem] row 9a weight_stream B{b} K512 N2048 L96: {ws.gemv_stream_blocks(96, b, 512)} "
+              f"blocks, int8 {ws.gemv_stream_smem(b, 512, 2048, 0)} B, packed int4 "
+              f"{ws.gemv_stream_smem(b, 512, 2048, 1)} B of dynamic shared memory each")
     for dtype, code in (("bfloat16", 1), ("float32", 0)):
         print(f"[smem] {dtype} at d 64, w 420: row 6's largest kernel "
               f"{lf._lib().local_smem_bytes(64, 420, code)} B of dynamic shared memory, splash's "
@@ -1813,16 +1839,50 @@ def _check_decode_side(dev, smi):
     r, k = x.shape
     n = w_q.shape[1]
     bound = _bound(2 * r * k * n, k * n + 4 * (r * k + r * n + n), PEAK_BF16)
-    p1, k1, k2, p2 = (_time_ms(lambda: quant.int8_matmul_plain(x, w_q, sc), 50),
-                      _time_ms(lambda: quant.int8_matmul(x, w_q, sc), 200),
-                      _time_ms(lambda: quant.int8_matmul(x, w_q, sc), 200),
-                      _time_ms(lambda: quant.int8_matmul_plain(x, w_q, sc), 50))
+    kern = lambda: quant.int8_matmul(x, w_q, sc)  # noqa: E731
+    plain = lambda: quant.int8_matmul_plain(x, w_q, sc)  # noqa: E731
+    p1, k1, k2, p2 = _time_ms(plain, 50), _time_ms(kern, 200), _time_ms(kern, 200), \
+        _time_ms(plain, 50)
+    d1, d2 = _device_ms(kern, 200), _device_ms(kern, 200)
     y_ms = _time_ms(lambda: torch.matmul(xb, w_deq), 200)
-    out["int8_matmul"] = (launches, err, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
-    print(f"[time] int8_matmul R{r} K{k} N{n}: kernel {(k1 + k2) / 2:.4f} ms ({k1:.4f}, "
-          f"{k2:.4f}), plain {(p1 + p2) / 2:.4f} ms ({p1:.4f}, {p2:.4f}); no single PyTorch call "
-          f"computes it, yardstick (a dequantised bf16 copy through torch.matmul) {y_ms:.4f} "
-          f"ms; bound {bound[0]:.5f} ms ({bound[1]})  [{smi}]")
+    # the single PyTorch call of row 2's function: x·(w·s)ᵀ with w (N, K)
+    # int8, transposed once here; bf16(x) and the scales in f32 give the
+    # function itself, bf16 inputs a bf16 output (held at its precision)
+    lib_ms, lib_dev = None, None
+    w_t = w_q.t().contiguous()
+    want = quant.int8_matmul_plain(x, w_q, sc)
+    lib = {dt: (lambda xl=xb.to(dt), sl=sc.reshape(-1).to(dt):
+                torch._weight_int8pack_mm(xl, w_t, sl)) for dt in (torch.float32, torch.bfloat16)}
+    try:  # only the call itself: a build without the CUDA op has no yardstick
+        y = lib[torch.float32]().float()
+        torch.cuda.synchronize()
+    except NotImplementedError as e:
+        y = None
+        print(f"[time] torch._weight_int8pack_mm raises on {dev} (torch {torch.__version__}): "
+              f"{str(e).splitlines()[0][:200]}; row 2's single-call yardstick: none")
+    if y is not None:
+        _compare_f32("torch._weight_int8pack_mm (f32) vs int8_matmul_plain", y, want)
+        one = lib[torch.float32]
+        lib_ms, lib_dev = _time_ms(one, 200), _device_ms(one, 200)
+        print(f"[time] torch._weight_int8pack_mm R{r} K{k} N{n}, bf16(x) and scales in f32 "
+              f"(row 2's function, one call): {lib_ms:.4f} ms elapsed, {lib_dev:.4f} ms device "
+              f"time  [{smi}]")
+        one = lib[torch.bfloat16]
+        e16 = float((one().float() - want).abs().max())
+        _require(e16 <= 2.0 ** -7 * float(want.abs().max()),
+                 f"torch._weight_int8pack_mm (bf16): max abs err {e16}")
+        print(f"[time] torch._weight_int8pack_mm in bf16 (bf16 scales and output; max abs err "
+              f"{e16:.3e}, tol 2^-7 of max |plain|): {_time_ms(one, 200):.4f} ms elapsed, "
+              f"{_device_ms(one, 200):.4f} ms device time")
+    out["int8_matmul"] = (launches, err, (k1 + k2) / 2, (p1 + p2) / 2, bound, lib_ms)
+    print(f"[time] int8_matmul R{r} K{k} N{n}: kernel {(k1 + k2) / 2:.4f} ms elapsed ({k1:.4f}, "
+          f"{k2:.4f}), {(d1 + d2) / 2:.4f} ms device time ({d1:.4f}, {d2:.4f}); plain "
+          f"{(p1 + p2) / 2:.4f} ms ({p1:.4f}, {p2:.4f}); a dequantised bf16 copy through "
+          f"torch.matmul {y_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]})  [{smi}]")
+    for (r_, k_, n_), c in zip(INT8_GEMV, paper):
+        fn = lambda c=c: quant.int8_matmul(*c)  # noqa: E731
+        print(f"[time] int8_matmul R{r_} K{k_} N{n_} (the four paper GEMVs): "
+              f"{_time_ms(fn, 200):.4f} ms elapsed, {_device_ms(fn, 200):.4f} ms device time")
 
     # 15b. the probes' own entry points; each raises on a failed check
     probes.weight_stream.launches = probes.weight_stream.packed_launches = 0
@@ -1855,17 +1915,36 @@ def _check_decode_side(dev, smi):
                                       ("weight_stream_int4", w4, True, ws_int4)):
         e = _compare_f32(name, probes.weight_stream(xw, w, s, packed),
                          probes.weight_stream_plain(xw, w, s, packed))
+        _require(torch.equal(probes.weight_stream(xw, w, s, packed),
+                             probes.weight_stream(xw, w, s, packed)), f"{name}: two runs differ")
         kern = lambda w=w, packed=packed: probes.weight_stream(xw, w, s, packed)  # noqa: E731
         plain = lambda w=w, packed=packed: probes.weight_stream_plain(xw, w, s, packed)  # noqa: E731
         p1, k1, k2, p2 = _time_ms(plain, 3), _time_ms(kern, 50), _time_ms(kern, 50), \
             _time_ms(plain, 3)
+        d1, d2 = _device_ms(kern, 50), _device_ms(kern, 50)
         bound = _bound(2 * B * K * N * L, _nbytes(xw, w, s) + B * K * 4, PEAK_BF16)
-        ms = (k1 + k2) / 2
+        ms, dms = (k1 + k2) / 2, (d1 + d2) / 2
         out[name] = (n_launch, e, ms, (p1 + p2) / 2, bound, None)
         print(f"[time] {name} (B{B} K{K} N{N} L{L}, {_nbytes(w) / 1e6:.1f} MB of weights): kernel "
-              f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}) = {_nbytes(w) / ms / 1e6:.0f} GB/s, plain "
+              f"{ms:.4f} ms elapsed ({k1:.4f}, {k2:.4f}), {dms:.4f} ms device time ({d1:.4f}, "
+              f"{d2:.4f}) = {_nbytes(w) / dms / 1e6:.0f} GB/s of weights; plain "
               f"{(p1 + p2) / 2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); max abs err "
-              f"{e:.3e}  [{smi}]")
+              f"{e:.3e}; two runs bit-identical  [{smi}]")
+    # the packed product of row 9b's E and F at the unpack probe's shape
+    xe = torch.randn(probe_int4_unpack.B, probe_int4_unpack.K, generator=g, device=dev)
+    pe, se = quant.quantize_int4_packed(torch.randn(probe_int4_unpack.K, probe_int4_unpack.NN,
+                                                    generator=g, device=dev))
+    layers = probe_int4_unpack.L
+    for label, pw, sw in (("E", pe, se), ("F", pe[None].expand(layers, -1, -1).contiguous(),
+                                           se[None].expand(layers, -1, -1).contiguous())):
+        fn = lambda pw=pw, sw=sw: quant.int4_matmul(xe, pw, sw)  # noqa: E731
+        got = fn()
+        _require(torch.equal(got, fn()), f"int4_matmul {label}: two runs differ")
+        e4 = _compare_f32(f"int4_matmul {label}", got, quant.int4_matmul_plain(xe, pe, se))
+        print(f"[time] int4_matmul {label} (R{xe.shape[0]} K{xe.shape[1]} N{pe.shape[1]}"
+              f"{', L ' + str(pw.shape[0]) if pw.dim() == 3 else ''}): {_time_ms(fn, 200):.4f} ms "
+              f"elapsed, {_device_ms(fn, 200):.4f} ms device time; max abs err {e4:.3e}; two runs "
+              f"bit-identical  [{smi}]")
     pk = torch.randint(-128, 128, (probe_int4_unpack.K2, probe_int4_unpack.N), generator=g,
                        device=dev).to(torch.int8)
     e = float((probes.int4_unpack(pk, 0) - probes.unpack_int4_plain(pk, 0)).abs().max())

@@ -14,7 +14,47 @@
 
 #include "favor_core.cuh"
 
+namespace fv {
+
+// The diagnostic of the tensor cores' sum inside one product step: one
+// warp runs `steps` chained mma.sync m16n8k16 (the kernels' frag::mma)
+// from C on A (16, 16·steps) bf16 row-major and Bᵀ (8, 16·steps) bf16
+// row-major, and writes the accumulators after each step, so the host
+// can hold every step against the exactly rounded sum of its 16
+// products and the accumulator it started from.
+__global__ void mma_steps_kernel(const __nv_bfloat16* __restrict__ a,
+                                 const __nv_bfloat16* __restrict__ bt,
+                                 const float* __restrict__ c, int steps, float* __restrict__ d) {
+  const int g = lane() >> 2, t = lane() & 3, K = 16 * steps;
+  auto word = [](const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); };
+  float acc[4] = {c[g * 8 + 2 * t], c[g * 8 + 2 * t + 1], c[(g + 8) * 8 + 2 * t],
+                  c[(g + 8) * 8 + 2 * t + 1]};
+  for (int s = 0; s < steps; ++s) {
+    const int k = 16 * s + 2 * t;
+    const uint32_t af[4] = {word(a + g * K + k), word(a + (g + 8) * K + k),
+                            word(a + g * K + k + 8), word(a + (g + 8) * K + k + 8)};
+    frag::mma(acc, af, word(bt + g * K + k), word(bt + g * K + k + 8));
+    float* o = d + s * 128;
+    o[g * 8 + 2 * t] = acc[0];
+    o[g * 8 + 2 * t + 1] = acc[1];
+    o[(g + 8) * 8 + 2 * t] = acc[2];
+    o[(g + 8) * 8 + 2 * t + 1] = acc[3];
+  }
+}
+
+}  // namespace fv
+
 extern "C" {
+
+// d (steps, 16, 8) f32: the accumulators of fv::mma_steps_kernel after
+// each step.  Returns a cudaError_t.
+int favor_probe_mma(const void* a, const void* bt, const float* c, int steps, float* d,
+                    void* stream) {
+  if (steps < 1) return int(cudaErrorInvalidValue);
+  fv::mma_steps_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(bt), c, steps, d);
+  return int(cudaGetLastError());
+}
 
 // which 0 = the forward (o1 = out, o2 = den), 1 = the dq sweep (o1 =
 // dq), 2 = the dk/dv sweep (o1 = dk, o2 = dv), each the route's state and

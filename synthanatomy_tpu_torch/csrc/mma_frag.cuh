@@ -1,8 +1,9 @@
 // Fragment and staging primitives of the port's tensor-core kernels
 // (band_attention.cuh for rows 6 and 8, fused_decode.cu for row 1,
-// res_tile.cuh for row 7): 16- and 4-byte cp.async with zero fill,
+// res_tile.cuh for row 7, weight_gemv.cuh for rows 2 and 9a): 16- and
+// 4-byte cp.async with zero fill,
 // ldmatrix (plain and .trans), mma.sync m16n8k16 (bf16 x bf16, f32 sums)
-// and the bf16 pair packing of its operands; the warpgroup product
+// and the bf16 pair packing and subtraction of its operands; the warpgroup product
 // wgmma (A from registers, B from shared memory); and the controls of
 // Hopper's programmatic dependent launch and cluster barrier.  PTX ISA fragment layouts: for m16n8k16, lane (g =
 // lane / 4, t = lane % 4) holds A rows g and g + 8 at k 2t, 2t + 1 (a0,
@@ -66,6 +67,13 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// a − b on two bf16 pairs (sm_90), each half rounded to nearest even
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // Warpgroup products (sm_90a wgmma): a warpgroup's m64 x n128 x k16 with
 // f32 sums in 64 registers a thread, A from registers (each warp's 16 rows
 // in the mma.sync m16n8k16 A layout above), B (N x K, K contiguous) from
@@ -118,6 +126,12 @@ __device__ __forceinline__ void wg_mma_rs(float (&d)[64], const uint32_t (&a)[4]
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1), "n"(kTransB));
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') of `threads` threads of the
+// block, whole warps: the warps of a block that share a ring meet here.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Programmatic dependent launch (sm_90).  A kernel launched with

@@ -119,19 +119,19 @@ def _out_cotangent(g, out, den):
     return g * inv, -(g * out).sum(-1, keepdim=True) * inv
 
 
-def favor_bwd_plain(q, k, v, proj, g, out, den, chunk, body="full"):
-    """The two backward sweeps.  g: (N, L, d) in the compute dtype; out,
-    den: the forward's f32 results → (dq, dk, dv) f32.  ``body`` as for
-    :func:`favor_fwd_plain`."""
+def dq_terms(q, k, v, proj, g, out, den, chunk, body="full", cd=None):
+    """The dq sweep of :func:`favor_bwd_plain` up to its last product,
+    chunk by chunk: yields a dict of the chunk's slice ``sl`` and its
+    f32 intermediates, among them du (N, c, m) and w (N, c, 1), from
+    which dq = rnd(du)·rnd(P)·d^-1/4 − w·d^-1/2·q, and the operands of
+    dq_p = rnd(ds)·kc + rnd(dnum)·rnd(S)ᵀ + gd·z.  q, k, v, g in f32
+    holding values of the compute dtype ``cd``."""
     features = _id_features if body == "idfeat" else _features
-    cd = q.dtype
+    cd = cd or q.dtype
     q, k, v, g = q.float(), k.float(), v.float(), g.float()
     n_bh, n, d = q.shape
     m = proj.shape[0]
-    dn, r = d ** -0.25, m ** -0.5
-    p = rounded(proj, cd)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-
+    r = m ** -0.5
     S = q.new_zeros(n_bh, m, d)
     z = q.new_zeros(n_bh, m)
     for sl in _chunks(n, chunk):
@@ -147,10 +147,28 @@ def favor_bwd_plain(q, k, v, proj, g, out, den, chunk, body="full"):
         dE = dqp * (r * e_q)
         w = dE.sum(-1, keepdim=True)
         ties = (u_q == u_q.amax(-1, keepdim=True)).float()
-        du = dE - ties * (w / ties.sum(-1, keepdim=True))
-        dq[:, sl] = rounded(du, cd) @ p * dn - w * (dn * dn) * q[:, sl]
+        yield {"sl": sl, "ds": ds, "kc": kc, "dnum": dnum, "S": S, "gd": gd, "z": z,
+               "e_q": e_q, "ties": ties, "dqp": dqp, "w": w,
+               "du": dE - ties * (w / ties.sum(-1, keepdim=True))}
         S = S + kc.transpose(1, 2) @ v[:, sl]
         z = z + kp.sum(1)
+
+
+def favor_bwd_plain(q, k, v, proj, g, out, den, chunk, body="full"):
+    """The two backward sweeps.  g: (N, L, d) in the compute dtype; out,
+    den: the forward's f32 results → (dq, dk, dv) f32.  ``body`` as for
+    :func:`favor_fwd_plain`."""
+    features = _id_features if body == "idfeat" else _features
+    cd = q.dtype
+    q, k, v, g = q.float(), k.float(), v.float(), g.float()
+    n_bh, n, d = q.shape
+    m = proj.shape[0]
+    dn, r = d ** -0.25, m ** -0.5
+    p = rounded(proj, cd)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+    for t in dq_terms(q, k, v, proj, g, out, den, chunk, body, cd):
+        dq[:, t["sl"]] = rounded(t["du"], cd) @ p * dn - t["w"] * (dn * dn) * q[:, t["sl"]]
 
     dS = q.new_zeros(n_bh, m, d)
     dz = q.new_zeros(n_bh, m)

@@ -33,6 +33,13 @@ production kernels keep their instantiations.
   ``csrc/favor_probe_nomask.cu``); a shape off the route (d above 64, m
   above 256) raises ValueError, as do the f32 ablations above m 64.
 
+For the identity-features dq's comparison (``tools/probe_kernel_body``'s
+``dq_cancellation`` and ``idfeat_dq_bound``): :func:`favor_dq_terms`
+hands out the plain twin's dq sweep chunk by chunk, and
+:func:`mma_steps` runs chained ``mma.sync`` m16n8k16 steps on given bf16
+fragments and reads each step's accumulator (``csrc/favor_probe.cuh``'s
+diagnostic kernel; :func:`mma_steps_exact` rounds each step exactly).
+
 Both local kernels take ``heads_per_block``: the (batch·head) rows one
 block walks in turn with the same shared memory, the counterpart of the
 TPU kernels' batch·head tile ``bt``.  The local bodies are those of row
@@ -65,6 +72,7 @@ __all__ = [
     "LOCAL_FWD_BODIES",
     "favor_bwd_body",
     "favor_bwd_body_plain",
+    "favor_dq_terms",
     "favor_fwd_body",
     "favor_fwd_body_plain",
     "favor_production",
@@ -73,6 +81,8 @@ __all__ = [
     "local_fwd_body",
     "local_fwd_body_plain",
     "local_production",
+    "mma_steps",
+    "mma_steps_exact",
 ]
 
 # in the order of the kernels' template arguments
@@ -176,7 +186,8 @@ def _lib(name):
         lib.local_fwd_probe.restype = lib.local_bwd_probe.restype = i
     else:
         lib.favor_probe.argtypes = [i] * 7 + [f] * 4 + [p] * 11
-        lib.favor_probe.restype = i
+        lib.favor_probe_mma.argtypes = [p] * 3 + [i] + [p] * 2
+        lib.favor_probe.restype = lib.favor_probe_mma.restype = i
     return lib
 
 
@@ -334,6 +345,69 @@ def favor_bwd_body(q, k, v, proj, g, out, den, chunk=128, body="full", sweep="dq
 
 
 favor_bwd_body.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor cores' sum inside one product step (the diagnostic of the
+# identity-features dq, tools/probe_kernel_body.dq_cancellation)
+# ---------------------------------------------------------------------------
+
+
+def _mma_operands(a, bt, c):
+    steps = a.shape[1] // 16
+    if a.shape != (16, 16 * steps) or bt.shape != (8, 16 * steps) or c.shape != (16, 8) \
+            or steps < 1:
+        raise ValueError(f"a (16, 16·s), bt (8, 16·s) and c (16, 8) expected; got "
+                         f"{tuple(a.shape)}, {tuple(bt.shape)}, {tuple(c.shape)}")
+    return steps
+
+
+def mma_steps_exact(a, bt, c):
+    """The accumulators after each of the chained m16n8k16 steps of
+    :func:`mma_steps`, each step's sum (its accumulator and 16 products,
+    each exact) taken in float64 and rounded to f32 once, from the
+    accumulator the step started from → (steps, 16, 8) f32."""
+    steps = _mma_operands(a, bt, c)
+    a64, b64 = a.double().reshape(16, steps, 16), bt.double().reshape(8, steps, 16)
+    acc, out = c.float(), []
+    for s in range(steps):
+        acc = (acc.double() + a64[:, s] @ b64[:, s].T).float()
+        out.append(acc)
+    return torch.stack(out)
+
+
+def mma_steps(a, bt, c):
+    """a (16, 16·s) and bt (8, 16·s) bf16, c (16, 8) f32 → the
+    accumulators after each of s chained ``mma.sync`` m16n8k16 steps on
+    the card, (s, 16, 8) f32 (``csrc/favor_probe.cuh``'s diagnostic
+    kernel, one launch); the CPU takes :func:`mma_steps_exact`."""
+    steps = _mma_operands(a, bt, c)
+    if a.device.type == "cpu":
+        return mma_steps_exact(a, bt, c)
+    _require_cuda("mma_steps", a)
+    if a.dtype != torch.bfloat16 or bt.dtype != torch.bfloat16 or bt.device != a.device \
+            or c.device != a.device:
+        raise TypeError("a and bt must be bf16 on a's device, c f32 there")
+    a, bt, c = a.contiguous(), bt.contiguous(), c.float().contiguous()
+    d = torch.empty(steps, 16, 8, dtype=torch.float32, device=a.device)
+    err = _lib("favor_probe_idfeat").favor_probe_mma(a.data_ptr(), bt.data_ptr(), c.data_ptr(),
+                                                     steps, d.data_ptr(), _stream(a))
+    if err:
+        raise RuntimeError(f"mma_steps: CUDA error {err}")
+    mma_steps.launches += 1
+    return d
+
+
+mma_steps.launches = 0
+
+
+def favor_dq_terms(q, k, v, proj, g, out, den, chunk=128, body="full"):
+    """The plain twin's dq sweep, chunk by chunk (``ops/favor_attention.dq_terms``):
+    a list of dicts of f32 intermediates, rows (B·H, ·)."""
+    _body_index(body, FAVOR_BODIES)
+    qf, kf, vf, gf = (fa._flat(x).float() for x in (q, k, v, g))
+    return list(fa.dq_terms(qf, kf, vf, proj.float(), gf, fa._flat(out), den, chunk, body,
+                            q.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -56,9 +56,12 @@ def _stream(dev):
 def _lib(name: str):
     lib = load_library(name)
     if name == "weight_stream":
-        lib.weight_stream.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_void_p]
-        lib.weight_stream.restype = ctypes.c_int
+        i = ctypes.c_int
+        lib.weight_stream.argtypes = [i] * 5 + [ctypes.c_void_p] * 5 + [i, i, ctypes.c_void_p]
+        lib.weight_stream.restype = i
+        lib.gemv_stream_blocks.argtypes = [i] * 3
+        lib.gemv_stream_smem.argtypes = [i] * 4
+        lib.gemv_stream_blocks.restype = lib.gemv_stream_smem.restype = i
     elif name == "int4_unpack":
         lib.int4_unpack.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
         lib.int4_unpack.restype = ctypes.c_int
@@ -105,6 +108,23 @@ def weight_stream_plain(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     return acc
 
 
+def _stream_launch(xb, w, sf, packed):
+    """The two launches of ``csrc/weight_stream.cu`` on contiguous x (B, K)
+    bf16, weights (L, K or K/2, N) int8 and scales (L, N) f32 → (B, K) f32."""
+    L, _, n = w.shape
+    b, k = xb.shape
+    partial = torch.empty(L, b, k, dtype=torch.float32, device=xb.device)
+    out = torch.empty(b, k, dtype=torch.float32, device=xb.device)
+    vec = int(n % 16 == 0 and k % 16 == 0 and w.data_ptr() % 16 == 0)
+    vec_x = int(k % 16 == 0 and xb.data_ptr() % 16 == 0)
+    err = _lib("weight_stream").weight_stream(
+        int(packed), L, b, k, n, xb.data_ptr(), w.data_ptr(), sf.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), vec, vec_x, _stream(xb.device))
+    if err != 0:
+        raise RuntimeError(f"weight_stream: CUDA error {err}")
+    return out
+
+
 def weight_stream(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                   packed: bool = False) -> torch.Tensor:
     """The chain of :func:`weight_stream_plain` in one kernel pass over
@@ -112,7 +132,7 @@ def weight_stream(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     sum; counted as one)."""
     if x.device.type == "cpu":
         return weight_stream_plain(x, w, s, packed)
-    dev = _require_cuda("weight_stream", x, w, s)
+    _require_cuda("weight_stream", x, w, s)
     L, kr, n = w.shape
     b, k = x.shape
     if w.dtype != torch.int8:
@@ -120,17 +140,8 @@ def weight_stream(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     if kr != (k // 2 if packed else k) or n % k or s.numel() != L * n or (packed and k % 2):
         raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, s {tuple(s.shape)} do not "
                          f"fit (N a multiple of K)")
-    xf = x.to(torch.float32).contiguous()
-    w = w.contiguous()
-    sf = s.to(torch.float32).contiguous()
-    partial = torch.empty(L, b, k, dtype=torch.float32, device=dev)
-    out = torch.empty(b, k, dtype=torch.float32, device=dev)
-    vec = int(n % 16 == 0 and k % 16 == 0 and w.data_ptr() % 16 == 0)
-    err = _lib("weight_stream").weight_stream(
-        int(packed), L, b, k, n, xf.data_ptr(), w.data_ptr(), sf.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), vec, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"weight_stream: CUDA error {err}")
+    out = _stream_launch(x.to(torch.bfloat16).contiguous(), w.contiguous(),
+                         s.to(torch.float32).contiguous(), packed)
     weight_stream.launches += 1
     weight_stream.packed_launches += int(packed)
     return out

@@ -106,17 +106,23 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = load_library("int8_matmul")
-    lib.int8_matmul.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_void_p]
-    lib.int4_matmul.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_void_p]
-    lib.int8_matmul.restype = lib.int4_matmul.restype = ctypes.c_int
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.int8_matmul.argtypes = [i] * 3 + [p] * 4 + [i, i, p]
+    lib.int4_matmul.argtypes = [i] * 4 + [p] * 4 + [i, i, p]
+    lib.int8_matmul.restype = lib.int4_matmul.restype = i
+    for name in ("gemv_matmul_blocks", "gemv_matmul_smem"):
+        getattr(lib, name).argtypes = [i] * 4
+        getattr(lib, name).restype = i
     return lib
 
 
-def _vec_ok(w: torch.Tensor, n: int) -> int:
-    """16-byte weight loads need 16-byte rows and an aligned base."""
-    return int(n % 16 == 0 and w.data_ptr() % 16 == 0)
+def _vec_ok(t: torch.Tensor, n: int) -> int:
+    """16-byte loads need rows of a multiple of 16 bytes and an aligned base."""
+    return int(n % 16 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_cuda(name, x, w, scale, scale_rows):
@@ -128,6 +134,23 @@ def _check_cuda(name, x, w, scale, scale_rows):
         raise TypeError(f"{name} must be int8, got {w.dtype}")
     if scale.numel() != scale_rows * w.shape[-1]:
         raise ValueError(f"scale {tuple(scale.shape)} does not fit {name} {tuple(w.shape)}")
+
+
+def _launch(xf, w, sf, int4, layers=1):
+    """One launch of ``csrc/int8_matmul.cu`` on contiguous x (R, K) f32,
+    weights (K, N) int8 or (layers, K/2, N) packed and their f32 scales →
+    (R, N) f32."""
+    r, k = xf.shape
+    n = w.shape[-1]
+    out = torch.empty(r, n, dtype=torch.float32, device=xf.device)
+    lib = _lib()
+    vec_x = int(k % 16 == 0 and xf.data_ptr() % 16 == 0)
+    args = (xf.data_ptr(), w.data_ptr(), sf.data_ptr(), out.data_ptr(), _vec_ok(w, n), vec_x,
+            _stream(xf.device))
+    err = (lib.int4_matmul(r, k, n, layers, *args) if int4 else lib.int8_matmul(r, k, n, *args))
+    if err != 0:
+        raise RuntimeError(f"{'int4' if int4 else 'int8'}_matmul: CUDA error {err}")
+    return out
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -143,17 +166,10 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     if x.device.type != "cuda":
         raise ValueError(f"no int8_matmul kernel for device {x.device}")
     _check_cuda("w_q", x, w_q, scale, 1)
-    xf, w_q = xf.contiguous(), w_q.contiguous()
-    sf = scale.to(torch.float32).contiguous()
-    r = xf.shape[0]
-    out = torch.empty(r, n, dtype=torch.float32, device=x.device)
-    if r and n:
-        err = _lib().int8_matmul(r, k, n, xf.data_ptr(), w_q.data_ptr(), sf.data_ptr(),
-                                 out.data_ptr(), _vec_ok(w_q, n),
-                                 torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"int8_matmul: CUDA error {err}")
-        int8_matmul.launches += 1
+    if xf.shape[0] == 0 or n == 0:
+        return torch.empty(*lead, n, dtype=torch.float32, device=x.device)
+    out = _launch(xf.contiguous(), w_q.contiguous(), scale.to(torch.float32).contiguous(), False)
+    int8_matmul.launches += 1
     return out.reshape(*lead, n)
 
 
@@ -180,15 +196,10 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     if x.device.type != "cuda":
         raise ValueError(f"no int4_matmul kernel for device {x.device}")
     _check_cuda("packed", x, packed, scale, 2 * n_layers)
-    xf, packed = xf.contiguous(), packed.contiguous()
-    sf = scale.to(torch.float32).contiguous()
-    r = xf.shape[0]
-    out = torch.empty(r, n, dtype=torch.float32, device=x.device)
-    err = _lib().int4_matmul(r, k, n, n_layers, xf.data_ptr(), packed.data_ptr(),
-                             sf.data_ptr(), out.data_ptr(), _vec_ok(packed, n),
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int4_matmul: CUDA error {err}")
+    if xf.shape[0] == 0 or n == 0:
+        return torch.empty(xf.shape[0], n, dtype=torch.float32, device=x.device)
+    out = _launch(xf.contiguous(), packed.contiguous(), scale.to(torch.float32).contiguous(),
+                  True, n_layers)
     int4_matmul.launches += 1
     return out
 

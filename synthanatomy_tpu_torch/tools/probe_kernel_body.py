@@ -87,21 +87,26 @@ FAVOR_ROWS = [  # label, which, body
 ]
 
 
-def compare(name, got, want, tol):
+def compare(name, got, want, tol, bound=None):
     """Kernel against plain twin on the same inputs: max abs error at
     most ``tol`` of the plain result's largest magnitude and
     norm-relative error at most ``tol`` / 2 (``TOL``: bf16: both round at
     the same points and sum in other orders, so an operand on a rounding
     boundary may go the other way (2^-8 of it) and move what it feeds by
     up to ~1e-2 of the largest; f32: ~1e-6).  A wrong mask, body or
-    index gives errors of order 1.  Raises on a failure; returns the max
-    abs error."""
+    index gives errors of order 1.  With ``bound`` (per element, from
+    :func:`idfeat_dq_bound`), the error beyond it is held to that.
+    Raises on a failure; returns the max abs error (beyond the bound)."""
     got, want = got.float(), want.float()
-    err = float((got - want).abs().max())
+    diff = (got - want).abs()
+    if bound is not None:
+        diff = (diff - bound.float()).clamp(min=0)
+    err = float(diff.max())
     if not (err <= tol * float(want.abs().max())
-            and float(torch.linalg.norm(got - want)) <= tol / 2 * float(torch.linalg.norm(want))):
+            and float(torch.linalg.norm(diff)) <= tol / 2 * float(torch.linalg.norm(want))):
         raise RuntimeError(f"probe_kernel_body: {name} disagrees with its plain twin: max abs "
-                           f"err {err:.3e}, max |plain| {float(want.abs().max()):.3e}")
+                           f"err {err:.3e}{' beyond the bound' if bound is not None else ''}, "
+                           f"max |plain| {float(want.abs().max()):.3e}")
     return err
 
 
@@ -113,14 +118,15 @@ def _inputs(shape, dtype, seed, dev, positive=False):
     return [torch.from_numpy(x.astype(np.float32)).to(dtype).to(dev) for x in xs]
 
 
-def _favor_inputs(body, dtype, dev):
-    """q, k, v, g and a projection: for identity features positive q, k
-    and projection (their denominator then stays positive), else a
-    Gaussian projection."""
+def _favor_inputs(body, dtype, dev, small=None):
+    """q, k, v, g and a projection at ``small`` (default ``SMALL``): for
+    identity features positive q, k and projection (their denominator
+    then stays positive), else a Gaussian projection."""
+    small = small or SMALL
     pos = body == "idfeat"
-    q, k, v, g = _inputs(SMALL, dtype, 2, dev, positive=pos)
+    q, k, v, g = _inputs(small, dtype, 2, dev, positive=pos)
     rng = np.random.default_rng(3)
-    shape = (SMALL_M, SMALL[-1])
+    shape = (SMALL_M, small[-1])
     proj = rng.uniform(0.0, 0.1, size=shape) if pos else rng.normal(size=shape)
     return q, k, v, g, torch.from_numpy(proj.astype(np.float32)).to(dev)
 
@@ -130,9 +136,9 @@ def check_small(dev) -> float:
     f32; returns the largest error relative to the plain magnitude."""
     worst = 0.0
 
-    def note(name, got, want, dtype, tol=None):
+    def note(name, got, want, dtype, tol=None, bound=None):
         nonlocal worst
-        err = compare(name, got, want, tol or TOL[dtype])
+        err = compare(name, got, want, tol or TOL[dtype], bound)
         worst = max(worst, err / max(float(want.float().abs().max()), 1e-30))
 
     hpbs = sorted({1, SMALL_HPB})
@@ -163,11 +169,171 @@ def check_small(dev) -> float:
                 if sweep == "dq":
                     got, want = (got,), (want,)
                 # identity features' dq = du·P·d^-1/4 − w·d^-1/2·q nearly
-                # cancels: f32 sums in other orders reach ~2e-4 of it
+                # cancels: f32 sums in other orders reach ~2e-4 of it; in
+                # bf16 a tensor-core sum may put ds on the other side of a
+                # bf16 rounding boundary (dq_cancellation), which moves
+                # its row by up to idfeat_dq_bound
                 tol = 1e-3 if (body, sweep, dtype) == ("idfeat", "dq", torch.float32) else None
+                bound = (idfeat_dq_bound(q, k, v, proj, g, out, den, SMALL_CHUNK)
+                         if (body, sweep, dtype) == ("idfeat", "dq", torch.bfloat16) else None)
                 for i, (a, b) in enumerate(zip(got, want)):
-                    note(f"favor {sweep} {body} output {i}", a, b, dtype, tol)
+                    note(f"favor {sweep} {body} output {i}", a, b, dtype, tol, bound)
     return worst
+
+
+# The tensor cores' sum of a k16 step misses the exactly rounded sum by
+# at most ~1.0e-7 of the step's Σ|terms| on the card (dq_cancellation's
+# readings); the bound below allows 2^-20 (9.5e-7) of a product's
+# Σ|terms|: the kernel's 4 k16 steps and the plain twin's own f32 sum.
+MMA_SUM_MISS = 2.0 ** -20
+
+
+def rounded_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _ulp_bf16(x):
+    """The spacing of bf16 values at |x| (x of bf16 values, f32)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), (e - 8).clamp(min=-133))
+
+
+def idfeat_dq_bound(q, k, v, proj, g, out, den, chunk):
+    """Per element of the identity-features dq sweep (bf16), the largest
+    move the card's sums can make in it through one bf16 rounding of ds
+    = rnd(dnum)·vᵀ + gd: ds is a tensor-core sum (its miss at most
+    ``MMA_SUM_MISS`` of Σ_e |rnd(dnum)_e·v_e| + |gd|), rounded to bf16 as
+    the plain twin rounds it, so where ds lies that close to a rounding
+    boundary rnd(ds) may go either way by one bf16 step Δ.  Each such
+    (row i, key j) moves dq_p by Δ·kc_j, and through the plain twin's
+    tail (w, the row max's share, rnd(du)·rnd(P)·dn − w·dn²·q) row i's
+    dq by a vector whose magnitude is added, with one bf16 step of each
+    du_f for the rounding of du.  The plain twin supplies every term;
+    (B, H, L, d) f32, zero where no rounding of ds is that close."""
+    shape = q.shape
+    d, m = shape[-1], proj.shape[0]
+    dn, r = np.float32(d ** -0.25), np.float32(m ** -0.5)
+    pb = rounded_bf16(proj.float())
+    qf, vf = kb.fa._flat(q).float(), kb.fa._flat(v).float()
+    bound = torch.zeros_like(qf)
+    for t in kb.favor_dq_terms(q, k, v, proj, g, out, den, chunk, "idfeat"):
+        sl = t["sl"]
+        c = t["kc"].shape[1]
+        tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=q.device))
+        sabs = rounded_bf16(t["dnum"]).abs() @ vf[:, sl].abs().transpose(1, 2) + t["gd"].abs()
+        delta = torch.where(tri, MMA_SUM_MISS * sabs, 0.0)
+        step = rounded_bf16(t["ds"] + delta) - rounded_bf16(t["ds"] - delta)
+        for n, i, j in (step != 0).nonzero().tolist():
+            dE = step[n, i, j] * t["kc"][n, j] * (r * t["e_q"][n, i])
+            dw = dE.sum()
+            ties = t["ties"][n, i]
+            du = dE - ties * (dw / ties.sum())
+            row = sl.start + i
+            bound[n, row] += (dn * (du @ pb) - dw * (dn * dn) * qf[n, row]).abs() \
+                + dn * (_ulp_bf16(rounded_bf16(t["du"][n, i])) @ pb.abs())
+    return bound.view(shape)
+
+
+def dq_cancellation(dev, small=(1, 2, 129, 32)) -> dict:
+    """Where the bf16 identity-features dq sweep's kernel leaves its plain
+    twin (``check_small``'s inputs at ``small``, m ``SMALL_M``, chunk
+    ``SMALL_CHUNK``), rebuilt for the 16 rows of the worst element (the
+    rows one warp of the kernel owns) from the plain twin's own operands
+    in the kernel's order: dq_p = rnd(ds)·kc + rnd(dnum)·rnd(S)ᵀ + gd·z
+    through ``mma_steps`` (the kernels' ``mma.sync``, each k16 step's
+    accumulator read back, against exactly rounded steps), and ds =
+    rnd(dnum)·vᵀ + gd through ``mma_steps`` too; the plain twin's tail
+    turns each into dq.  Returns the readings (and prints them)."""
+    bf = rounded_bf16
+    q, k, v, g, proj = _favor_inputs("idfeat", torch.bfloat16, dev, small)
+    out, den = kb.favor_fwd_body(q, k, v, proj, SMALL_CHUNK, "idfeat")
+    got = kb.favor_bwd_body(q, k, v, proj, g, out, den, SMALL_CHUNK, "idfeat", "dq")
+    want = kb.favor_bwd_body_plain(q, k, v, proj, g, out, den, SMALL_CHUNK, "idfeat", "dq")
+    d, m, n = small[-1], proj.shape[0], small[2]
+    got, want = got.reshape(-1, n, d).cpu(), want.reshape(-1, n, d).cpu()
+    bh, i, e = (int(x) for x in np.unravel_index(int((got - want).abs().argmax()), got.shape))
+    ci = i // SMALL_CHUNK
+    t = {key: (val.cpu() if torch.is_tensor(val) else val) for key, val in
+         kb.favor_dq_terms(q, k, v, proj, g, out, den, SMALL_CHUNK, "idfeat")[ci].items()}
+    cl = t["kc"].shape[1]
+    ir = i - ci * SMALL_CHUNK
+    r0 = ir // 16 * 16  # the warp's 16 rows of the chunk
+    rows = slice(r0, min(r0 + 16, cl))
+    nr = rows.stop - rows.start
+    keys = (ir // 64 + 1) * 64  # the key tiles the kernel walks (causal: up to its sub-tile)
+    kk = min(cl, keys)  # the chunk's keys among them (the rest are zero)
+    dp, mp = 64, -(-m // 64) * 64  # the kernel's padded head and feature widths
+
+    def on_card(a, bt):
+        """The card's accumulators after each k16 step of a (16, K) · bt (N,
+        K)ᵀ, 8 columns at a time → (steps, 16, N)."""
+        zero = torch.zeros(16, 8, device=dev)
+        return torch.cat([kb.mma_steps(a.to(torch.bfloat16).to(dev),
+                                       bt[c0:c0 + 8].to(torch.bfloat16).to(dev), zero).cpu()
+                          for c0 in range(0, bt.shape[0], 8)], dim=-1)
+
+    # dq_p's products: the chunk's key steps, then the head's
+    a = torch.zeros(16, keys + dp)
+    a[:nr, :kk] = bf(t["ds"][bh, rows, :kk])
+    a[:nr, keys:keys + d] = bf(t["dnum"][bh, rows])
+    bt = torch.zeros(mp, keys + dp)
+    bt[:m, :kk] = t["kc"][bh, :kk].T
+    bt[:m, keys:keys + d] = bf(t["S"][bh])
+    steps = on_card(a, bt)
+    card = steps[-1]
+    exact = torch.cat([kb.mma_steps_exact(a.to(torch.bfloat16), bt[c0:c0 + 8].to(torch.bfloat16),
+                                          torch.zeros(16, 8))[-1] for c0 in range(0, mp, 8)], -1)
+    # each step against its exactly rounded sum from the card's own accumulator
+    terms = a.double()[:, None, :] * bt.double()[None]  # (16, mp, K), each exact
+    prev, miss_of_sum = torch.zeros(16, mp, dtype=torch.float64), 0.0
+    for s_, acc in enumerate(steps):
+        ts = terms[..., 16 * s_:16 * s_ + 16]
+        miss = (acc.double() - (prev + ts.sum(-1)).float().double()).abs()
+        total = ts.abs().sum(-1) + prev.abs()
+        miss_of_sum = max(miss_of_sum, float((miss / total.clamp(min=1e-38)).max()))
+        prev = acc.double()
+    # ds of the 16 rows on the card (the head's k16 steps, then gd in f32),
+    # and the keys whose bf16 rounding goes the other way than the plain's
+    dnum_a = torch.zeros(16, dp)
+    dnum_a[:nr, :d] = bf(t["dnum"][bh, rows])
+    vk = torch.zeros(keys, dp)
+    vk[:kk, :d] = kb.fa._flat(v).float().cpu()[bh, ci * SMALL_CHUNK:][:kk]
+    ds_card = on_card(dnum_a, vk)[-1, :nr, :kk] + t["gd"][bh, rows]
+    ds_card = torch.where(torch.tril(torch.ones(cl, cl, dtype=torch.bool))[rows, :kk], ds_card, 0.0)
+    ds_plain = t["ds"][bh, rows, :kk]
+    gz = t["gd"][bh, rows] * t["z"][bh][None]  # (nr, m), f32 products
+
+    def to_dq(prod):
+        """dq at the worst element from the rows' dq_p products (nr, m):
+        the plain twin's tail."""
+        dE = (prod[:nr, :m] + gz) * (m ** -0.5 * t["e_q"][bh, rows])
+        w = dE.sum(-1, keepdim=True)
+        ties = t["ties"][bh, rows]
+        du = dE - ties * (w / ties.sum(-1, keepdim=True))
+        dn = d ** -0.25
+        qr = kb.fa._flat(q).float().cpu()[bh, ci * SMALL_CHUNK + r0:][:nr]
+        return float((bf(du) @ bf(proj.float().cpu()) * dn - w * (dn * dn) * qr)[ir - r0, e])
+
+    bound = idfeat_dq_bound(q, k, v, proj, g, out, den, SMALL_CHUNK).reshape(-1, n, d).cpu()
+    res = {
+        "worst": (bh, i, e), "kernel": float(got[bh, i, e]), "plain": float(want[bh, i, e]),
+        "max_abs_plain": float(want.abs().max()),
+        "ds_flips": [(ci * SMALL_CHUNK + r0 + a_, ci * SMALL_CHUNK + j, float(ds_plain[a_, j]),
+                      float(ds_card[a_, j]))
+                     for a_, j in (bf(ds_card) != bf(ds_plain)).nonzero().tolist()],
+        "dq_from_card_mma": to_dq(card), "dq_from_exact_steps": to_dq(exact),
+        "dq_from_plain_sum": to_dq(t["dqp"][bh, rows] - gz),
+        "dq_from_card_ds": to_dq(bf(ds_card) @ t["kc"][bh, :kk]
+                                 + bf(t["dnum"][bh, rows]) @ bf(t["S"][bh]).T),
+        "step_miss_of_sum_abs_terms": miss_of_sum,
+        "card_vs_exact_dqp_max": float((card - exact).abs().max()),
+        "bound_at_worst": float(bound[bh, i, e]),
+        "excess_over_bound_max": float(((got - want).abs() - bound).clamp(min=0).max()),
+    }
+    print("[dq cancellation] " + ", ".join(
+        f"{key} {val:.9e}" if isinstance(val, float) else f"{key} {val}"
+        for key, val in res.items()))
+    return res
 
 
 def check_production(q, k, v, g, proj) -> None:

@@ -216,3 +216,33 @@ def test_probe_cli_runs_on_cpu(monkeypatch, capsys):
     assert res["favor"]["dq full (fwd+dq measured; subtract fwd)"]["with_fwd_s"] > 0
     quick = probe_kernel_body.main(["--cpu", "--reps", "1", "--quick"])
     assert len(quick["local_bwd"]) == 3 and len(quick["favor"]) == 2
+
+
+def test_mma_steps_exact_rounds_each_step_once():
+    """The diagnostic's exactly rounded k16 steps (the CPU form of
+    ``kb.mma_steps``) against float64 sums of the same bf16 products,
+    rounded to f32 after each step."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.normal(size=(16, 48)).astype(np.float32)).to(torch.bfloat16)
+    bt = torch.from_numpy(rng.normal(size=(8, 48)).astype(np.float32)).to(torch.bfloat16)
+    c = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32))
+    got = kb.mma_steps(a, bt, c)
+    acc = c.numpy().astype(np.float64)
+    for s in range(3):
+        sl = slice(16 * s, 16 * s + 16)
+        acc = (acc + a.double().numpy()[:, sl] @ bt.double().numpy()[:, sl].T).astype(
+            np.float32).astype(np.float64)
+        np.testing.assert_array_equal(got[s].numpy(), acc.astype(np.float32))
+    with pytest.raises(ValueError):
+        kb.mma_steps(a[:, :40], bt[:, :40], c)
+
+
+def test_dq_terms_rebuild_the_plain_dq():
+    """The plain twin's dq sweep split at its last product
+    (``favor_dq_terms``) gives the plain twin's dq, and the diagnostic,
+    run on the CPU (where the kernel is the twin), finds no miss, no ds
+    rounding flip and no excess over the bound."""
+    res = probe_kernel_body.dq_cancellation(torch.device("cpu"), (1, 2, 40, 16))
+    assert res["kernel"] == res["plain"] == res["dq_from_plain_sum"]
+    assert res["ds_flips"] == [] and res["excess_over_bound_max"] == 0.0
+    assert res["card_vs_exact_dqp_max"] < 1e-6

@@ -486,6 +486,52 @@ def test_kernel_body_production_bodies_are_bit_equal(cuda, monkeypatch, shape, w
 
 
 @pytest.mark.gpu
+def test_idfeat_dq_miss_is_a_ds_rounding_flip(cuda):
+    """The evidence behind the bound of the bf16 identity-features dq
+    case (tools/probe_kernel_body.idfeat_dq_bound), at the shape where it
+    showed (1 x 2 x 129 x 32). Every k16 step of the card's mma.sync on
+    the plain twin's operands stays within the bound's allowance of its
+    Σ|terms|. Where the kernel's worst element leaves the plain twin by
+    more than 2e-2 of max |plain|, the miss must be a ds rounding flip:
+    the dq_p product rebuilt on the card from the plain's operands gives
+    the plain's dq, ds = rnd(dnum)·vᵀ + gd summed on the card rounds that
+    element's key to bf16 the other way, with that ds the plain's tail
+    gives the kernel's dq, and the miss stays within the bound. A kernel
+    whose sums no longer flip passes without that explanation."""
+    r = pkb.dq_cancellation(cuda, (1, 2, 129, 32))
+    assert r["step_miss_of_sum_abs_terms"] <= pkb.MMA_SUM_MISS / 4
+    miss = abs(r["kernel"] - r["plain"])
+    if miss <= 2e-2 * r["max_abs_plain"]:
+        return
+    assert abs(r["dq_from_card_mma"] - r["plain"]) < 1e-2 * miss
+    assert r["ds_flips"] and r["ds_flips"][0][0] == r["worst"][1]
+    assert abs(r["dq_from_card_ds"] - r["kernel"]) < 1e-2 * miss
+    assert r["excess_over_bound_max"] <= 1e-3 * miss
+
+
+@pytest.mark.gpu
+def test_mma_steps_sum_each_step_near_exactly(cuda):
+    """The diagnostic kernel's chained mma.sync steps against exactly
+    rounded steps on random bf16 operands: each within the bound's
+    per-step allowance of its Σ|terms|."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(16, 64, generator=gen).to(torch.bfloat16)
+    bt = torch.randn(8, 64, generator=gen).to(torch.bfloat16)
+    c = torch.randn(16, 8, generator=gen)
+    before = tkb.mma_steps.launches
+    got = tkb.mma_steps(a.to(cuda), bt.to(cuda), c.to(cuda)).cpu()
+    assert tkb.mma_steps.launches == before + 1
+    prev = c.double()
+    for s in range(4):
+        terms = a.double()[:, None, 16 * s:16 * s + 16] * bt.double()[None, :, 16 * s:16 * s + 16]
+        want = (prev + terms.sum(-1)).float()
+        total = terms.abs().sum(-1) + prev.abs()
+        assert float(((got[s].double() - want.double()).abs() / total).max()) \
+            <= pkb.MMA_SUM_MISS / 4
+        prev = got[s].double()
+
+
+@pytest.mark.gpu
 def test_kernel_body_refuses_what_does_not_fit(cuda):
     q = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16, device=cuda)
     wide = torch.zeros(1, 1, 64, 128, dtype=torch.bfloat16, device=cuda)
@@ -740,7 +786,8 @@ def _int8_weights(k, n, gen, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,k,n", [(16, 512, 1024), (16, 2048, 512), (1, 200, 96),
-                                   (5, 64, 1000), (33, 128, 256), (7, 30, 17)])
+                                   (5, 64, 1000), (33, 128, 256), (7, 30, 17),
+                                   (65, 512, 1024), (17, 72, 200)])
 def test_int8_matmul_kernel_matches_plain(cuda, r, k, n):
     gen = torch.Generator(device=cuda).manual_seed(r * k + n)
     x = torch.randn(r, k, generator=gen, device=cuda)
@@ -757,35 +804,56 @@ def test_int8_matmul_kernel_matches_plain(cuda, r, k, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layers,n", [(1, 512), (4, 512), (2, 100)])
-def test_int4_matmul_kernel_matches_plain(cuda, layers, n):
-    gen = torch.Generator(device=cuda).manual_seed(layers + n)
-    x = torch.randn(16, 256, generator=gen, device=cuda)
-    packed, scale = zip(*(tq.quantize_int4_packed(torch.randn(256, n, generator=gen,
-                                                              device=cuda))
+@pytest.mark.parametrize("r,k,n,layers", [(16, 256, 512, 1), (16, 256, 512, 4), (16, 256, 100, 2),
+                                          (16, 512, 2048, 1), (1, 512, 1024, 2),
+                                          (17, 72, 200, 2), (33, 256, 96, 3), (65, 40, 64, 1)])
+def test_int4_matmul_kernel_matches_plain(cuda, r, k, n, layers):
+    """The packed product's last layer against the plain twin, also at
+    the paper GEMV width, at 1, 17, 33 and 65 rows of x (one to four m16
+    tiles, then two row groups), with K/2 not a multiple of the 16-row
+    k-step and N not a multiple of 16 (byte loads); one launch a call,
+    bit-identical reruns."""
+    gen = torch.Generator(device=cuda).manual_seed(r * k + n + layers)
+    x = torch.randn(r, k, generator=gen, device=cuda)
+    packed, scale = zip(*(tq.quantize_int4_packed(torch.randn(k, n, generator=gen, device=cuda))
                           for _ in range(layers)))
     packed, scale = torch.stack(packed), torch.stack(scale)
+    before = tq.int4_matmul.launches
     got = tq.int4_matmul(x, packed, scale)
-    want = tq.int4_matmul_plain(x, packed[-1], scale[-1])
+    again = tq.int4_matmul(x, packed, scale)
     torch.cuda.synchronize()
-    _assert_kernel_close("int4_matmul", got, want, torch.float32)
+    assert tq.int4_matmul.launches == before + 2
+    assert torch.equal(got, again)  # fixed summation order
+    _assert_kernel_close("int4_matmul", got, tq.int4_matmul_plain(x, packed[-1], scale[-1]),
+                         torch.float32)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed-int4"])
-def test_weight_stream_kernel_matches_plain(cuda, packed):
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    b, k, n, layers = 16, 128, 512, 5
+@pytest.mark.parametrize("b,k,n,layers", [(16, 128, 512, 5), (16, 512, 2048, 3),
+                                          (1, 512, 2048, 2), (17, 128, 512, 2),
+                                          (33, 128, 512, 2), (16, 72, 144, 2),
+                                          (16, 40, 200, 2)],
+                         ids=["B16-L5", "paper-L3", "B1", "B17", "B33", "K72", "K40-N200"])
+def test_weight_stream_kernel_matches_plain(cuda, packed, b, k, n, layers):
+    """The chain against the plain twin, also at the probe's width (B16,
+    K512, N2048) at L 3, at B 1, 17 and 33 (one, two and four m16 tiles),
+    with K/2 = 36 (packed rows not a multiple of the k-step) and with
+    K 40, N 200 (not multiples of 16: byte loads); one launch a call,
+    two runs bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(b * k + n + layers + int(packed))
     x = torch.randn(b, k, generator=gen, device=cuda).to(torch.bfloat16)
-    w = torch.randint(-7, 8, (layers, k // 2 if packed else k, n), generator=gen,
+    w = torch.randint(-128, 128, (layers, k // 2 if packed else k, n), generator=gen,
                       device=cuda).to(torch.int8)
     s = torch.rand(layers, 1, n, generator=gen, device=cuda) * 0.01 + 0.01
+    before = tpr.weight_stream.launches
     got = tpr.weight_stream(x, w, s, packed)
     again = tpr.weight_stream(x, w, s, packed)
-    want = tpr.weight_stream_plain(x, w, s, packed)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    _assert_kernel_close("weight_stream", got, want, torch.float32)
+    assert tpr.weight_stream.launches == before + 2
+    assert torch.equal(got, again)  # fixed summation order
+    _assert_kernel_close("weight_stream", got, tpr.weight_stream_plain(x, w, s, packed),
+                         torch.float32)
 
 
 @pytest.mark.gpu
