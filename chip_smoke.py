@@ -9,13 +9,15 @@ result, without them.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed),
-   then the SASS of rows 2, 5, 6, 7, 8 and 9a (``cuobjdump -sass``): HMMA
-   or HGMMA in every bf16 instantiation of their kernels (row 5: the
+   then the SASS of rows 2, 3, 5, 6, 7, 8 and 9a (``cuobjdump -sass``):
+   HMMA or HGMMA in every bf16 instantiation of their kernels (row 5: the
    chunk-parallel route's state, forward, dq and dk/dv kernels and their
-   probe ablations) and in every instantiation of the weight-streaming
-   GEMVs (``matmul_kernel``, ``stream_kernel``), with each kernel's
-   registers, spills and stack (``ptxas -v``) and the dynamic shared
-   memory of their launches;
+   probe ablations), in every instantiation of the weight-streaming
+   GEMVs (``matmul_kernel``, ``stream_kernel``) and of row 3's split-TF32
+   argmin (``vq_argmin_kernel``, which ptxas must not spill), with each
+   kernel's registers, spills and stack (``ptxas -v``) and the dynamic
+   shared memory of their launches (row 3's clusters, and how many fit
+   the card at once);
 3. the fused decode kernel against its plain PyTorch version, at paper
    width and at the small test shape, for int8 weights + bf16 rings and
    int4 weights + int8 rings, pre-LayerNorm and ReZero, at t in
@@ -68,7 +70,8 @@ result, without them.  Phases, each fatal on failure:
    (N 4200 = B3 x 10x14x10 rows, K 2048, D 32) and at ragged N, K and D
    (indices equal except where the two best distances lie within a
    stated margin, counts exact, sums within tolerance, two runs
-   bit-identical); the fused residual layer at the paper shape (1 x 128 x
+   bit-identical, and the device launches of one call by torch.profiler:
+   one for the argmin, at most 3 for the statistics); the fused residual layer at the paper shape (1 x 128 x
    80x112x80 bf16, R 128) and at awkward ones (D/H/W not multiples of the
    tile, C != R, f32 and bf16, shapes of the tile route and of the GEMM
    route), each with x in NCDHW and in channels-last memory: y and h,
@@ -91,8 +94,9 @@ result, without them.  Phases, each fatal on failure:
    without it;
 11. timings on the card: extraction + decode ms per volume; the stage-1
    train step, kernels vs plain (ms, volumes/s, peak memory); a
-   torch.profiler breakdown of one kernel step; rows 3 and 4 vs their
-   plain versions and addmm + argmin; row 7's forward and backward at the
+   torch.profiler breakdown of one kernel step; rows 3 and 4 in turns
+   with their plain versions and addmm + argmin, elapsed and device time,
+   beside the f32 and the TF32 tensor-core bounds; row 7's forward and backward at the
    paper shape on channels-last x, in turns with its plain version and
    cuDNN's chain (conv3d -> relu -> conv3d -> add -> relu), elapsed and
    device time, with the chain on NCDHW too, its launches by kernel
@@ -199,7 +203,8 @@ VOLUME = (160, 224, 160)
 # per stage-1 train step: 6 fused layers (3 encoder at level 0, 3 decoder
 # at the last level) x (forward + remat recompute), 6 backward, 1 argmin
 RES_FWD_PER_STEP, RES_BWD_PER_STEP, ARGMIN_PER_STEP = 12, 6, 1
-PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM dense peaks (FLOP/s, B/s)
+# H100 SXM dense peaks (FLOP/s, B/s)
+PEAK_BF16, PEAK_TF32, PEAK_F32, HBM = 989e12, 495e12, 67e12, 3.35e12
 # the bench's paper form through splash, and the same through row 6
 BENCH_SPLASH = ["--splash-local", "--pallas-favor", "--use-rezero", "--spatial-emb", "absolute",
                 "--attn-dtype", "bfloat16"]
@@ -213,6 +218,10 @@ SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two back
 # rows 2 and 9a (GEMV_LIBS) run every instantiation, int8 or int4 weights,
 # on bf16 products
 GEMV_LIBS = ("int8_matmul", "weight_stream")
+# libraries whose every instantiation of the listed kernels must hold
+# tensor-core instructions: the GEMVs (int8 or int4 weights, bf16
+# products) and row 3's argmin (f32 rows, split-TF32 products)
+ALL_INSTANTIATIONS = GEMV_LIBS + ("vq_argmin",)
 FAVOR_ROUTE_KERNELS = ("favor_state_kernel", "favor_fwd_kernel", "favor_dq_kernel",
                        "favor_dkv_kernel")
 TENSOR_CORE_KERNELS = {
@@ -226,6 +235,7 @@ TENSOR_CORE_KERNELS = {
     "res_stack": ("res_fwd_kernel", "res_bwd_dx_kernel", "res_bwd_dw1_kernel",
                   "res_tile_fwd_kernel", "res_tile_da_kernel", "res_tile_dx_kernel",
                   "res_tile_dw1_kernel"),
+    "vq_argmin": ("vq_argmin_kernel",),
 }
 
 
@@ -253,6 +263,7 @@ def _check_sass():
     from synthanatomy_tpu_torch.ops import local_attention_splash as ls
     from synthanatomy_tpu_torch.ops import probes, quant
     from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
 
     for lib, kernels in TENSOR_CORE_KERNELS.items():
         regs = _build.ptxas_kernels(lib)
@@ -260,7 +271,7 @@ def _check_sass():
         for mangled, (label, body) in sorted(_build.sass(lib).items(), key=lambda kv: kv[1][0]):
             hmma, hgmma = body.count("HMMA"), body.count("HGMMA")
             base = label.split("<")[0].split("::")[-1]
-            must = base in kernels and (lib in GEMV_LIBS or "__nv_bfloat16" in label
+            must = base in kernels and (lib in ALL_INSTANTIATIONS or "__nv_bfloat16" in label
                                         or base.startswith("res_tile_"))
             if must:
                 _require(hmma + hgmma > 0, f"{lib}: {label} has no tensor-core instruction")
@@ -270,8 +281,13 @@ def _check_sass():
                   f"{r.get('registers')} registers, spills {r.get('spill_stores')}/"
                   f"{r.get('spill_loads')} bytes, stack {r.get('stack')} bytes")
         _require(held > 0, f"{lib}: no bf16 kernel found in the SASS")
+        if lib == "vq_argmin":
+            spills = [(lbl, r) for m, (lbl, _) in _build.sass(lib).items()
+                      for r in [regs.get(m, {})] if lbl.startswith("vq_argmin_kernel")]
+            _require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                         for _, r in spills), f"vq_argmin: ptxas spills {spills}")
         print(f"[sass] {lib}: tensor-core instructions in all {held} "
-              f"{'' if lib in GEMV_LIBS else 'bf16 '}instantiations")
+              f"{'' if lib in ALL_INSTANTIATIONS else 'bf16 '}instantiations")
     for r, k, n in INT8_GEMV:
         print(f"[smem] row 2 int8_matmul R{r} K{k} N{n}: {quant._lib().gemv_matmul_blocks(r, k, n, 0)} "
               f"one-warp blocks, {quant._lib().gemv_matmul_smem(r, k, n, 0)} B of dynamic shared "
@@ -290,6 +306,11 @@ def _check_sass():
                     for name, kind in (("state", 0), ("forward", 2), ("dq", 3), ("dk/dv", 4))}
         print(f"[smem] row 5 {dtype} at m 256: " + ", ".join(
             f"{name} {b} B ({233472 // (b + 1024)} blocks an SM)" for name, b in launches.items()))
+    vql = vq._lib()
+    for n, k, d in ((VQ_BATCH * SEQ, 2048, 32), (1000, 300, 64), (300, 100, 200)):
+        print(f"[smem] rows 3-4 N {n} K {k} D {d}: {vql.vq_blocks(n, k)} blocks of 256 threads in "
+              f"clusters of {vql.vq_cluster(n, k)}, {vql.vq_smem_bytes(d)} B of dynamic shared "
+              f"memory each; {vql.vq_active_clusters(n, k, d)} clusters fit the card at once")
     print(f"[smem] row 7 at C = R = 128: bf16 (tile route: {bool(rs._lib().res_route(128, 128, 1))}) "
           f"{rs._lib().res_smem_bytes(128, 128, 1)} B, f32 (GEMM route) "
           f"{rs._lib().res_smem_bytes(128, 128, 0)} B of dynamic shared memory, largest launch")
@@ -852,7 +873,46 @@ def _check_vq_kernels(dev):
               f"{n_diff} rows differ (allowed only within 1e-5 of the distance scale; gap "
               f"{gap:.3e}); stats: counts exact, sum x max abs err {sx_err:.3e} (tol 2e-2 of "
               f"max |plain|, 1e-2 in norm), two runs bit-identical")
+        # the device launches of one call of each: the argmin one (cluster)
+        # launch, the statistics at most 3 (here 2), as torch.profiler sees them
+        for name, fn, most in (("nearest_codeword", lambda: vq.nearest_codeword(x, w), 1),
+                               ("nearest_codeword_stats",
+                                lambda: vq.nearest_codeword_stats(x, w), 3)):
+            got = _kernel_launches(fn, "vq_")
+            _require(1 <= sum(got.values()) <= most and "vq_argmin_kernel" in got,
+                     f"{label}: {name} launched {got}, want the argmin and at most {most} "
+                     f"vq_ kernels")
+            print(f"[check] {name} ({label}) one call: {sum(got.values())} launches {got}")
     return errs
+
+
+def _kernel_launches(fn, prefix, reps=20, sessions=3):
+    """{kernel name: launches a call} of the kernels named ``prefix``... on
+    the card, by torch.profiler over ``reps`` calls of ``fn`` queued behind
+    a GPU spin of ~0.5 ms, rounded up (a short session may miss the first
+    launches it sees; a session that saw none of them is run again, up to
+    ``sessions`` times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+                name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+                if name.startswith(prefix):
+                    out[name] = out.get(name, 0) + evt.count
+        if out:
+            break
+    return {name: -(-count // reps) for name, count in out.items()}
 
 
 def _res_inputs(shape, r, dtype, seed, dev):
@@ -1254,22 +1314,31 @@ def _time_stage1_kernels(dev, smi):
         return torch.addmm(wsq[None, :], x, w.t(), alpha=-2.0).argmin(1)
 
     io = _nbytes(x, w) + n * 4
+    # rows 3 and 4: the search is 2NKD operations, bound at the f32 peak,
+    # or 3 x 2NKD on the tensor cores (split TF32) at the TF32 peak; the
+    # lesser is the bound, so that no kernel reads faster than it
     pairs = {
         "argmin": (lambda: vq.nearest_codeword(x, w), lambda: vq.nearest_codeword_plain(x, w),
-                   yard_argmin, _bound(2 * n * k * d, io, PEAK_F32)),
+                   yard_argmin, 2 * n * k * d, io),
         "stats": (lambda: vq.nearest_codeword_stats(x, w),
                   lambda: vq.nearest_codeword_stats_plain(x, w), yard_argmin,
-                  _bound(2 * n * k * d + n * d, io + k * (d + 1) * 4, PEAK_F32)),
+                  2 * n * k * d + n * d, io + k * (d + 1) * 4),
     }
-    for name, (kern, plain, yard, bound) in pairs.items():
-        p1, k1, k2, p2 = (_time_ms(plain, 20), _time_ms(kern, 20), _time_ms(kern, 20),
-                          _time_ms(plain, 20))
-        y_ms = _time_ms(yard, 20)
-        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "yard_ms": y_ms,
+    for name, (kern, plain, yard, flops, nbytes) in pairs.items():
+        f32_bound = _bound(flops, nbytes, PEAK_F32)
+        tc_bound = _bound(3 * flops, nbytes, PEAK_TF32)
+        bound = min(f32_bound, tc_bound)
+        t = _turns(kern, plain, yard, 60)
+        out[name] = {"ms": t["ms"], "dev_ms": t["dev_ms"], "plain_ms": t["plain_ms"],
+                     "yard_ms": t["library_ms"], "dev_yard_ms": t["dev_library_ms"],
                      "bound_ms": bound[0], "bound_by": bound[1]}
-        print(f"[time] {name}: kernel {out[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
-              f"{out[name]['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), yardstick "
-              f"(addmm + argmin) {y_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})  [{smi}]")
+        print(f"[time] row {3 if name == 'argmin' else 4} {name}, N {n}, K {k}, D {d} f32: kernel "
+              f"{t['ms']:.4f} ms elapsed, {t['dev_ms']:.4f} device; plain {t['plain_ms']:.4f} / "
+              f"{t['dev_plain_ms']:.4f}; yardstick (addmm + argmin) {t['library_ms']:.4f} / "
+              f"{t['dev_library_ms']:.4f}; bound {f32_bound[0]:.4f} ms at the f32 peak "
+              f"({f32_bound[1]}), {tc_bound[0]:.4f} for 3 x 2NKD at the TF32 tensor-core peak "
+              f"({tc_bound[1]}); turns elapsed {[round(v, 4) for v in t['each']]}, device "
+              f"{[round(v, 4) for v in t['dev_each']]}  [{smi}]")
 
     # row 7 at the paper shape, x channels-last as the VQ-VAE hands a fused
     # stack; kernel, plain version and cuDNN's chain in turns (_turns),
@@ -1941,10 +2010,15 @@ def _check_decode_side(dev, smi):
         got = fn()
         _require(torch.equal(got, fn()), f"int4_matmul {label}: two runs differ")
         e4 = _compare_f32(f"int4_matmul {label}", got, quant.int4_matmul_plain(xe, pe, se))
+        # every layer block read once (the launch walks them all), x read
+        # and the output written once; the products of every layer
+        nl = pw.shape[0] if pw.dim() == 3 else 1
+        b4 = _bound(2 * xe.shape[0] * xe.shape[1] * pe.shape[1] * nl,
+                    _nbytes(xe, pw, sw, got), PEAK_BF16)
         print(f"[time] int4_matmul {label} (R{xe.shape[0]} K{xe.shape[1]} N{pe.shape[1]}"
               f"{', L ' + str(pw.shape[0]) if pw.dim() == 3 else ''}): {_time_ms(fn, 200):.4f} ms "
-              f"elapsed, {_device_ms(fn, 200):.4f} ms device time; max abs err {e4:.3e}; two runs "
-              f"bit-identical  [{smi}]")
+              f"elapsed, {_device_ms(fn, 200):.4f} ms device time; bound {b4[0]:.7f} ms "
+              f"({b4[1]}); max abs err {e4:.3e}; two runs bit-identical  [{smi}]")
     pk = torch.randint(-128, 128, (probe_int4_unpack.K2, probe_int4_unpack.N), generator=g,
                        device=dev).to(torch.int8)
     e = float((probes.int4_unpack(pk, 0) - probes.unpack_int4_plain(pk, 0)).abs().max())
@@ -1956,7 +2030,9 @@ def _check_decode_side(dev, smi):
     bound = _bound(0, pk.numel() * 9, PEAK_F32)
     out["int4_unpack"] = (unpack_launches, e, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
     print(f"[time] int4_unpack A (K2 {pk.shape[0]}, N {pk.shape[1]}): kernel {(k1 + k2) / 2:.4f} "
-          f"ms, plain {(p1 + p2) / 2:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]})  [{smi}]")
+          f"ms, plain {(p1 + p2) / 2:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}: the packed "
+          f"bytes read, two f32 values written a byte; the same for B, C and D, which compute "
+          f"the same unpack)  [{smi}]")
     M, KD, ND, G = (probe_pallas_overhead.M, probe_pallas_overhead.K_DIM, probe_pallas_overhead.N,
                     probe_pallas_overhead.G)
     xt = torch.randn(M, KD, generator=g, device=dev).to(torch.bfloat16)
@@ -2471,12 +2547,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     _check_validation(dev, smi)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
+              dev_ms=None):
         path = replaces if replaces.startswith("tools/") else f"synthanatomy_tpu/ops/{replaces}"
-        return {"name": name, "route": "cuda", "source": f"synthanatomy_tpu_torch/csrc/{source}",
-                "replaces": path, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": library_ms}
+        rec = {"name": name, "route": "cuda", "source": f"synthanatomy_tpu_torch/csrc/{source}",
+               "replaces": path, "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": library_ms}
+        if dev_ms is not None:
+            rec["dev_ms"] = dev_ms
+        return rec
 
     print(json.dumps({"kernels": [
         entry("fused_decode_step", "fused_decode.cu", "fused_decode.py:541", launches, max_err,
@@ -2487,10 +2567,11 @@ def main() -> int:
               train_launches["local"], kerr["local"], *ktimes["local"], local_bound, sdpa_ms),
         entry("nearest_codeword", "vq_argmin.cu", "vq.py:103", s1["launches"]["argmin"],
               verr["argmin"], t1["argmin"]["ms"], t1["argmin"]["plain_ms"],
-              (t1["argmin"]["bound_ms"], t1["argmin"]["bound_by"])),
+              (t1["argmin"]["bound_ms"], t1["argmin"]["bound_by"]),
+              dev_ms=t1["argmin"]["dev_ms"]),
         entry("nearest_codeword_stats", "vq_argmin.cu", "vq.py:176", s1["stats_launches"],
               verr["stats"], t1["stats"]["ms"], t1["stats"]["plain_ms"],
-              (t1["stats"]["bound_ms"], t1["stats"]["bound_by"])),
+              (t1["stats"]["bound_ms"], t1["stats"]["bound_by"]), dev_ms=t1["stats"]["dev_ms"]),
         entry("fused_residual_layer", "res_stack.cu", "res_stack_pallas.py:116",
               s1["launches"]["fwd"], rerr["fwd"], t1["res_fwd"]["ms"], t1["res_fwd"]["plain_ms"],
               (t1["res_fwd"]["bound_ms"], t1["res_fwd"]["bound_by"])),

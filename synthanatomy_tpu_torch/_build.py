@@ -53,13 +53,19 @@ def sources() -> list:
     return [p.stem for p in sorted(_CSRC.glob("*.cu"))]
 
 
-def _library_path(name: str) -> Path:
+def _source(name) -> Path:
+    """``csrc/<name>.cu``, or ``name`` itself where it is a path to a
+    ``.cu`` elsewhere (built against the port's headers)."""
+    return name if isinstance(name, Path) else _CSRC / f"{name}.cu"
+
+
+def _library_path(name) -> Path:
     """Where the library built from the current source, headers and flags lives."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh")), *sorted(_CSRC.glob("*.h"))]:
+    for src in [_source(name), *sorted(_CSRC.glob("*.cuh")), *sorted(_CSRC.glob("*.h"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"lib{_source(name).stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> None:
@@ -75,7 +81,7 @@ def build_all(names=None) -> None:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_FLAGS, f"-I{_CSRC}", "-o", tmp, str(_source(name))]
         jobs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -83,7 +89,7 @@ def build_all(names=None) -> None:
         out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}\n{err}")
+            failed.append(f"nvcc {_source(name).name} failed ({proc.returncode}):\n{out}\n{err}")
             continue
         lib = _library_path(name)
         lib.with_suffix(".ptxas.txt").write_text(err)
@@ -93,8 +99,9 @@ def build_all(names=None) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (once per hash) and load it."""
+def load_library(name) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu``, or the ``.cu`` at the path ``name`` (once
+    per hash), and load it."""
     build_all([name])
     return ctypes.CDLL(str(_library_path(name)))
 

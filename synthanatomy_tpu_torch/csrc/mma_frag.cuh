@@ -101,9 +101,10 @@ __device__ __forceinline__ void wg_commit() {
 // keeps the compiler from moving reads or writes of the accumulators
 // across an asynchronous product (place after the wait and before the
 // first product)
-__device__ __forceinline__ void wg_fence_operand(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void wg_fence_operand(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // wait until at most N of the warpgroup's product groups are pending

@@ -127,7 +127,17 @@ def _lib():
     lib.vq_smem_bytes.restype = ctypes.c_longlong
     lib.vq_max_d.argtypes = []
     lib.vq_max_d.restype = ctypes.c_int
+    lib.vq_blocks.argtypes = lib.vq_cluster.argtypes = [ctypes.c_int] * 2
+    lib.vq_active_clusters.argtypes = [ctypes.c_int] * 3
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _width_ok(d: int) -> bool:
+    """The library's route gate for rows of width d (``csrc/vq_plan.h``),
+    asked once per width: the launch path makes no query of its own."""
+    lib = _lib()
+    return 1 <= d <= lib.vq_max_d() and 0 < lib.vq_smem_bytes(d) <= SMEM_PER_BLOCK
 
 
 def _kernel_inputs(x_flat, codebook):
@@ -141,18 +151,18 @@ def _kernel_inputs(x_flat, codebook):
     if codebook.dtype != torch.float32:
         raise TypeError(f"the codebook must be f32, got {codebook.dtype}")
     n, d = x_flat.shape
-    lib = _lib()
-    if not 1 <= d <= lib.vq_max_d() or lib.vq_smem_bytes(d) > SMEM_PER_BLOCK:
-        raise ValueError(f"the nearest-codeword kernel takes 1 <= D <= {lib.vq_max_d()}, got {d}")
-    if codebook.shape[0] < 1 or n >= 2 ** 31:
-        raise ValueError(f"need K >= 1 and N < 2^31, got K {codebook.shape[0]}, N {n}")
+    if not _width_ok(d):
+        raise ValueError(f"the nearest-codeword kernel takes 1 <= D <= {_lib().vq_max_d()}, "
+                         f"got {d}")
+    if codebook.shape[0] < 1 or not 1 <= n < 2 ** 31:
+        raise ValueError(f"need K >= 1 and 1 <= N < 2^31, got K {codebook.shape[0]}, N {n}")
     return x_flat.float().contiguous(), codebook.contiguous()
 
 
 def nearest_codeword(x_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codeword indices of x (N, D) against the codebook (K, D)
-    → int32 (N,).  CUDA tensors launch ``vq_argmin_kernel``; CPU tensors
-    take :func:`nearest_codeword_plain`."""
+    → int32 (N,).  CUDA tensors launch ``vq_argmin_kernel`` (one cluster
+    launch); CPU tensors take :func:`nearest_codeword_plain`."""
     if x_flat.device.type == "cpu":
         return nearest_codeword_plain(x_flat, codebook)
     x, w = _kernel_inputs(x_flat, codebook)

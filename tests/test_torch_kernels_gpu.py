@@ -620,11 +620,12 @@ def test_splash_kernel_rejects_bad_inputs(cuda):
 
 
 VQ_SHAPES = [(37, 130, 5), (1000, 300, 64), (4099, 2047, 32), (4200, 2048, 32)]  # (N, K, D)
+# one row and one code; N and K one past a tile; rows wider than 64 (x's
+# fragments read per product); a codebook of 16384
+VQ_EDGE_SHAPES = [(1, 1, 1), (129, 9, 17), (300, 100, 65), (130, 64, 256), (5000, 16384, 24)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", VQ_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_vq_kernels_match_plain(cuda, shape):
+def _check_vq(cuda, shape):
     """Indices equal the plain argmin except on near-ties (distances within
     1e-5 of their scale, in f64); counts exact; sums of x within f32
     summation error; two runs bit-identical."""
@@ -649,6 +650,43 @@ def test_vq_kernels_match_plain(cuda, shape):
     _assert_kernel_close(f"vq {shape} sum x", dw, onehot.t() @ x, torch.float32)
     again = tvq.nearest_codeword_stats(x, w)
     assert all(torch.equal(a, b_) for a, b_ in zip((sidx, counts, dw), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", VQ_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_vq_kernels_match_plain(cuda, shape):
+    """Indices equal the plain argmin except on near-ties (distances within
+    1e-5 of their scale, in f64); counts exact; sums of x within f32
+    summation error; two runs bit-identical."""
+    _check_vq(cuda, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", VQ_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_vq_kernels_match_plain_at_edge_shapes(cuda, shape):
+    """The same rules at one row and one code, ragged tiles, rows wider
+    than 64 and a codebook of 16384."""
+    _check_vq(cuda, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["halves", "neighbours"])
+def test_vq_kernel_ties_go_to_the_lower_index(cuda, layout):
+    """Every codeword twice, at i and i + K/2 (the same place in two
+    splits of a cluster) or at 2i and 2i + 1 (one lane's two columns):
+    the two distances are the same bits, and the lower index wins every
+    row, as torch.argmin breaks ties."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    half = torch.randn(1024, 32, generator=gen, device=cuda)
+    x = torch.randn(4200, 32, generator=gen, device=cuda)
+    if layout == "halves":
+        w, low = torch.cat([half, half]), lambda i: i < 1024
+    else:
+        w, low = half.repeat_interleave(2, dim=0), lambda i: i % 2 == 0
+    idx = tvq.nearest_codeword(x, w)
+    assert bool(low(idx).all()), f"{int((~low(idx)).sum())} rows took the higher index"
+    sidx, counts, _ = tvq.nearest_codeword_stats(x, w)
+    assert torch.equal(sidx, idx) and float(counts[~low(torch.arange(2048, device=cuda))].sum()) == 0
 
 
 RES_SHAPES = [  # (B, C, D, H, W, R, dtype)

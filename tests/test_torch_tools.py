@@ -36,12 +36,14 @@ from synthanatomy_tpu.train.transformer_steps import (
 from synthanatomy_tpu_torch.cli import parse_argv
 from synthanatomy_tpu_torch.interop import performer_from_jax
 from synthanatomy_tpu_torch.models.ordering import Ordering
+from synthanatomy_tpu_torch.ops import vq
 from synthanatomy_tpu_torch.tools import (
     bench_fused_decode,
     bench_local_attn,
     bench_local_kernel,
     bench_pipeline,
     bench_res_stack,
+    bench_vq,
     validate_fused_decode,
 )
 
@@ -209,6 +211,33 @@ def test_bench_res_stack_cli_runs_on_cpu(capsys):
     assert "exactness: sum ref=" in out and "-> fused vs XLA" in out
     assert set(res) == {("module", False), ("fused", False), ("module", True),
                         ("fused", True)}
+
+
+def test_bench_vq_check_allows_only_near_ties():
+    """The check before the turns: indices equal but where the two codes'
+    distances tie (here a duplicated codeword), counts equal."""
+    gen = torch.Generator().manual_seed(3)
+    x, w = torch.randn(50, 8, generator=gen), torch.randn(40, 8, generator=gen)
+    w[39] = w[0]
+    x[0] = w[0]  # row 0 ties between codes 0 and 39
+    want = vq.nearest_codeword_plain(x, w)
+    assert int(want[0]) == 0
+    got = want.clone()
+    got[0] = 39
+    assert bench_vq.check_same(x, w, got, want) == 1
+    far = want.clone()
+    far[1] = int(torch.argmax((w * w).sum(1) - 2 * x[1] @ w.t()))
+    with pytest.raises(RuntimeError, match="argmin differs on 1 rows"):
+        bench_vq.check_same(x, w, far, want)
+    with pytest.raises(RuntimeError, match="counts differ"):
+        bench_vq.check_same(x, w, want, want, torch.ones(40), torch.zeros(40))
+
+
+def test_bench_vq_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is checked where there is no card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        bench_vq.main(["vq_argmin.cu"])
 
 
 def test_bench_fused_decode_needs_the_card():
