@@ -9,15 +9,16 @@ result, without them.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the kernels from ``synthanatomy_tpu_torch/csrc`` (timed),
-   then the SASS of rows 2, 3, 5, 6, 7, 8 and 9a (``cuobjdump -sass``):
-   HMMA or HGMMA in every bf16 instantiation of their kernels (row 5: the
-   chunk-parallel route's state, forward, dq and dk/dv kernels and their
-   probe ablations), in every instantiation of the weight-streaming
-   GEMVs (``matmul_kernel``, ``stream_kernel``) and of row 3's split-TF32
-   argmin (``vq_argmin_kernel``, which ptxas must not spill), with each
+   then the SASS of rows 2, 3, 5, 6, 7, 8, 9a and 9c (``cuobjdump
+   -sass``): HMMA or HGMMA in every bf16 instantiation of their kernels
+   (row 5: the chunk-parallel route's state, forward, dq and dk/dv kernels
+   and their probe ablations), in every instantiation of the
+   weight-streaming GEMVs (``matmul_kernel``, ``stream_kernel``), of row
+   3's split-TF32 argmin (``vq_argmin_kernel``, which ptxas must not
+   spill) and of row 9c's tile program (``tile_steps_kernel``), with each
    kernel's registers, spills and stack (``ptxas -v``) and the dynamic
-   shared memory of their launches (row 3's clusters, and how many fit
-   the card at once);
+   shared memory of their launches (rows 3 and 9c: their clusters, and
+   how many fit the card at once);
 3. the fused decode kernel against its plain PyTorch version, at paper
    width and at the small test shape, for int8 weights + bf16 rings and
    int4 weights + int8 rings, pre-LayerNorm and ReZero, at t in
@@ -145,10 +146,17 @@ result, without them.  Phases, each fatal on failure:
    held against the plain version; its refusal printed if the build has
    none); then the ``main()`` of the three probe tools (``probe_int4``,
    ``probe_int4_unpack``, ``probe_pallas_overhead``; each checks every
-   variant against its plain version and raises on a failure), and each
-   probe kernel timed against its plain version at the probe's shape (the
-   weight stream and the packed product of E and F in elapsed and device
-   time, two runs bit-identical; GB/s from device time);
+   variant against its plain version and raises on a failure; the
+   overhead probe also splits its tile program's own fixed cost from an
+   empty launch of its grid, in a CUDA graph), and each probe kernel
+   timed against its plain version at the probe's shape (the weight
+   stream and the packed product of E and F in elapsed and device time,
+   two runs bit-identical; GB/s from device time; the unpack's four
+   formulations exact, A in elapsed and device time beside an empty
+   launch of its grid; the tile program at G 96 with every cluster
+   resident, two runs bit-identical, in elapsed and device time in turns
+   with its plain version and ``torch.matmul`` of G copies of the
+   operands, the one PyTorch call of its function);
 16. row 9d, the kernel-body probe (``tools/probe_kernel_body.main`` with
    every row): the ablated bodies of the FAVOR+ and banded local-attention
    kernels (``ops/kernel_body.py``) at the paper shape (B6 x 8 heads x L
@@ -220,8 +228,9 @@ SPLASH_PER_STEP = 24 * (2 + 2)  # per layer: forward + remat recompute, two back
 GEMV_LIBS = ("int8_matmul", "weight_stream")
 # libraries whose every instantiation of the listed kernels must hold
 # tensor-core instructions: the GEMVs (int8 or int4 weights, bf16
-# products) and row 3's argmin (f32 rows, split-TF32 products)
-ALL_INSTANTIATIONS = GEMV_LIBS + ("vq_argmin",)
+# products), row 3's argmin (f32 rows, split-TF32 products) and row 9c's
+# tile program (bf16, one instantiation per k16 products a split)
+ALL_INSTANTIATIONS = GEMV_LIBS + ("vq_argmin", "launch_overhead")
 FAVOR_ROUTE_KERNELS = ("favor_state_kernel", "favor_fwd_kernel", "favor_dq_kernel",
                        "favor_dkv_kernel")
 TENSOR_CORE_KERNELS = {
@@ -236,6 +245,7 @@ TENSOR_CORE_KERNELS = {
                   "res_tile_fwd_kernel", "res_tile_da_kernel", "res_tile_dx_kernel",
                   "res_tile_dw1_kernel"),
     "vq_argmin": ("vq_argmin_kernel",),
+    "launch_overhead": ("tile_steps_kernel",),
 }
 
 
@@ -248,8 +258,9 @@ def _check_sass():
     """Phase 2b: every bf16 instantiation of the row 5 (chunk-parallel
     route), row 6 (tile form), row 7 and row 8 kernels, and every
     instantiation of the row 2 and 9a GEMVs (``matmul_kernel``,
-    ``stream_kernel``: int8 or int4 weights, bf16 products), runs its
-    products on the tensor cores: HMMA or HGMMA in its SASS (``cuobjdump
+    ``stream_kernel``: int8 or int4 weights, bf16 products), of row 3's
+    argmin and of row 9c's tile program, runs its products on the tensor
+    cores: HMMA or HGMMA in its SASS (``cuobjdump
     -sass``).  Prints each kernel's tensor-core instructions, registers,
     spills and stack from ``ptxas -v``, and the dynamic shared memory the
     launches ask for.  Row 5's one-block-per-head kernels (d above 64, m
@@ -311,6 +322,12 @@ def _check_sass():
         print(f"[smem] rows 3-4 N {n} K {k} D {d}: {vql.vq_blocks(n, k)} blocks of 256 threads in "
               f"clusters of {vql.vq_cluster(n, k)}, {vql.vq_smem_bytes(d)} B of dynamic shared "
               f"memory each; {vql.vq_active_clusters(n, k, d)} clusters fit the card at once")
+    for m, k, n in ((256, 512, 512), (128, 1024, 256), (64, 48, 128)):
+        pl = probes.tile_steps_plan(m, k, n)
+        print(f"[smem] row 9c M {m} K {k} N {n}: {pl['blocks']} blocks of {pl['threads']} threads "
+              f"in clusters of {pl['cluster']} ({pl['products']} k16 products a split each "
+              f"step), {pl['smem']} B of dynamic shared memory each; {pl['active_clusters']} "
+              f"clusters fit the card at once")
     print(f"[smem] row 7 at C = R = 128: bf16 (tile route: {bool(rs._lib().res_route(128, 128, 1))}) "
           f"{rs._lib().res_smem_bytes(128, 128, 1)} B, f32 (GEMM route) "
           f"{rs._lib().res_smem_bytes(128, 128, 0)} B of dynamic shared memory, largest launch")
@@ -1865,7 +1882,8 @@ def _check_exact_decode(dev, smi, fused_s):
 
 def _check_decode_side(dev, smi):
     """Phase 15: row 2 and the probes.  Returns {kernel: (launches, max
-    abs err, ms, plain ms, bound, library ms)} for the kernels' line."""
+    abs err, ms, plain ms, bound, library ms[, device ms])} for the
+    kernels' line."""
     import torch
 
     from synthanatomy_tpu_torch.ops import probes, quant
@@ -2023,33 +2041,65 @@ def _check_decode_side(dev, smi):
                        device=dev).to(torch.int8)
     e = float((probes.int4_unpack(pk, 0) - probes.unpack_int4_plain(pk, 0)).abs().max())
     _require(e == 0.0, f"int4_unpack: error {e}")
+    unpack = lambda: probes.int4_unpack(pk, 0)  # noqa: E731
     p1, k1, k2, p2 = (_time_ms(lambda: probes.unpack_int4_plain(pk, 0), 50),
-                      _time_ms(lambda: probes.int4_unpack(pk, 0), 200),
-                      _time_ms(lambda: probes.int4_unpack(pk, 0), 200),
+                      _time_ms(unpack, 200), _time_ms(unpack, 200),
                       _time_ms(lambda: probes.unpack_int4_plain(pk, 0), 50))
+    # device time beside an empty launch of the same grid, in turns: no
+    # launch of that grid can take less
+    geo = probes.int4_unpack_grid(pk)
+    empty = lambda: probes.empty_launch(dev, *geo)  # noqa: E731
+    f1, d1, d2, f2 = (_device_ms(empty, 200), _device_ms(unpack, 200), _device_ms(unpack, 200),
+                      _device_ms(empty, 200))
     bound = _bound(0, pk.numel() * 9, PEAK_F32)
-    out["int4_unpack"] = (unpack_launches, e, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
+    out["int4_unpack"] = (unpack_launches, e, (k1 + k2) / 2, (p1 + p2) / 2, bound, None,
+                          (d1 + d2) / 2)
     print(f"[time] int4_unpack A (K2 {pk.shape[0]}, N {pk.shape[1]}): kernel {(k1 + k2) / 2:.4f} "
-          f"ms, plain {(p1 + p2) / 2:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}: the packed "
-          f"bytes read, two f32 values written a byte; the same for B, C and D, which compute "
-          f"the same unpack)  [{smi}]")
+          f"ms elapsed ({k1:.4f}, {k2:.4f}), {(d1 + d2) / 2:.4f} ms device time ({d1:.4f}, "
+          f"{d2:.4f}); an empty launch of its grid ({geo[0]} blocks of {geo[1]}) "
+          f"{(f1 + f2) / 2:.4f} ms device time ({f1:.4f}, {f2:.4f}); plain {(p1 + p2) / 2:.4f} "
+          f"ms; bound {bound[0]:.6f} ms ({bound[1]}: the packed bytes read, two f32 values "
+          f"written a byte; the same for B, C and D, which compute the same unpack)  [{smi}]")
+    for v in range(1, 4):
+        ev = float((probes.int4_unpack(pk, v) - probes.unpack_int4_plain(pk, v)).abs().max())
+        _require(ev == 0.0, f"int4_unpack {probes.UNPACK_VARIANTS[v]}: error {ev}")
+        print(f"[time] int4_unpack {probes.UNPACK_VARIANTS[v]}: exact, "
+              f"{_device_ms(lambda v=v: probes.int4_unpack(pk, v), 200):.4f} ms device time")
+
     M, KD, ND, G = (probe_pallas_overhead.M, probe_pallas_overhead.K_DIM, probe_pallas_overhead.N,
                     probe_pallas_overhead.G)
     xt = torch.randn(M, KD, generator=g, device=dev).to(torch.bfloat16)
     wt = torch.randn(KD, ND, generator=g, device=dev).to(torch.bfloat16)
+    plan = probes.tile_steps_plan(M, KD, ND)
+    _require(plan["active_clusters"] * plan["cluster"] >= plan["blocks"],
+             f"tile_steps: not every cluster resident at once ({plan})")
     a, b_ = probes.tile_steps(xt, wt, G).float(), probes.tile_steps_plain(xt, wt, G).float()
     e = float((a - b_).abs().max())
     _require(e <= 1e-2 * float(b_.abs().max()), f"tile_steps: max abs err {e}")
-    p1, k1, k2, p2 = (_time_ms(lambda: probes.tile_steps_plain(xt, wt, G), 3),
-                      _time_ms(lambda: probes.tile_steps(xt, wt, G), 20),
-                      _time_ms(lambda: probes.tile_steps(xt, wt, G), 20),
-                      _time_ms(lambda: probes.tile_steps_plain(xt, wt, G), 3))
+    _require(torch.equal(probes.tile_steps(xt, wt, G), probes.tile_steps(xt, wt, G)),
+             "tile_steps: two runs differ")
+    # the one PyTorch call of the same function: bf16 of the sum of G·K
+    # products with f32 sums, on G copies of the operands (built here, out
+    # of the timed call); the kernel reads each operand once
+    xr, wr = xt.repeat(1, G), wt.repeat(G, 1)
+    library = lambda: torch.matmul(xr, wr)  # noqa: E731
+    e_lib = float((library().float() - b_).abs().max())
+    _require(e_lib <= 1e-2 * float(b_.abs().max()), f"torch.matmul yardstick: max abs err {e_lib}")
+    t = _turns(lambda: probes.tile_steps(xt, wt, G), lambda: probes.tile_steps_plain(xt, wt, G),
+               library, 20)
     bound = _bound(2 * M * KD * ND * G, _nbytes(xt, wt) + M * ND * 2, PEAK_BF16)
-    out["launch_overhead"] = (tile_launches, e, (k1 + k2) / 2, (p1 + p2) / 2, bound, None)
-    print(f"[time] launch_overhead tile program, G {G} steps of {M}x{KD}x{ND} bf16: kernel "
-          f"{(k1 + k2) / 2:.4f} ms ({(k1 + k2) / 2 / G * 1e3:.3f} us per step), plain "
-          f"{(p1 + p2) / 2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); max abs err {e:.3e} "
-          f"(bf16 output, tol 1e-2 of max |plain|)  [{smi}]")
+    out["launch_overhead"] = (tile_launches, e, t["ms"], t["plain_ms"], bound, t["library_ms"],
+                              t["dev_ms"])
+    print(f"[time] launch_overhead tile program, G {G} steps of {M}x{KD}x{ND} bf16 "
+          f"({plan['blocks']} blocks in clusters of {plan['cluster']}, all resident: the card "
+          f"holds {plan['active_clusters']}): kernel {t['ms']:.4f} ms elapsed "
+          f"({t['each'][1]:.4f}, {t['each'][4]:.4f}), {t['dev_ms']:.4f} ms device time "
+          f"({t['dev_each'][1]:.4f}, {t['dev_each'][4]:.4f}; {t['dev_ms'] / G * 1e3:.3f} us a "
+          f"step); plain {t['plain_ms']:.4f} ms; torch.matmul of G copies ({M}x{KD * G} by "
+          f"{KD * G}x{ND}: reads the operands G times, the kernel once) {t['library_ms']:.4f} "
+          f"ms elapsed, {t['dev_library_ms']:.4f} device, max abs err {e_lib:.3e}; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); max abs err {e:.3e} (bf16 output, tol 1e-2 of max "
+          f"|plain|); two runs bit-identical  [{smi}]")
     return out
 
 

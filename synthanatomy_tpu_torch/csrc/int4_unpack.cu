@@ -12,9 +12,19 @@
 // (2·K2, N) f32, the low halves first, as the probe concatenates them.
 // Plain twins: ops/probes.py::unpack_int4_plain.
 //
-// One thread per packed byte; the bound is bytes (1 read, 8 written per
-// byte: 0.29 MB at K2 128, N 256, ~0.1 µs at 3.35 TB/s): a launch costs
-// more than the work.
+// What bounds it: bytes (1 read, 8 written per byte: 0.29 MB at K2 128, N
+// 256, ~0.09 µs at 3.35 TB/s), far below what a launch costs; the honest
+// floor is an empty launch of the same grid.  So the kernel does as little
+// per byte as it can, and keeps every memory access coalesced: a thread
+// takes 16 packed bytes with one 16-byte load (a warp: 512 consecutive
+// bytes), the warp passes the words round by shuffles so that lane l of
+// store q holds the 4 bytes behind float4 32q + l of the warp's output,
+// and each thread writes its 16 low values and its 16 high values as four
+// float4 stores each, every store of a warp 512 consecutive bytes.  The
+// formulation runs per byte as written.  Bytes past the last whole 512,
+// or packed or output pointers that are not 16-byte aligned, are done one
+// byte a thread (the high half's stores are 4 bytes each where N·K2 is
+// not a multiple of 4).  The grid is sized to the bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -22,17 +32,15 @@
 
 namespace {
 
+constexpr int kThreads = 128;  // 16 blocks at the probe's 32 KB (8 of 256 are slower)
+
 __device__ __forceinline__ int floordiv(int a, int b) {  // b > 0
   const int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
 template <int V>
-__global__ void unpack_kernel(const int8_t* __restrict__ packed, int n, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int8_t p8 = packed[i];
-  float lo, hi;
+__device__ __forceinline__ void unpack(int8_t p8, float& lo, float& hi) {
   if (V == 0) {  // A
     const int p = p8;
     lo = (float)(((p & 15) ^ 8) - 8);
@@ -58,13 +66,68 @@ __global__ void unpack_kernel(const int8_t* __restrict__ packed, int n, float* _
     lo = (float)l8;
     hi = (float)h8;
   }
-  out[i] = lo;
-  out[n + i] = hi;
 }
+
+// Threads 0 … nvec − 1 (whole warps) take 16 bytes each; the rest one
+// byte each, from byte 16·nvec on.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+unpack_kernel(const int8_t* __restrict__ packed, int n, int nvec, float* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < nvec) {
+    const int4 raw = reinterpret_cast<const int4*>(packed)[i];
+    const int lane = threadIdx.x % 32;
+    const int64_t warp0 = 16 * (int64_t)(i - lane);  // the warp's first byte
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // float4 32q + lane of the warp's output: word lane % 4 of the 16
+      // bytes of lane 8q + lane / 4
+      const int src = 8 * q + lane / 4;
+      const unsigned all = 0xffffffffu;
+      const int w0 = __shfl_sync(all, raw.x, src), w1 = __shfl_sync(all, raw.y, src);
+      const int w2 = __shfl_sync(all, raw.z, src), w3 = __shfl_sync(all, raw.w, src);
+      const int word = lane % 4 == 0 ? w0 : lane % 4 == 1 ? w1 : lane % 4 == 2 ? w2 : w3;
+      float lo[4], hi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) unpack<V>((int8_t)(word >> (8 * e)), lo[e], hi[e]);
+      const int64_t b = warp0 + 4 * (32 * q + lane);
+      *reinterpret_cast<float4*>(out + b) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      if (n % 4 == 0) {
+        *reinterpret_cast<float4*>(out + n + b) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[n + b + e] = hi[e];
+      }
+    }
+    return;
+  }
+  const int b = 16 * nvec + (i - nvec);
+  if (b >= n) return;
+  float lo, hi;
+  unpack<V>(packed[b], lo, hi);
+  out[b] = lo;
+  out[n + b] = hi;
+}
+
+// 16-byte pieces: those of every whole 512 bytes (a warp's) where both
+// pointers are 16-byte aligned
+int pieces(int n, const void* packed, const void* out) {
+  const uintptr_t both = reinterpret_cast<uintptr_t>(packed) | reinterpret_cast<uintptr_t>(out);
+  return (both & 15) == 0 ? 32 * (n / 512) : 0;
+}
+
+int grid(int n, int nvec) { return (nvec + (n - 16 * nvec) + kThreads - 1) / kThreads; }
 
 }  // namespace
 
 extern "C" {
+
+// The launch's geometry for n bytes at these pointers: blocks, and threads
+// a block, into out[0..1].
+void int4_unpack_grid(int n, const void* packed, const void* out, int* geometry) {
+  geometry[0] = grid(n, pieces(n, packed, out));
+  geometry[1] = kThreads;
+}
 
 // variant 0-3 = A-D; packed holds n = K2·N bytes; out (2·K2, N) f32.
 // Returns a cudaError_t.
@@ -72,12 +135,12 @@ int int4_unpack(int variant, int n, const void* packed, void* out, void* stream)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* p = static_cast<const int8_t*>(packed);
   float* o = static_cast<float*>(out);
-  const int blocks = (n + 255) / 256;
+  const int nvec = pieces(n, packed, out), blocks = grid(n, nvec);
   switch (variant) {
-    case 0: unpack_kernel<0><<<blocks, 256, 0, s>>>(p, n, o); break;
-    case 1: unpack_kernel<1><<<blocks, 256, 0, s>>>(p, n, o); break;
-    case 2: unpack_kernel<2><<<blocks, 256, 0, s>>>(p, n, o); break;
-    case 3: unpack_kernel<3><<<blocks, 256, 0, s>>>(p, n, o); break;
+    case 0: unpack_kernel<0><<<blocks, kThreads, 0, s>>>(p, n, nvec, o); break;
+    case 1: unpack_kernel<1><<<blocks, kThreads, 0, s>>>(p, n, nvec, o); break;
+    case 2: unpack_kernel<2><<<blocks, kThreads, 0, s>>>(p, n, nvec, o); break;
+    case 3: unpack_kernel<3><<<blocks, kThreads, 0, s>>>(p, n, nvec, o); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -17,7 +17,9 @@ dtype and shape, raising otherwise) and takes the plain twin
 (``*_plain``) for CPU tensors; ``<wrapper>.launches`` counts kernel
 launches (``weight_stream.packed_launches`` those with packed
 weights).  The packed product of the unpack probe's E and F bodies is
-``ops/quant.int4_matmul``.
+``ops/quant.int4_matmul``.  For the probes' timings,
+:func:`tile_steps_plan` and :func:`int4_unpack_grid` give a launch's
+geometry and :func:`empty_launch` launches an empty kernel of it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import functools
 
 import torch
 
-from synthanatomy_tpu_torch._build import SMEM_PER_BLOCK, load_library
+from synthanatomy_tpu_torch._build import load_library
 from synthanatomy_tpu_torch.ops.quant import unpack_int4
 
 __all__ = [
@@ -36,8 +38,11 @@ __all__ = [
     "weight_stream_plain",
     "int4_unpack",
     "unpack_int4_plain",
+    "int4_unpack_grid",
     "tile_steps",
     "tile_steps_plain",
+    "tile_steps_plan",
+    "empty_launch",
 ]
 
 # the unpack probe's formulations, in its order
@@ -62,14 +67,22 @@ def _lib(name: str):
         lib.gemv_stream_blocks.argtypes = [i] * 3
         lib.gemv_stream_smem.argtypes = [i] * 4
         lib.gemv_stream_blocks.restype = lib.gemv_stream_smem.restype = i
-    elif name == "int4_unpack":
-        lib.int4_unpack.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-        lib.int4_unpack.restype = ctypes.c_int
+        return lib
+    i, p = ctypes.c_int, ctypes.c_void_p
+    if name == "int4_unpack":
+        lib.int4_unpack.argtypes = [i, i] + [p] * 3
+        lib.int4_unpack.restype = i
+        lib.int4_unpack_grid.argtypes = [i, p, p, p]
+        lib.int4_unpack_grid.restype = None
     else:
-        lib.launch_overhead.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-        lib.launch_overhead.restype = ctypes.c_int
-        lib.launch_overhead_smem.argtypes = [ctypes.c_int]
-        lib.launch_overhead_smem.restype = ctypes.c_longlong
+        lib.launch_overhead.argtypes = [i] * 4 + [p] * 4
+        lib.launch_overhead.restype = i
+        lib.launch_overhead_plan.argtypes = [i, i, i, p]
+        lib.launch_overhead_plan.restype = i
+        lib.launch_overhead_max_k.argtypes = []
+        lib.launch_overhead_max_k.restype = i
+        lib.launch_empty.argtypes = [i] * 4 + [p]
+        lib.launch_empty.restype = i
     return lib
 
 
@@ -189,7 +202,9 @@ def unpack_int4_plain(packed: torch.Tensor, variant: int) -> torch.Tensor:
 
 def int4_unpack(packed: torch.Tensor, variant: int) -> torch.Tensor:
     """Formulation ``variant`` of the nibble unpack (see
-    :func:`unpack_int4_plain`) as one kernel launch."""
+    :func:`unpack_int4_plain`) as one kernel launch: 16 bytes a thread
+    where the pointers are 16-byte aligned, one byte a thread past the
+    last whole 16 or where they are not."""
     if packed.device.type == "cpu":
         return unpack_int4_plain(packed, variant)
     dev = _require_cuda("int4_unpack", packed)
@@ -211,6 +226,14 @@ def int4_unpack(packed: torch.Tensor, variant: int) -> torch.Tensor:
 int4_unpack.launches = 0
 
 
+def int4_unpack_grid(packed: torch.Tensor) -> tuple:
+    """(blocks, threads a block) of :func:`int4_unpack`'s launch on
+    ``packed`` (its output, from ``torch.empty``, is 16-byte aligned)."""
+    geo = (ctypes.c_int * 2)()
+    _lib("int4_unpack").int4_unpack_grid(packed.numel(), packed.data_ptr(), 0, geo)
+    return geo[0], geo[1]
+
+
 # ---------------------------------------------------------------------------
 # 9c: the tile program of the launch-overhead probe
 # ---------------------------------------------------------------------------
@@ -226,24 +249,28 @@ def tile_steps_plain(x: torch.Tensor, w: torch.Tensor, steps: int) -> torch.Tens
     return acc.to(torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_max_k() -> int:
+    return _lib("launch_overhead").launch_overhead_max_k()
+
+
 def tile_steps(x: torch.Tensor, w: torch.Tensor, steps: int) -> torch.Tensor:
     """:func:`tile_steps_plain` as one launch whose blocks loop ``steps``
-    times over the tensor-core product (M and N multiples of 64, K of
-    16)."""
+    times over the tensor-core products, K split over a cluster (M and N
+    multiples of 64, K of 16 up to 2048; see :func:`tile_steps_plan`)."""
     if x.device.type == "cpu":
         return tile_steps_plain(x, w, steps)
     dev = _require_cuda("tile_steps", x, w)
     (m, k), (k2, n) = x.shape, w.shape
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"x and w must be bf16, got {x.dtype} and {w.dtype}")
-    lib = _lib("launch_overhead")
-    if k != k2 or m % 64 or n % 64 or k % 16 or lib.launch_overhead_smem(k) > SMEM_PER_BLOCK:
+    if k != k2 or m % 64 or n % 64 or k % 16 or k > _tile_max_k():
         raise ValueError(f"x {tuple(x.shape)} · w {tuple(w.shape)}: M and N must be multiples "
-                         f"of 64, K of 16 and small enough to stage")
+                         f"of 64, K of 16 and at most {_tile_max_k()}")
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
-    err = lib.launch_overhead(m, k, n, steps, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                              _stream(dev))
+    err = _lib("launch_overhead").launch_overhead(m, k, n, steps, x.data_ptr(), w.data_ptr(),
+                                                  out.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"tile_steps: CUDA error {err}")
     tile_steps.launches += 1
@@ -251,3 +278,28 @@ def tile_steps(x: torch.Tensor, w: torch.Tensor, steps: int) -> torch.Tensor:
 
 
 tile_steps.launches = 0
+
+PLAN_KEYS = ("blocks", "threads", "cluster", "products", "smem", "active_clusters")
+
+
+def tile_steps_plan(m: int, k: int, n: int) -> dict:
+    """The plan of :func:`tile_steps` at (M, K, N), asked of the library
+    (``csrc/overhead_plan.h``): blocks, threads a block, cluster (the
+    splits of K), products (k16 products a split each step), smem (bytes a
+    block) and active_clusters (how many such clusters the card holds at
+    once: every cluster of the grid is resident when it is at least
+    blocks / cluster)."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    if _lib("launch_overhead").launch_overhead_plan(m, k, n, out) != 0:
+        raise ValueError(f"tile_steps takes no (M, K, N) = {(m, k, n)}")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def empty_launch(device, blocks: int, threads: int, cluster: int = 1, smem: int = 0) -> None:
+    """One launch of an empty kernel of this geometry on ``device``'s
+    current stream (``csrc/launch_overhead.cu``): the floor of a kernel of
+    that grid, for the probes.  No path runs it; it counts nothing."""
+    err = _lib("launch_overhead").launch_empty(blocks, threads, cluster, smem,
+                                               _stream(torch.device(device)))
+    if err != 0:
+        raise RuntimeError(f"empty_launch: CUDA error {err}")

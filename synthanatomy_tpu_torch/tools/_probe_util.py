@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
@@ -45,6 +46,28 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_us(fn, calls: int, reps: int) -> float:
+    """µs per call of ``fn`` on the card, replayed from a CUDA graph of
+    ``calls`` calls (no host work between its launches): CUDA events
+    around ``reps`` replays, after one call outside the capture and one
+    warm-up replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls) * 1e3
+
+
 def probe_device(cpu: bool) -> torch.device:
     """The card, or the host with ``--cpu`` (the plain versions run
     there); no card and no ``--cpu`` raises."""
@@ -53,6 +76,18 @@ def probe_device(cpu: bool) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card visible: pass --cpu for a sanity run on the host")
     return torch.device("cuda", 0)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(0) + ", power limit not read"
 
 
 def device_name(dev: torch.device) -> str:

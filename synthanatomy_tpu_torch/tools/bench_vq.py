@@ -24,25 +24,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 from pathlib import Path
 
 import torch
 
 from synthanatomy_tpu_torch import _build
 from synthanatomy_tpu_torch.ops import vq
-from synthanatomy_tpu_torch.tools._probe_util import device_ms, event_ms, probe_device
-
-
-def _card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=30)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(0) + ", power limit not read"
+from synthanatomy_tpu_torch.tools._probe_util import card_name, device_ms, event_ms, probe_device
 
 
 def _calls(so, x, w):
@@ -97,7 +85,7 @@ def main(argv=None) -> dict:
     p.add_argument("--reps", type=int, default=200)
     args = p.parse_args(argv)
     dev = probe_device(False)
-    card = _card()
+    card = card_name()
     gen = torch.Generator(device=dev).manual_seed(50)
     n, k, d = args.n, args.k, args.d
     x = torch.randn(n, d, generator=gen, device=dev)

@@ -11,10 +11,18 @@ launches, each chained to the next by c = c + y · 1e-6, for ``--reps``
 repetitions, timed with CUDA events; the slopes give the cost of a
 launch.  The counterpart of the TPU probe's "everything under one jit"
 is a CUDA graph of one repetition, replayed ``--reps`` times, timed the
-same way; both slopes are printed.  A sweep of G at one launch gives the
-cost of a step, beside the tensor-core ideal 2·256·512·512 / 989e12.
-Each launch shape's first call is checked against the plain twin; a
-failure prints FAILED and ``main`` raises at the end.
+same way; both slopes are printed.  A link of the chain is three
+launches here, the tile program and two elementwise kernels (the
+multiply and the add), where JAX under ``jit`` fuses the link's
+elementwise work into one XLA op: so each slope is the cost of a tile
+program launch, its own fixed cost (prologue, cluster sums) and two
+elementwise launches.  On the card one more line splits the first two:
+the tile program at G 0 (staging, cluster sums and writes, no product)
+against an empty kernel of its grid, both replayed from a CUDA graph.
+A sweep of G at one launch gives the cost of a step, beside the
+tensor-core ideal 2·256·512·512 / 989e12.  Each launch shape's first
+call is checked against the plain twin; a failure prints FAILED and
+``main`` raises at the end.
 
     python -m synthanatomy_tpu_torch.tools.probe_pallas_overhead          # on the card
     python -m synthanatomy_tpu_torch.tools.probe_pallas_overhead --cpu --reps 1
@@ -30,7 +38,12 @@ import numpy as np
 import torch
 
 from synthanatomy_tpu_torch.ops import probes
-from synthanatomy_tpu_torch.tools._probe_util import device_name, elapsed_s, probe_device
+from synthanatomy_tpu_torch.tools._probe_util import (
+    device_name,
+    elapsed_s,
+    graph_us,
+    probe_device,
+)
 
 M, K_DIM, N = 256, 512, 512  # per-step tile product (bf16, f32 accumulation)
 G = 96  # total steps: the per-step launch count of the two training kernel families
@@ -90,6 +103,22 @@ def timed(run, dev, label):
     return dt
 
 
+def prologue_split(x, w, reps, calls=20):
+    """The tile program's own fixed cost: ``tile_steps(x, w, 0)`` (staging,
+    cluster sums and writes, no product) against an empty kernel of its
+    grid, µs a launch, each replayed from a CUDA graph of ``calls``
+    launches ``reps`` times."""
+    plan = probes.tile_steps_plan(x.shape[0], x.shape[1], w.shape[1])
+    geo = (plan["blocks"], plan["threads"], plan["cluster"], plan["smem"])
+    g0 = graph_us(lambda: probes.tile_steps(x, w, 0), calls, reps)
+    empty = graph_us(lambda: probes.empty_launch(x.device, *geo), calls, reps)
+    print(f"\nprologue vs empty launch (CUDA graph replays; {geo[0]} blocks of {geo[1]} "
+          f"threads in clusters of {geo[2]}, {geo[3]} B of shared memory): tile program at "
+          f"G 0 {g0:.2f} us a launch, empty kernel of its grid {empty:.2f} us, the program's "
+          f"own fixed cost {g0 - empty:.2f} us")
+    return {"g0_us": g0, "empty_us": empty, "plan": plan}
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--cpu", action="store_true", help="run the plain versions on the host")
@@ -130,6 +159,8 @@ def main(argv=None) -> dict:
         out[mode] = {"s_per_rep": res, "per_call_s": per_call, "per_call24_s": per_call24}
     if dev.type != "cuda":
         print("(no CUDA graph on the host)")
+    else:
+        out["prologue"] = prologue_split(x, w, reps)
 
     print("\ngrid sweep (1 call):")
     gs = {g: timed(build(x, w, 1, g, reps, False), dev, f"grid={g}") / reps for g in SWEEP}

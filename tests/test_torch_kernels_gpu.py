@@ -894,19 +894,41 @@ def test_weight_stream_kernel_matches_plain(cuda, packed, b, k, n, layers):
                          torch.float32)
 
 
+def _unpack_case(layout, device):
+    """Packed bytes: every byte value (16 x 16, 16-byte pieces only), a
+    ragged (3, 7) (one piece and a tail of 5 bytes, the high half's stores
+    unaligned), or the 256 values as a view one byte past a 16-byte
+    boundary (one byte a thread)."""
+    every = torch.arange(256, dtype=torch.int32, device=device).to(torch.uint8).view(torch.int8)
+    if layout == "every-byte":
+        return every.reshape(16, 16)
+    if layout == "ragged":
+        return every[:21].reshape(3, 7)
+    buf = torch.zeros(257 + 16, dtype=torch.int8, device=device)
+    view = buf[1:257].reshape(16, 16)
+    view.copy_(every.reshape(16, 16))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    return view
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["every-byte", "ragged", "unaligned"])
 @pytest.mark.parametrize("variant", range(4))
-def test_int4_unpack_kernel_is_exact(cuda, variant):
-    packed = torch.arange(256, dtype=torch.int32, device=cuda).to(torch.uint8).view(
-        torch.int8).reshape(16, 16)
+def test_int4_unpack_kernel_is_exact(cuda, variant, layout):
+    packed = _unpack_case(layout, cuda)
     lo, hi = tq.unpack_int4(packed)
     want = torch.cat([lo, hi]).float()
     assert torch.equal(tpr.int4_unpack(packed, variant), want)
+    assert torch.equal(tpr.unpack_int4_plain(packed, variant), want)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n,steps", [(256, 512, 512, 3), (64, 48, 128, 1)])
+@pytest.mark.parametrize("m,k,n,steps", [(256, 512, 512, 3), (64, 48, 128, 1),
+                                         (128, 1024, 256, 5), (64, 16, 64, 2),
+                                         (256, 512, 512, 96)])
 def test_tile_steps_kernel_matches_plain(cuda, m, k, n, steps):
+    """Shapes across the K split (K 48 three splits of 16, K 1024 eight of
+    128) and the cluster (one block at 64 x 16 x 64)."""
     gen = torch.Generator(device=cuda).manual_seed(m + k)
     x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
     w = torch.randn(k, n, generator=gen, device=cuda).to(torch.bfloat16)
@@ -915,6 +937,19 @@ def test_tile_steps_kernel_matches_plain(cuda, m, k, n, steps):
     torch.cuda.synchronize()
     # bf16 output: one rounding of f32 sums taken in other orders
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,steps", [(256, 512, 512, 96), (64, 48, 128, 7)])
+def test_tile_steps_runs_are_bit_identical(cuda, m, k, n, steps):
+    """The splits' sums meet in rank order: two runs are bit-identical;
+    and every cluster of the probe's grid is resident at once."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * m + k)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen, device=cuda).to(torch.bfloat16)
+    assert torch.equal(tpr.tile_steps(x, w, steps), tpr.tile_steps(x, w, steps))
+    plan = tpr.tile_steps_plan(m, k, n)
+    assert plan["active_clusters"] * plan["cluster"] >= plan["blocks"]
 
 
 @pytest.mark.gpu
