@@ -2048,7 +2048,7 @@ def _check_decode_side(dev, smi):
     # device time beside an empty launch of the same grid, in turns: no
     # launch of that grid can take less
     geo = probes.int4_unpack_grid(pk)
-    empty = lambda: probes.empty_launch(dev, *geo)  # noqa: E731
+    empty = lambda: probes.empty_launch(dev, geo["blocks"], geo["threads"])  # noqa: E731
     f1, d1, d2, f2 = (_device_ms(empty, 200), _device_ms(unpack, 200), _device_ms(unpack, 200),
                       _device_ms(empty, 200))
     bound = _bound(0, pk.numel() * 9, PEAK_F32)
@@ -2056,7 +2056,7 @@ def _check_decode_side(dev, smi):
                           (d1 + d2) / 2)
     print(f"[time] int4_unpack A (K2 {pk.shape[0]}, N {pk.shape[1]}): kernel {(k1 + k2) / 2:.4f} "
           f"ms elapsed ({k1:.4f}, {k2:.4f}), {(d1 + d2) / 2:.4f} ms device time ({d1:.4f}, "
-          f"{d2:.4f}); an empty launch of its grid ({geo[0]} blocks of {geo[1]}) "
+          f"{d2:.4f}); an empty launch of its grid ({geo['blocks']} blocks of {geo['threads']}) "
           f"{(f1 + f2) / 2:.4f} ms device time ({f1:.4f}, {f2:.4f}); plain {(p1 + p2) / 2:.4f} "
           f"ms; bound {bound[0]:.6f} ms ({bound[1]}: the packed bytes read, two f32 values "
           f"written a byte; the same for B, C and D, which compute the same unpack)  [{smi}]")

@@ -17,14 +17,16 @@
 // floor is an empty launch of the same grid.  So the kernel does as little
 // per byte as it can, and keeps every memory access coalesced: a thread
 // takes 16 packed bytes with one 16-byte load (a warp: 512 consecutive
-// bytes), the warp passes the words round by shuffles so that lane l of
-// store q holds the 4 bytes behind float4 32q + l of the warp's output,
-// and each thread writes its 16 low values and its 16 high values as four
-// float4 stores each, every store of a warp 512 consecutive bytes.  The
-// formulation runs per byte as written.  Bytes past the last whole 512,
-// or packed or output pointers that are not 16-byte aligned, are done one
-// byte a thread (the high half's stores are 4 bytes each where N·K2 is
-// not a multiple of 4).  The grid is sized to the bytes.
+// bytes) and stages them in shared memory, so that after a warp barrier
+// lane l of store q reads the 4 bytes behind float4 32q + l of the warp's
+// output; each thread writes its 16 low values and its 16 high values as
+// four float4 stores each, every store of a warp 512 consecutive bytes.
+// (Words passed round by 16 warp shuffles in place of the staging were
+// slower than the one-byte-a-thread kernel before them.)  The formulation
+// runs per byte as written.  Bytes past the last whole 512, or packed or
+// output pointers that are not 16-byte aligned, are done one byte a thread
+// (the high half's stores are 4 bytes each where N·K2 is not a multiple
+// of 4).  The grid is sized to the bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,7 +34,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 16 blocks at the probe's 32 KB (8 of 256 are slower)
+constexpr int kThreads = 128;  // 16 blocks at the probe's 32 KB
 
 __device__ __forceinline__ int floordiv(int a, int b) {  // b > 0
   const int q = a / b;
@@ -75,18 +77,15 @@ __global__ void __launch_bounds__(kThreads)
 unpack_kernel(const int8_t* __restrict__ packed, int n, int nvec, float* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i < nvec) {
-    const int4 raw = reinterpret_cast<const int4*>(packed)[i];
+    __shared__ int4 stage[kThreads];  // each warp's 512 bytes
+    stage[threadIdx.x] = reinterpret_cast<const int4*>(packed)[i];
+    __syncwarp();
     const int lane = threadIdx.x % 32;
+    const int* words = reinterpret_cast<const int*>(stage + (threadIdx.x - lane));
     const int64_t warp0 = 16 * (int64_t)(i - lane);  // the warp's first byte
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      // float4 32q + lane of the warp's output: word lane % 4 of the 16
-      // bytes of lane 8q + lane / 4
-      const int src = 8 * q + lane / 4;
-      const unsigned all = 0xffffffffu;
-      const int w0 = __shfl_sync(all, raw.x, src), w1 = __shfl_sync(all, raw.y, src);
-      const int w2 = __shfl_sync(all, raw.z, src), w3 = __shfl_sync(all, raw.w, src);
-      const int word = lane % 4 == 0 ? w0 : lane % 4 == 1 ? w1 : lane % 4 == 2 ? w2 : w3;
+      const int word = words[32 * q + lane];  // the bytes of float4 32q + lane
       float lo[4], hi[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) unpack<V>((int8_t)(word >> (8 * e)), lo[e], hi[e]);
@@ -122,10 +121,12 @@ int grid(int n, int nvec) { return (nvec + (n - 16 * nvec) + kThreads - 1) / kTh
 
 extern "C" {
 
-// The launch's geometry for n bytes at these pointers: blocks, and threads
-// a block, into out[0..1].
+// The launch's geometry for n bytes at these pointers, into geometry[0..2]:
+// blocks, threads a block, and the 16-byte pieces (threads of the vector
+// path; the other n − 16·pieces bytes take one thread each).
 void int4_unpack_grid(int n, const void* packed, const void* out, int* geometry) {
-  geometry[0] = grid(n, pieces(n, packed, out));
+  geometry[2] = pieces(n, packed, out);
+  geometry[0] = grid(n, geometry[2]);
   geometry[1] = kThreads;
 }
 

@@ -203,8 +203,9 @@ def unpack_int4_plain(packed: torch.Tensor, variant: int) -> torch.Tensor:
 def int4_unpack(packed: torch.Tensor, variant: int) -> torch.Tensor:
     """Formulation ``variant`` of the nibble unpack (see
     :func:`unpack_int4_plain`) as one kernel launch: 16 bytes a thread
-    where the pointers are 16-byte aligned, one byte a thread past the
-    last whole 16 or where they are not."""
+    over every whole 512 bytes (a warp's) where the pointers are 16-byte
+    aligned, one byte a thread past them or where they are not (see
+    :func:`int4_unpack_grid`)."""
     if packed.device.type == "cpu":
         return unpack_int4_plain(packed, variant)
     dev = _require_cuda("int4_unpack", packed)
@@ -226,12 +227,13 @@ def int4_unpack(packed: torch.Tensor, variant: int) -> torch.Tensor:
 int4_unpack.launches = 0
 
 
-def int4_unpack_grid(packed: torch.Tensor) -> tuple:
-    """(blocks, threads a block) of :func:`int4_unpack`'s launch on
-    ``packed`` (its output, from ``torch.empty``, is 16-byte aligned)."""
-    geo = (ctypes.c_int * 2)()
+def int4_unpack_grid(packed: torch.Tensor) -> dict:
+    """The geometry of :func:`int4_unpack`'s launch on ``packed`` (its
+    output, from ``torch.empty``, is 16-byte aligned): blocks, threads a
+    block, and pieces, the threads that take 16 bytes each."""
+    geo = (ctypes.c_int * 3)()
     _lib("int4_unpack").int4_unpack_grid(packed.numel(), packed.data_ptr(), 0, geo)
-    return geo[0], geo[1]
+    return dict(zip(("blocks", "threads", "pieces"), geo))
 
 
 # ---------------------------------------------------------------------------

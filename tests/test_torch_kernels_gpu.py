@@ -894,41 +894,49 @@ def test_weight_stream_kernel_matches_plain(cuda, packed, b, k, n, layers):
                          torch.float32)
 
 
+# layout: (shape, byte offset of the view from a 16-byte boundary, the
+# 16-byte pieces of the vector path that its launch must take)
+_UNPACK_LAYOUTS = {
+    "every-byte": ((16, 16), 0, 0),   # 256 bytes, under a warp's 512: one byte a thread
+    "ragged": ((3, 7), 0, 0),         # 21 bytes: one byte a thread
+    "tiled": ((64, 16), 0, 64),       # two warps' 512 bytes, n % 4 == 0: vector path only
+    "vector-tail": ((33, 17), 0, 32),  # 512 bytes a vector warp, a 49-byte tail, n % 4 == 1
+    "unaligned": ((64, 16), 1, 0),    # 1024 bytes one byte past a boundary: one byte a thread
+    "aligned-view": ((65, 16), 16, 64),  # 1040 bytes of a view 16 bytes in: vector and tail
+}
+
+
 def _unpack_case(layout, device):
-    """Packed bytes: every byte value (16 x 16, 16-byte pieces only), a
-    ragged (3, 7) (one piece and a tail of 5 bytes, the high half's stores
-    unaligned), or the 256 values as a view one byte past a 16-byte
-    boundary (one byte a thread)."""
-    every = torch.arange(256, dtype=torch.int32, device=device).to(torch.uint8).view(torch.int8)
-    if layout == "every-byte":
-        return every.reshape(16, 16)
-    if layout == "ragged":
-        return every[:21].reshape(3, 7)
-    buf = torch.zeros(257 + 16, dtype=torch.int8, device=device)
-    view = buf[1:257].reshape(16, 16)
-    view.copy_(every.reshape(16, 16))
-    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    """Packed bytes that cycle through every byte value, of the layout's
+    shape, as a view that starts the layout's offset past a 16-byte
+    boundary (``_UNPACK_LAYOUTS``)."""
+    shape, offset, _ = _UNPACK_LAYOUTS[layout]
+    n = shape[0] * shape[1]
+    every = (torch.arange(n, dtype=torch.int32, device=device) % 256).to(torch.uint8)
+    buf = torch.zeros(n + 32, dtype=torch.int8, device=device)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[offset:offset + n].reshape(shape)
+    view.copy_(every.view(torch.int8).reshape(shape))
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
     return view
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["every-byte", "ragged", "unaligned"])
+@pytest.mark.parametrize("layout", list(_UNPACK_LAYOUTS))
 @pytest.mark.parametrize("variant", range(4))
 def test_int4_unpack_kernel_is_exact(cuda, variant, layout):
+    """Every formulation exact on the one-byte path alone, on the 16-byte
+    path alone, on both in one launch (a tail after the whole warps, the
+    high half's stores 4 bytes each where n % 4 != 0), and on views."""
     packed = _unpack_case(layout, cuda)
+    assert tpr.int4_unpack_grid(packed)["pieces"] == _UNPACK_LAYOUTS[layout][2]
     lo, hi = tq.unpack_int4(packed)
     want = torch.cat([lo, hi]).float()
     assert torch.equal(tpr.int4_unpack(packed, variant), want)
     assert torch.equal(tpr.unpack_int4_plain(packed, variant), want)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n,steps", [(256, 512, 512, 3), (64, 48, 128, 1),
-                                         (128, 1024, 256, 5), (64, 16, 64, 2),
-                                         (256, 512, 512, 96)])
-def test_tile_steps_kernel_matches_plain(cuda, m, k, n, steps):
-    """Shapes across the K split (K 48 three splits of 16, K 1024 eight of
-    128) and the cluster (one block at 64 x 16 x 64)."""
+def _assert_tile_steps_close(cuda, m, k, n, steps):
     gen = torch.Generator(device=cuda).manual_seed(m + k)
     x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
     w = torch.randn(k, n, generator=gen, device=cuda).to(torch.bfloat16)
@@ -937,6 +945,30 @@ def test_tile_steps_kernel_matches_plain(cuda, m, k, n, steps):
     torch.cuda.synchronize()
     # bf16 output: one rounding of f32 sums taken in other orders
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,steps", [(256, 512, 512, 3), (64, 48, 128, 1),
+                                         (128, 1024, 256, 5), (64, 16, 64, 2),
+                                         (256, 512, 512, 96), (64, 2048, 64, 3),
+                                         (64, 176, 64, 4)])
+def test_tile_steps_kernel_matches_plain(cuda, m, k, n, steps):
+    """Shapes across the K split (K 48 three splits of 16, K 1024 eight of
+    128, K 2048 the most K takes: eight of 256) and the cluster (one block
+    at 64 x 16 x 64; K 176 six splits of two products, the last of zeros)."""
+    _assert_tile_steps_close(cuda, m, k, n, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("products", range(1, 17))
+def test_tile_steps_every_split_length(cuda, products):
+    """Every split length the kernel is built for (1-16 k16 products, one
+    template instance each), launched: 128 tiles leave room for no second
+    split, so K = 16 · products is one split of that many."""
+    m, k, n = 512, 16 * products, 1024
+    plan = tpr.tile_steps_plan(m, k, n)
+    assert (plan["cluster"], plan["products"]) == (1, products)
+    _assert_tile_steps_close(cuda, m, k, n, 2)
 
 
 @pytest.mark.gpu

@@ -320,12 +320,13 @@ def test_split_order_model_matches_plain_and_jax(card, m, k, n, steps):
     assert np.array_equal(got, model_tile_steps(x, w, steps, s, p))
 
 
-def test_bench_launch_overhead_needs_the_card():
-    """The bench of row 9c's builds times the card only: without one it
-    raises before it builds anything."""
-    from synthanatomy_tpu_torch.tools import bench_launch_overhead
+@pytest.mark.parametrize("kernel", ["launch_overhead", "int4_unpack"])
+def test_bench_builds_needs_the_card(kernel):
+    """The bench of the probe kernels' builds (rows 9c and 9b) times the
+    card only: without one it raises before it builds anything."""
+    from synthanatomy_tpu_torch.tools import bench_builds
 
     if torch.cuda.is_available():
         pytest.skip("the refusal is checked where there is no card")
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        bench_launch_overhead.main(["current"])
+        bench_builds.main([kernel, "current"])

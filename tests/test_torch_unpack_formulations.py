@@ -71,14 +71,3 @@ def test_every_byte_equals_the_jax_probe(variant):
     for half in (got[:16], got[16:]):
         values, counts = np.unique(half, return_counts=True)
         assert values.tolist() == list(range(-8, 8)) and (counts == 16).all()
-
-
-def test_bench_int4_unpack_needs_the_card():
-    """The bench of row 9b's builds times the card only: without one it
-    raises before it builds anything."""
-    from synthanatomy_tpu_torch.tools import bench_int4_unpack
-
-    if torch.cuda.is_available():
-        pytest.skip("the refusal is checked where there is no card")
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        bench_int4_unpack.main(["current"])
