@@ -171,7 +171,28 @@ result, without them.  Phases, each fatal on failure:
    through rows 5 and 6 on structured latents, then greedy agreement of
    the fused step with the exact path (bf16 and int8 rings), the
    teacher-forced logit perturbation, KL and total variation, with the
-   fused kernel step held against its plain version at these widths.
+   fused kernel step held against its plain version at these widths;
+18. (run right after phase 2, in a process of its own: a user's fresh
+   process, so the engines cuDNN autotunes under the CLI's flags never
+   reach the later phases, nor theirs it) the port's stage-1 CLI
+   (``synthanatomy_tpu_torch.run_vqvae``) at paper width from NIfTI
+   files: 6 training and 3 validation smooth int16 phantoms of
+   160x224x160 written by ``save_nifti``; the loader alone (volumes/s,
+   which NIfTI reader ran); training with the README's
+   stage-1 flags (4 levels, 256 channels, codebook 2048 x 32, decay 0.5,
+   jukebox_perceptual, adversarial), B3, 2 epochs of 2 steps, eval at
+   epoch 2, traced by the runner's ``StepProfiler``: finite losses
+   (D's too), argmin and residual launches, rows 3 and 7 in the trace,
+   ms per step through the CLI and the device's busy share over steps 3-4
+   (compared with phase 11's bare step once phase 11 has run), the device
+   time by kernel; a second call with 3 epochs resumes from
+   checkpoint_epoch=2 and writes checkpoint_epoch=3 and
+   model_state_dict_epoch=3.pt (codebook (2048, 32)); extraction (six
+   uint16 (10, 14, 10) grids below 2048, reconstructions of 160x224x160,
+   D's maps; row 3 in its trace) and decoding of two grids, each in s per
+   volume split into model build, checkpoint load, forward and NIfTI
+   writes; then ``tools/bench`` at the paper form, whose JSON line comes
+   on a line of its own.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -1286,7 +1307,8 @@ def _check_stage1(dev, smi):
         peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
     step_k, step_p = (k1 + k2) / 2 * 1e3, (p1 + p2) / 2 * 1e3
     rec["step"] = (step_k, step_p, peak, peak_plain)
-    print(f"[time] paper stage-1 train step B{VQ_BATCH}: kernels {step_k:.1f} ms ({k1 * 1e3:.1f}"
+    print(f"[time] paper stage-1 train step B{VQ_BATCH} (cuDNN heuristics, benchmark off): "
+          f"kernels {step_k:.1f} ms ({k1 * 1e3:.1f}"
           f", {k2 * 1e3:.1f}), {VQ_BATCH / (step_k / 1e3):.3f} volumes/s, peak {peak:.2f} GiB; "
           f"plain {step_p:.1f} ms ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}), "
           f"{VQ_BATCH / (step_p / 1e3):.3f} volumes/s, peak {peak_plain:.2f} GiB  [{smi}]")
@@ -2213,6 +2235,313 @@ def _check_validation(dev, smi):
               f"{n[1]}, local {n[2]}; {dt:.1f} s  [{smi}]")
 
 
+# phase 18: the stage-1 CLI at paper width (README's stage-1 flags)
+CLI_FLAGS = dict(
+    no_levels=4, no_channels=256, num_embeddings=(2048,), embedding_dim=(32,), decay=(0.5,),
+    loss="jukebox_perceptual", adversarial_component=True,
+    downsample_parameters=((4, 2, 1, 1),) * 4, upsample_parameters=((4, 2, 1, 0, 1),) * 4,
+    batch_size=3, eval_batch_size=3, training_epoch_length=2, checkpoint_every=1, eval_every=2,
+    experiment_name="smoke", num_workers=8, prefetch_factor=4,
+)
+CLI_TRAIN, CLI_VAL = 6, 3
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _phantoms(root, n, seed):
+    """n smooth int16 phantoms of VOLUME (a coarse seeded grid, trilinear
+    zoom: gzip takes seconds), written by the port's ``save_nifti``."""
+    import numpy as np
+    from scipy import ndimage
+
+    from synthanatomy_tpu_torch.data.nifti import save_nifti
+
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        coarse = rng.uniform(0.0, 1000.0, size=tuple(s // 16 + 1 for s in VOLUME))
+        vol = ndimage.zoom(coarse, 16, order=1)[tuple(slice(0, s) for s in VOLUME)]
+        save_nifti(os.path.join(root, f"sub{i}.nii.gz"), vol.astype(np.int16))
+
+
+def _trace_window(trace, first, last):
+    """Host start of step ``first`` to the end of the device work that
+    steps first..last launched, from the runner's Chrome trace: {"ms",
+    "host_ms" (to the host end of step ``last``), "busy_ms" (the union of
+    device intervals in the window), "by_kernel" ({name: device ms})}."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    steps = {e["name"]: e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("train#")}
+    t0 = float(steps[f"train#{first}"]["ts"])
+    host_end = float(steps[f"train#{last}"]["ts"]) + float(steps[f"train#{last}"]["dur"])
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and t0 <= float(e["ts"]) <= host_end and "correlation" in e.get("args", {})}
+    mine = [e for e in device if e.get("args", {}).get("correlation") in launched]
+    _require(mine, "no device work correlated with the traced steps")
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in mine)
+    spans = sorted((max(float(e["ts"]), t0), min(float(e["ts"]) + float(e["dur"]), t1))
+                   for e in device if float(e["ts"]) < t1 and float(e["ts"]) + float(e["dur"]) > t0)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:  # the union of the device intervals
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    by_kernel = {}
+    for e in mine:
+        if e.get("cat") == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    return {"ms": (t1 - t0) / 1e3, "host_ms": (host_end - t0) / 1e3, "busy_ms": busy / 1e3,
+            "by_kernel": by_kernel}
+
+
+@contextlib.contextmanager
+def _stopwatch(spent, targets):
+    """Wraps each (owner, attribute) in ``targets`` so that its calls add
+    their wall seconds (the card synchronised after each) to
+    ``spent[attribute]``."""
+    import torch
+
+    patches = []
+    for owner, attr in targets:
+        real = getattr(owner, attr)
+
+        def timed(*a, _real=real, _attr=attr, **k):
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            torch.cuda.synchronize()
+            spent[_attr] = spent.get(_attr, 0.0) + time.perf_counter() - t0
+            return out
+
+        patches.append(mock.patch.object(owner, attr, timed))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield spent
+
+
+def _free_gib():
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free, "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB held by the caching allocator")
+
+
+def _check_cli(dev, smi):
+    """Phase 18: ``synthanatomy_tpu_torch.run_vqvae`` trains (then resumes),
+    extracts and decodes at paper width from NIfTI files; then
+    ``tools/bench`` at the paper form.  Runs in a process of its own
+    (``_run_cli_phase``).  Returns the CLI's ms per step."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from synthanatomy_tpu_torch import inferers, native
+    from synthanatomy_tpu_torch.config import VQVAEConfig
+    from synthanatomy_tpu_torch.data import nifti
+    from synthanatomy_tpu_torch.data.nifti import load_nifti
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+    from synthanatomy_tpu_torch.run_vqvae import run
+    from synthanatomy_tpu_torch.runners import vqvae as runner
+    from synthanatomy_tpu_torch.tools import bench
+    from synthanatomy_tpu_torch.train import checkpoints as ckpt
+
+    def _spent(spent):
+        names = {"build_vqvae": "model build", "load_checkpoint": "checkpoint load",
+                 "save_nifti": "NIfTI writes", "__call__": "the inferer's forward"}
+        return ", ".join(f"{names[k]} {v:.1f} s" for k, v in spent.items())
+
+    print(f"[cli] before the CLI: {_free_gib()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        _phantoms(train_dir, CLI_TRAIN, 60)
+        _phantoms(val_dir, CLI_VAL, 61)
+        proj = os.path.join(tmp, "experiments")
+        flags = dict(CLI_FLAGS, training_subjects=train_dir, project_directory=proj)
+        print(f"[cli] {CLI_TRAIN} training and {CLI_VAL} validation phantoms {VOLUME} int16 "
+              f"written in {time.perf_counter() - t0:.1f} s")
+
+        # the loader alone: one epoch of the training set
+        reader = "native (C++)" if native.native_available() else "Python (no g++/zlib)"
+        loader = runner._make_loaders(VQVAEConfig(**flags), "training")["train"]
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b["paths"]) for b in loader.epoch(0))
+        load_s = time.perf_counter() - t0
+        print(f"[cli] loader: {n_loaded / load_s:.3f} volumes/s over one epoch "
+              f"({n_loaded} volumes, {CLI_FLAGS['num_workers']} threads, host augmentation "
+              f"p 0.2), NIfTI reader: {reader}")
+
+        # training, traced by the runner's own StepProfiler
+        trace_dir = os.path.join(tmp, "trace")
+        vq.nearest_codeword.launches = 0
+        rs.fused_residual_layer.launches = rs.fused_residual_layer.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        os.environ["SYNTHANATOMY_PROFILE_DIR"] = trace_dir
+        try:
+            t0 = time.perf_counter()
+            out = run(mode="training", validation_subjects=val_dir, epochs=2, **flags)
+            train_s = time.perf_counter() - t0
+        finally:
+            del os.environ["SYNTHANATOMY_PROFILE_DIR"]
+        n = (vq.nearest_codeword.launches, rs.fused_residual_layer.launches,
+             rs.fused_residual_layer.bwd_launches)
+        _require(min(n) > 0, f"CLI training launches: argmin {n[0]}, residual fwd {n[1]}, "
+                             f"bwd {n[2]}")
+        hist = out["history"]
+        _require(len(hist) == 2 and "Loss-Discriminator-Total" in hist[0]
+                 and all(np.isfinite(v) for h in hist for v in h.values()),
+                 f"CLI training history {hist}")
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            trace = json.load(f)
+        win = _trace_window(trace, 2, 3)
+        all_names = _trace_window(trace, 0, 3)["by_kernel"]
+        rows = {"3": r"vq_argmin_kernel", "7 forward": r"res_tile_fwd_kernel",
+                "7 backward": r"res_tile_(dx|da|dw1)_kernel"}
+        missing = [r for r, pat in rows.items() if not any(re.search(pat, k) for k in all_names)]
+        _require(not missing, f"row(s) {missing} missing from the training trace; its kernels: "
+                              f"{sorted(k[:60] for k in all_names)[:40]}")
+        print(f"[cli] training: 2 epochs x 2 steps + eval ({train_s:.1f} s); history "
+              f"{[{k: round(v, 5) for k, v in h.items() if k.startswith('Loss')} for h in hist]}"
+              f"; launches argmin {n[0]}, residual fwd {n[1]}, bwd {n[2]}; trace holds "
+              f"vq_argmin_kernel and res_tile_* kernels")
+        print(f"[cli] training through the CLI, steps 3-4 (epoch 2): {win['ms'] / 2:.1f} ms per "
+              f"step (host start of step 3 to the end of step 4's device work, loader and "
+              f"host included; to step 4's host end {win['host_ms'] / 2:.1f}), device busy "
+              f"{100 * win['busy_ms'] / win['ms']:.1f}% ({win['busy_ms'] / 2:.1f} ms a step); "
+              f"the first call "
+              f"(4 steps, eval, 2 checkpoints; cuDNN autotunes each new shape under "
+              f"--cuda_benchmark, the CLI's default) took {train_s:.1f} s  [{smi}]")
+        top = sorted(win["by_kernel"].items(), key=lambda kv: -kv[1])
+        for name, ms in top[:10]:
+            print(f"[cli]   {ms / 2:9.2f} ms a step  {name[:90]}")
+
+        # the second call resumes from checkpoint_epoch=2
+        out = run(mode="training", epochs=3, **flags)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckdir = out["dirs"]["checkpoint_directory"]
+        _require(len(out["history"]) == 1 and out["state"].step == 6,
+                 f"resume: {len(out['history'])} epochs, step {out['state'].step}")
+        _require({"checkpoint_epoch=3", "model_state_dict_epoch=3.pt"} <= set(os.listdir(ckdir)),
+                 f"checkpoints {os.listdir(ckdir)}")
+        sd = torch.load(os.path.join(ckdir, "model_state_dict_epoch=3.pt"), weights_only=True)
+        _require(tuple(sd["quantizer.0.impl.embedding.weight"].shape) == (2048, 32),
+                 "codebook key")
+        print(f"[cli] resume: epoch 3 from checkpoint_epoch=2 (step {out['state'].step}), "
+              f"checkpoint_epoch=3 and model_state_dict_epoch=3.pt ({len(sd)} keys); peak "
+              f"{peak:.2f} GiB over the training calls  [{smi}]")
+        del out, sd
+        torch.cuda.empty_cache()
+
+        # extraction, under torch.profiler
+        vq.nearest_codeword.launches = 0
+        stages = [(runner, "build_vqvae"), (ckpt, "load_checkpoint"), (nifti, "save_nifti"),
+                  (inferers.VQVAEExtractionInferer, "__call__"),
+                  (inferers.VQVAEDecodingInferer, "__call__")]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                _stopwatch({}, stages) as spent:
+            out = run(mode="extracting", **flags)
+            torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        _require(vq.nearest_codeword.launches > 0, "extraction launched no argmin")
+        _require(any("vq_argmin_kernel" in e.key for e in prof.key_averages()),
+                 "row 3 missing from the extraction trace")
+        written = out["written"]
+        grids = sorted(p for p in written if p.endswith("_quantization_0.npy"))
+        recons = [p for p in written if p.endswith("_reconstruction.nii.gz")]
+        maps = [p for p in written if p.endswith("_adversarial_loss.npy")]
+        _require(len(grids) == len(recons) == len(maps) == CLI_TRAIN,
+                 f"extraction wrote {len(grids)} grids, {len(recons)} volumes, {len(maps)} maps")
+        for g in grids:
+            a = np.load(g)
+            _require(a.dtype == np.uint16 and a.shape == GRID and int(a.max()) < 2048,
+                     f"{g}: {a.dtype} {a.shape}")
+        for r in recons:
+            v = load_nifti(r, as_closest_canonical=False).data
+            _require(v.shape == VOLUME and np.isfinite(v).all(), f"{r}: {v.shape}")
+        print(f"[cli] extraction: {extract_s / CLI_TRAIN:.2f} s per volume ({CLI_TRAIN} volumes "
+              f"in {extract_s:.1f} s; of which {_spent(spent)}), "
+              f"{vq.nearest_codeword.launches} argmin launches  [{smi}]")
+
+        # decoding two of the grids
+        lat = os.path.join(tmp, "latents")
+        os.makedirs(lat)
+        for g in grids[:2]:
+            os.link(g, os.path.join(lat, os.path.basename(g)))
+        t0 = time.perf_counter()
+        with _stopwatch({}, stages) as spent:
+            out = run(mode="decoding", **dict(flags, training_subjects=lat))
+        decode_s = time.perf_counter() - t0
+        samples = [p for p in out["written"] if p.endswith("_sample.nii.gz")]
+        _require(len(samples) == 2, f"decoding wrote {samples}")
+        for p in samples:
+            v = load_nifti(p, as_closest_canonical=False).data
+            _require(v.shape == VOLUME and np.isfinite(v).all(), f"{p}: {v.shape}")
+        print(f"[cli] decoding: {decode_s / 2:.2f} s per volume (2 volumes in {decode_s:.1f} s; "
+              f"of which {_spent(spent)})  [{smi}]")
+        del out
+        torch.cuda.empty_cache()
+
+    # tools/bench at the paper form: its JSON line, never the last line
+    fd.fused_decode_step.launches = 0
+    line = bench.main([])
+    _require(fd.fused_decode_step.launches > 0, "tools/bench launched no fused step")
+    _require(line["value"] > 0 and line["vs_baseline"] > 0, f"tools/bench {line}")
+    print(f"[cli] tools/bench: {fd.fused_decode_step.launches} fused decode steps  [{smi}]")
+    return win["ms"] / 2
+
+
+CLI_PHASE_TIMEOUT_S = 600
+
+
+def _run_cli_phase():
+    """Runs phase 18 in a child process (this script with ``--cli-phase``),
+    its output on this one's; returns the CLI's ms per step.  The child is
+    killed if it outlives ``CLI_PHASE_TIMEOUT_S``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "cli.json")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        try:
+            rc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), "--cli-phase",
+                                 result], timeout=CLI_PHASE_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"phase 18 outlived {CLI_PHASE_TIMEOUT_S} s") from None
+        _require(rc == 0, f"phase 18 exited with code {rc}")
+        with open(result) as f:
+            return json.load(f)["cli_step_ms"]
+
+
+def _cli_phase(result):
+    """The child's side of ``_run_cli_phase``: phase 18 on card 0, its ms
+    per step written to ``result``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    with open(result, "w") as f:
+        json.dump({"cli_step_ms": _check_cli(torch.device("cuda", 0), _smi())}, f)
+    return 0
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -2232,12 +2561,12 @@ def main() -> int:
     # paper decode runs its convolutions in bf16, where TF32 does not apply
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN picks each convolution's engine by its heuristics in this
+    # process (phase 18, which autotunes under the CLI's flags, has its own)
+    torch.backends.cudnn.benchmark = False
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(smi)
 
     # 2. build
@@ -2249,6 +2578,9 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
     _check_sass()
+
+    # 18. the stage-1 CLI and tools/bench, in a process of its own
+    cli_step_ms = _run_cli_phase()
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),
@@ -2579,7 +2911,11 @@ def main() -> int:
     rerr = _check_res_kernels(dev)
     torch.cuda.empty_cache()
     # 10-11. the paper stage 1, then the kernels' timings
+    print(f"[mem] before phase 10: {_free_gib()}")
     s1 = _check_stage1(dev, smi)
+    print(f"[cli] the CLI's step (phase 18, its own process, cuDNN autotuned) {cli_step_ms:.1f} "
+          f"ms against phase 11's bare step (cuDNN heuristics) {s1['step'][0]:.1f} ms in this "
+          f"run  [{smi}]")
     t1 = _time_stage1_kernels(dev, smi)
     torch.cuda.empty_cache()
     # 12-13. the splash kernels, then the bench entry point through them
@@ -2648,4 +2984,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-phase"]:
+        sys.exit(_cli_phase(sys.argv[2]))
     sys.exit(main())

@@ -16,7 +16,11 @@ stage 1 (VQ-VAE training and latent extraction, ``csrc/vq_argmin.cu``
 and ``csrc/res_stack.cu``); and the prior-training bench
 (``tools/bench_transformer.py``), whose ``--splash-local`` runs the
 local heads through the block-sparse kernels of
-``csrc/local_attention_splash.cu``.
+``csrc/local_attention_splash.cu``; the stage-1 CLI
+(``python -m synthanatomy_tpu_torch.run_vqvae run --mode=training|
+extracting|decoding``, over ``runners/vqvae.py``, ``data/``,
+``train/checkpoints.py`` and the rest of the runner layer) and the
+headline's JSON line (``python -m synthanatomy_tpu_torch.tools.bench``).
 """
 
 __version__ = "0.1.0"

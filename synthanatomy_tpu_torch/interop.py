@@ -12,6 +12,15 @@ LPIPS parameter tree.  The transposes (the port's own copies of those
 - ConvTranspose kernel, forward-oriented DHWIO → ConvTranspose3d
   weight (I, O, D, H, W).
 
+The other direction, for the end-of-training release artifact
+``model_state_dict_epoch={N}.pt`` (reference run_vqvae.py:389-392):
+``export_vqvae_state_dict`` and ``export_discriminator_state_dict`` read
+the port's modules and return the reference's state-dict layout
+(``encoder.0.*``, ``decoder.0.*``, ``quantizer.0.impl.*``; ``main.*``),
+as JAX's ``synthanatomy_tpu/interop.py`` exports do; the port's weights
+are already in torch's layouts, so only the names change.
+``save_raw_state_dict`` writes one with ``torch.save``.
+
 No JAX is imported: the VQ state is read through its ``.codebook``
 attribute (a ``VQState``) or as a plain dict, the LPIPS tree through
 its ``.net`` / ``.lin`` / ``.kind`` attributes or as a dict.
@@ -30,7 +39,9 @@ from synthanatomy_tpu_torch.models.discriminator import BaselineDiscriminator
 from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
 
-__all__ = ["discriminator_from_jax", "lpips_from_jax", "performer_from_jax", "vqvae_from_jax"]
+__all__ = ["discriminator_from_jax", "export_discriminator_state_dict",
+           "export_vqvae_state_dict", "lpips_from_jax", "performer_from_jax",
+           "save_raw_state_dict", "vqvae_from_jax"]
 
 
 def _conv_w_inv(w) -> np.ndarray:
@@ -201,3 +212,81 @@ def lpips_from_jax(params, device="cuda") -> Dict[str, Any]:
     else:
         net, lin, kind = params.net, params.lin, params.kind
     return lpips_params_from_numpy({"net": net, "lin": lin}, kind, device)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", torch.float32).contiguous()
+
+
+def _put_conv(sd, prefix, conv):
+    sd[f"{prefix}.weight"] = _f32(conv.weight)
+    if conv.bias is not None:
+        sd[f"{prefix}.bias"] = _f32(conv.bias)
+
+
+def export_vqvae_state_dict(model: BaselineVQVAE) -> Dict[str, torch.Tensor]:
+    """Port ``BaselineVQVAE`` → reference BaselineVQVAE state dict
+    (module naming of reference src/networks/vqvae/baseline.py:213-299;
+    JAX: ``synthanatomy_tpu/interop.py::export_vqvae_state_dict``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    n_levels = model.n_levels
+
+    def put(prefix, conv):
+        _put_conv(sd, prefix, conv)
+
+    def put_res(prefix, layer):
+        put(f"{prefix}.0", layer.conv1)
+        put(f"{prefix}.3", layer.conv2)
+
+    for i in range(n_levels):
+        put(f"encoder.0.{3 * i}", model.encoder_convs[i])
+        for j, layer in enumerate(model.encoder_res[i]):
+            put_res(f"encoder.0.{3 * i + 2}.{j}", layer)
+    put(f"encoder.0.{3 * n_levels}", model.encoder_out_conv)
+
+    put("decoder.0.0", model.decoder_in_conv)
+    for i in range(n_levels):
+        base = 1 + 3 * i
+        for j, layer in enumerate(model.decoder_res[i]):
+            put_res(f"decoder.0.{base}.{j}", layer)
+        if i == n_levels - 1 and model.use_subpixel_conv:
+            put(f"decoder.0.{base + 1}.conv_block", model.decoder_ups[i])
+        else:
+            put(f"decoder.0.{base + 1}", model.decoder_ups[i])
+
+    sd["quantizer.0.impl.embedding.weight"] = _f32(model.vq.codebook)
+    sd["quantizer.0.impl.N"] = _f32(model.vq.cluster_size)
+    sd["quantizer.0.impl.embed_avg"] = _f32(model.vq.embed_avg)
+    return sd
+
+
+def export_discriminator_state_dict(model: BaselineDiscriminator) -> Dict[str, torch.Tensor]:
+    """Port ``BaselineDiscriminator`` → reference state dict
+    (src/networks/discriminator/baseline.py:41-84)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put_conv(prefix, conv):
+        _put_conv(sd, prefix, conv)
+
+    def put_bn(prefix, bn):
+        sd[f"{prefix}.weight"] = _f32(bn.scale)
+        sd[f"{prefix}.bias"] = _f32(bn.bias)
+        sd[f"{prefix}.running_mean"] = _f32(bn.mean)
+        sd[f"{prefix}.running_var"] = _f32(bn.var)
+
+    put_conv("main.0", model.conv_0)
+    idx = 2
+    for n in range(1, model.n_layers + 1):
+        put_conv(f"main.{idx}", getattr(model, f"conv_{n}"))
+        put_bn(f"main.{idx + 1}", getattr(model, f"norm_{n}"))
+        idx += 3
+    put_conv(f"main.{idx}", model.conv_out)
+    return sd
+
+
+def save_raw_state_dict(path: str, sd: Dict[str, torch.Tensor]) -> str:
+    """Write the reference's one-file release artifact ``{path}.pt``,
+    a state dict the reference codebase ``torch.load``s directly."""
+    out = f"{path}.pt"
+    torch.save(sd, out)
+    return out

@@ -15,6 +15,9 @@ fused layer hands the kernels their layout (``kernel_layout``:
 channels-last volumes on the tensor-core tile route), and what follows
 it runs on that layout.  ``use_remat`` checkpoints each residual layer
 (``torch.utils.checkpoint``, non-reentrant), as JAX's ``nn.remat`` does.
+``use_pallas_vq`` routes the nearest-codeword search as JAX's does:
+None (and True) take ``ops.vq.nearest_codeword``, the kernel on a CUDA
+tensor; False forces its plain version on any device.
 
 Layout is NCDHW (PyTorch's), against the reference's NDHWC; tests
 permute when they compare.  The codebook stays f32.  TF32: the module
@@ -30,6 +33,7 @@ checkpoint, so the recompute draws the same mask.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -176,6 +180,7 @@ class BaselineVQVAE(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         use_fused_residual: Optional[bool] = None,
         use_remat: bool = False,
+        use_pallas_vq: Optional[bool] = None,
         *,
         generator: Optional[torch.Generator] = None,
         device="cuda",
@@ -186,6 +191,7 @@ class BaselineVQVAE(nn.Module):
         self.embed_dim = embed_dim
         self.use_subpixel_conv = use_subpixel_conv
         self.use_remat = use_remat
+        self.use_pallas_vq = use_pallas_vq
         self.dtype = dtype
         # auto fuses only the rematerialized training form (JAX's policy)
         if use_fused_residual is None:
@@ -267,7 +273,8 @@ class BaselineVQVAE(nn.Module):
         z = encodings[0].permute(0, 2, 3, 4, 1)  # the VQ works channels-last
         q, loss, idx, _ = vq_ops.quantize_ema(self.vq, z, decay=decay,
                                               commitment_cost=commitment_cost,
-                                              training=training)
+                                              training=training,
+                                              plain=self.use_pallas_vq is False)
         self.diagnostics["perplexity"] = vq_ops.perplexity(idx, self.n_embed)
         return [q.permute(0, 4, 1, 2, 3).to(self.dtype)], [loss], [idx]
 
@@ -293,7 +300,9 @@ class BaselineVQVAE(nn.Module):
         extraction path)."""
         enc = self.encode(images, deterministic=True)[0]
         flat = enc.float().permute(0, 2, 3, 4, 1).reshape(-1, self.embed_dim)
-        idx = vq_ops.nearest_codeword(flat, self.vq.codebook)
+        search = (vq_ops.nearest_codeword_plain if self.use_pallas_vq is False
+                  else vq_ops.nearest_codeword)
+        idx = search(flat, self.vq.codebook)
         return [idx.reshape(enc.shape[0], *enc.shape[2:])]
 
     def decode_samples(self, embedding_indices: List[torch.Tensor]) -> torch.Tensor:
@@ -308,6 +317,21 @@ class BaselineVQVAE(nn.Module):
                                      training=training)
         recon = self.decode(q, deterministic=not training, generator=generator)
         return {"reconstruction": [recon], "quantization_losses": losses}
+
+    @contextlib.contextmanager
+    def unfused(self):
+        """Run the residual layers off the fused kernel inside the block
+        (JAX's ``model.clone(use_fused_residual=False)`` for the
+        forward-only evaluator, whose parameters are the same)."""
+        layers = [m for m in self.modules() if isinstance(m, ResidualLayer)]
+        saved = [layer.use_fused for layer in layers]
+        for layer in layers:
+            layer.use_fused = False
+        try:
+            yield self
+        finally:
+            for layer, flag in zip(layers, saved):
+                layer.use_fused = flag
 
     def last_layer_name(self) -> str:
         """JAX's name of the final decoder submodule, whose kernel the

@@ -207,10 +207,11 @@ nearest_codeword_stats.launches = 0
 
 
 def quantize_ema(state: VQState, x: torch.Tensor, *, decay, commitment_cost, training: bool,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, plain: bool = False):
     """Quantize x (..., D) with straight-through gradients; when
     ``training``, update the EMA state in place (counts and Σx of the
-    whole batch first, then the update).  Returns ``(quantized_st (x's
+    whole batch first, then the update).  ``plain`` takes the plain
+    nearest-codeword search on any device (JAX's ``use_pallas=False``).  Returns ``(quantized_st (x's
     dtype), commitment_loss (f32), indices (x.shape[:-1], int32),
     state)``; the quantized values come from the codebook before the
     update, as in JAX."""
@@ -220,10 +221,11 @@ def quantize_ema(state: VQState, x: torch.Tensor, *, decay, commitment_cost, tra
     xf = x.float()
     flat = xf.reshape(-1, d).detach()
 
-    if training and FUSED_EMA_STATS:
+    if training and FUSED_EMA_STATS and not plain:
         indices, counts, dw = nearest_codeword_stats(flat, state.codebook)
     else:
-        indices = nearest_codeword(flat, state.codebook)
+        search = nearest_codeword_plain if plain else nearest_codeword
+        indices = search(flat, state.codebook)
         counts = dw = None
     quantized = embed_indices(state, indices).reshape(xf.shape)
 

@@ -22,12 +22,24 @@ import pytest
 import torch
 from jax.experimental.pallas.ops.tpu.splash_attention import splash_attention_mask as sm
 
+from synthanatomy_tpu.ops import local_attention_splash as j_splash_mod
 from synthanatomy_tpu.ops.local_attention_splash import local_attention_splash as j_splash
 from synthanatomy_tpu_torch.ops import local_attention_splash as ts
 from synthanatomy_tpu_torch.ops.local_attention import local_attention
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _drop_traced_kernels():
+    """JAX's ``_make_kernel`` caches the kernel it builds, and one built
+    under this file's ``jax.jit`` holds its masks as tracers; a later test
+    in the same process at the same shape would reuse them.  Start and end
+    each test with the cache empty."""
+    j_splash_mod._make_kernel.cache_clear()
+    yield
+    j_splash_mod._make_kernel.cache_clear()
 
 
 def _qkv(b=2, h=3, n=300, d=64, seed=0):
