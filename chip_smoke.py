@@ -192,7 +192,30 @@ result, without them.  Phases, each fatal on failure:
    D's maps; row 3 in its trace) and decoding of two grids, each in s per
    volume split into model build, checkpoint load, forward and NIfTI
    writes; then ``tools/bench`` at the paper form, whose JSON line comes
-   on a line of its own.
+   on a line of its own;
+19. (right after phase 18, in a process of its own, on phase 18's
+   experiment directory) the port's stage-2 CLI
+   (``synthanatomy_tpu_torch.run_transformer``) and one-command synthesis
+   (``tools/synthesize``), each through ``cli.dispatch`` with a user's
+   argv: phase 18's six extracted grids copied to 12 training and 32
+   sampling files; prior training with the README's stage-2 flags at the
+   paper form (vocab 2048, 24L/d512/16h, 8 local heads of window 420,
+   raster, ReZero, learned spatial tables), bf16, B6, 2 epochs of 2
+   steps, eval at epoch 2, traced by the runner's ``StepProfiler``:
+   finite losses, exactly 24 x 7 row 5 and 24 x 3 row 6 launches in every
+   step, both rows in the trace, ms per step through the CLI and the
+   device's busy share over steps 3-4 (beside phase 8's bare step), peak
+   memory; a second call with 3 epochs resumes from checkpoint_epoch=2
+   and writes checkpoint_epoch=3 and model_state_dict_epoch=3.pt with
+   ``export_performer_state_dict``'s keys; sampling of the 32 files at
+   B16 with top-k 50 (32 uint16 grids below 2048, exactly 1400 row 1 step
+   launches in each of the two sampler calls, s per call and tok/s beside
+   phase 5's call, model build and checkpoint load); ``run_vqvae``
+   decoding of 4 samples with phase 18's stage-1 checkpoint (finite
+   160x224x160 volumes, s per volume); ``tools/synthesize`` of 16
+   volumes at B16 from both experiments (16 finite volumes, 1400 row 1
+   launches, volumes/min split into sampling, decoding and NIfTI
+   writes).
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -2331,13 +2354,13 @@ def _free_gib():
             f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB held by the caching allocator")
 
 
-def _check_cli(dev, smi):
+def _check_cli(dev, smi, tmp):
     """Phase 18: ``synthanatomy_tpu_torch.run_vqvae`` trains (then resumes),
-    extracts and decodes at paper width from NIfTI files; then
-    ``tools/bench`` at the paper form.  Runs in a process of its own
-    (``_run_cli_phase``).  Returns the CLI's ms per step."""
+    extracts and decodes at paper width from NIfTI files, in the directory
+    ``tmp`` (its experiments stay there for phase 19); then ``tools/bench``
+    at the paper form.  Runs in a process of its own (``_run_phase``).
+    Returns the CLI's ms per step."""
     import re
-    import tempfile
 
     import numpy as np
     import torch
@@ -2361,136 +2384,135 @@ def _check_cli(dev, smi):
         return ", ".join(f"{names[k]} {v:.1f} s" for k, v in spent.items())
 
     print(f"[cli] before the CLI: {_free_gib()}")
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+    _phantoms(train_dir, CLI_TRAIN, 60)
+    _phantoms(val_dir, CLI_VAL, 61)
+    proj = os.path.join(tmp, "experiments")
+    flags = dict(CLI_FLAGS, training_subjects=train_dir, project_directory=proj)
+    print(f"[cli] {CLI_TRAIN} training and {CLI_VAL} validation phantoms {VOLUME} int16 "
+          f"written in {time.perf_counter() - t0:.1f} s")
+
+    # the loader alone: one epoch of the training set
+    reader = "native (C++)" if native.native_available() else "Python (no g++/zlib)"
+    loader = runner._make_loaders(VQVAEConfig(**flags), "training")["train"]
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b["paths"]) for b in loader.epoch(0))
+    load_s = time.perf_counter() - t0
+    print(f"[cli] loader: {n_loaded / load_s:.3f} volumes/s over one epoch "
+          f"({n_loaded} volumes, {CLI_FLAGS['num_workers']} threads, host augmentation "
+          f"p 0.2), NIfTI reader: {reader}")
+
+    # training, traced by the runner's own StepProfiler
+    trace_dir = os.path.join(tmp, "trace")
+    vq.nearest_codeword.launches = 0
+    rs.fused_residual_layer.launches = rs.fused_residual_layer.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["SYNTHANATOMY_PROFILE_DIR"] = trace_dir
+    try:
         t0 = time.perf_counter()
-        train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
-        _phantoms(train_dir, CLI_TRAIN, 60)
-        _phantoms(val_dir, CLI_VAL, 61)
-        proj = os.path.join(tmp, "experiments")
-        flags = dict(CLI_FLAGS, training_subjects=train_dir, project_directory=proj)
-        print(f"[cli] {CLI_TRAIN} training and {CLI_VAL} validation phantoms {VOLUME} int16 "
-              f"written in {time.perf_counter() - t0:.1f} s")
+        out = run(mode="training", validation_subjects=val_dir, epochs=2, **flags)
+        train_s = time.perf_counter() - t0
+    finally:
+        del os.environ["SYNTHANATOMY_PROFILE_DIR"]
+    n = (vq.nearest_codeword.launches, rs.fused_residual_layer.launches,
+         rs.fused_residual_layer.bwd_launches)
+    _require(min(n) > 0, f"CLI training launches: argmin {n[0]}, residual fwd {n[1]}, "
+                         f"bwd {n[2]}")
+    hist = out["history"]
+    _require(len(hist) == 2 and "Loss-Discriminator-Total" in hist[0]
+             and all(np.isfinite(v) for h in hist for v in h.values()),
+             f"CLI training history {hist}")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json.load(f)
+    win = _trace_window(trace, 2, 3)
+    all_names = _trace_window(trace, 0, 3)["by_kernel"]
+    rows = {"3": r"vq_argmin_kernel", "7 forward": r"res_tile_fwd_kernel",
+            "7 backward": r"res_tile_(dx|da|dw1)_kernel"}
+    missing = [r for r, pat in rows.items() if not any(re.search(pat, k) for k in all_names)]
+    _require(not missing, f"row(s) {missing} missing from the training trace; its kernels: "
+                          f"{sorted(k[:60] for k in all_names)[:40]}")
+    print(f"[cli] training: 2 epochs x 2 steps + eval ({train_s:.1f} s); history "
+          f"{[{k: round(v, 5) for k, v in h.items() if k.startswith('Loss')} for h in hist]}"
+          f"; launches argmin {n[0]}, residual fwd {n[1]}, bwd {n[2]}; trace holds "
+          f"vq_argmin_kernel and res_tile_* kernels")
+    print(f"[cli] training through the CLI, steps 3-4 (epoch 2): {win['ms'] / 2:.1f} ms per "
+          f"step (host start of step 3 to the end of step 4's device work, loader and "
+          f"host included; to step 4's host end {win['host_ms'] / 2:.1f}), device busy "
+          f"{100 * win['busy_ms'] / win['ms']:.1f}% ({win['busy_ms'] / 2:.1f} ms a step); "
+          f"the first call "
+          f"(4 steps, eval, 2 checkpoints; cuDNN autotunes each new shape under "
+          f"--cuda_benchmark, the CLI's default) took {train_s:.1f} s  [{smi}]")
+    top = sorted(win["by_kernel"].items(), key=lambda kv: -kv[1])
+    for name, ms in top[:10]:
+        print(f"[cli]   {ms / 2:9.2f} ms a step  {name[:90]}")
 
-        # the loader alone: one epoch of the training set
-        reader = "native (C++)" if native.native_available() else "Python (no g++/zlib)"
-        loader = runner._make_loaders(VQVAEConfig(**flags), "training")["train"]
-        t0 = time.perf_counter()
-        n_loaded = sum(len(b["paths"]) for b in loader.epoch(0))
-        load_s = time.perf_counter() - t0
-        print(f"[cli] loader: {n_loaded / load_s:.3f} volumes/s over one epoch "
-              f"({n_loaded} volumes, {CLI_FLAGS['num_workers']} threads, host augmentation "
-              f"p 0.2), NIfTI reader: {reader}")
+    # the second call resumes from checkpoint_epoch=2
+    out = run(mode="training", epochs=3, **flags)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ckdir = out["dirs"]["checkpoint_directory"]
+    _require(len(out["history"]) == 1 and out["state"].step == 6,
+             f"resume: {len(out['history'])} epochs, step {out['state'].step}")
+    _require({"checkpoint_epoch=3", "model_state_dict_epoch=3.pt"} <= set(os.listdir(ckdir)),
+             f"checkpoints {os.listdir(ckdir)}")
+    sd = torch.load(os.path.join(ckdir, "model_state_dict_epoch=3.pt"), weights_only=True)
+    _require(tuple(sd["quantizer.0.impl.embedding.weight"].shape) == (2048, 32),
+             "codebook key")
+    print(f"[cli] resume: epoch 3 from checkpoint_epoch=2 (step {out['state'].step}), "
+          f"checkpoint_epoch=3 and model_state_dict_epoch=3.pt ({len(sd)} keys); peak "
+          f"{peak:.2f} GiB over the training calls  [{smi}]")
+    del out, sd
+    torch.cuda.empty_cache()
 
-        # training, traced by the runner's own StepProfiler
-        trace_dir = os.path.join(tmp, "trace")
-        vq.nearest_codeword.launches = 0
-        rs.fused_residual_layer.launches = rs.fused_residual_layer.bwd_launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        os.environ["SYNTHANATOMY_PROFILE_DIR"] = trace_dir
-        try:
-            t0 = time.perf_counter()
-            out = run(mode="training", validation_subjects=val_dir, epochs=2, **flags)
-            train_s = time.perf_counter() - t0
-        finally:
-            del os.environ["SYNTHANATOMY_PROFILE_DIR"]
-        n = (vq.nearest_codeword.launches, rs.fused_residual_layer.launches,
-             rs.fused_residual_layer.bwd_launches)
-        _require(min(n) > 0, f"CLI training launches: argmin {n[0]}, residual fwd {n[1]}, "
-                             f"bwd {n[2]}")
-        hist = out["history"]
-        _require(len(hist) == 2 and "Loss-Discriminator-Total" in hist[0]
-                 and all(np.isfinite(v) for h in hist for v in h.values()),
-                 f"CLI training history {hist}")
-        with open(os.path.join(trace_dir, "trace.json")) as f:
-            trace = json.load(f)
-        win = _trace_window(trace, 2, 3)
-        all_names = _trace_window(trace, 0, 3)["by_kernel"]
-        rows = {"3": r"vq_argmin_kernel", "7 forward": r"res_tile_fwd_kernel",
-                "7 backward": r"res_tile_(dx|da|dw1)_kernel"}
-        missing = [r for r, pat in rows.items() if not any(re.search(pat, k) for k in all_names)]
-        _require(not missing, f"row(s) {missing} missing from the training trace; its kernels: "
-                              f"{sorted(k[:60] for k in all_names)[:40]}")
-        print(f"[cli] training: 2 epochs x 2 steps + eval ({train_s:.1f} s); history "
-              f"{[{k: round(v, 5) for k, v in h.items() if k.startswith('Loss')} for h in hist]}"
-              f"; launches argmin {n[0]}, residual fwd {n[1]}, bwd {n[2]}; trace holds "
-              f"vq_argmin_kernel and res_tile_* kernels")
-        print(f"[cli] training through the CLI, steps 3-4 (epoch 2): {win['ms'] / 2:.1f} ms per "
-              f"step (host start of step 3 to the end of step 4's device work, loader and "
-              f"host included; to step 4's host end {win['host_ms'] / 2:.1f}), device busy "
-              f"{100 * win['busy_ms'] / win['ms']:.1f}% ({win['busy_ms'] / 2:.1f} ms a step); "
-              f"the first call "
-              f"(4 steps, eval, 2 checkpoints; cuDNN autotunes each new shape under "
-              f"--cuda_benchmark, the CLI's default) took {train_s:.1f} s  [{smi}]")
-        top = sorted(win["by_kernel"].items(), key=lambda kv: -kv[1])
-        for name, ms in top[:10]:
-            print(f"[cli]   {ms / 2:9.2f} ms a step  {name[:90]}")
+    # extraction, under torch.profiler
+    vq.nearest_codeword.launches = 0
+    stages = [(runner, "build_vqvae"), (ckpt, "load_checkpoint"), (nifti, "save_nifti"),
+              (inferers.VQVAEExtractionInferer, "__call__"),
+              (inferers.VQVAEDecodingInferer, "__call__")]
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            _stopwatch({}, stages) as spent:
+        out = run(mode="extracting", **flags)
+        torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    _require(vq.nearest_codeword.launches > 0, "extraction launched no argmin")
+    _require(any("vq_argmin_kernel" in e.key for e in prof.key_averages()),
+             "row 3 missing from the extraction trace")
+    written = out["written"]
+    grids = sorted(p for p in written if p.endswith("_quantization_0.npy"))
+    recons = [p for p in written if p.endswith("_reconstruction.nii.gz")]
+    maps = [p for p in written if p.endswith("_adversarial_loss.npy")]
+    _require(len(grids) == len(recons) == len(maps) == CLI_TRAIN,
+             f"extraction wrote {len(grids)} grids, {len(recons)} volumes, {len(maps)} maps")
+    for g in grids:
+        a = np.load(g)
+        _require(a.dtype == np.uint16 and a.shape == GRID and int(a.max()) < 2048,
+                 f"{g}: {a.dtype} {a.shape}")
+    for r in recons:
+        v = load_nifti(r, as_closest_canonical=False).data
+        _require(v.shape == VOLUME and np.isfinite(v).all(), f"{r}: {v.shape}")
+    print(f"[cli] extraction: {extract_s / CLI_TRAIN:.2f} s per volume ({CLI_TRAIN} volumes "
+          f"in {extract_s:.1f} s; of which {_spent(spent)}), "
+          f"{vq.nearest_codeword.launches} argmin launches  [{smi}]")
 
-        # the second call resumes from checkpoint_epoch=2
-        out = run(mode="training", epochs=3, **flags)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ckdir = out["dirs"]["checkpoint_directory"]
-        _require(len(out["history"]) == 1 and out["state"].step == 6,
-                 f"resume: {len(out['history'])} epochs, step {out['state'].step}")
-        _require({"checkpoint_epoch=3", "model_state_dict_epoch=3.pt"} <= set(os.listdir(ckdir)),
-                 f"checkpoints {os.listdir(ckdir)}")
-        sd = torch.load(os.path.join(ckdir, "model_state_dict_epoch=3.pt"), weights_only=True)
-        _require(tuple(sd["quantizer.0.impl.embedding.weight"].shape) == (2048, 32),
-                 "codebook key")
-        print(f"[cli] resume: epoch 3 from checkpoint_epoch=2 (step {out['state'].step}), "
-              f"checkpoint_epoch=3 and model_state_dict_epoch=3.pt ({len(sd)} keys); peak "
-              f"{peak:.2f} GiB over the training calls  [{smi}]")
-        del out, sd
-        torch.cuda.empty_cache()
-
-        # extraction, under torch.profiler
-        vq.nearest_codeword.launches = 0
-        stages = [(runner, "build_vqvae"), (ckpt, "load_checkpoint"), (nifti, "save_nifti"),
-                  (inferers.VQVAEExtractionInferer, "__call__"),
-                  (inferers.VQVAEDecodingInferer, "__call__")]
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
-                _stopwatch({}, stages) as spent:
-            out = run(mode="extracting", **flags)
-            torch.cuda.synchronize()
-        extract_s = time.perf_counter() - t0
-        _require(vq.nearest_codeword.launches > 0, "extraction launched no argmin")
-        _require(any("vq_argmin_kernel" in e.key for e in prof.key_averages()),
-                 "row 3 missing from the extraction trace")
-        written = out["written"]
-        grids = sorted(p for p in written if p.endswith("_quantization_0.npy"))
-        recons = [p for p in written if p.endswith("_reconstruction.nii.gz")]
-        maps = [p for p in written if p.endswith("_adversarial_loss.npy")]
-        _require(len(grids) == len(recons) == len(maps) == CLI_TRAIN,
-                 f"extraction wrote {len(grids)} grids, {len(recons)} volumes, {len(maps)} maps")
-        for g in grids:
-            a = np.load(g)
-            _require(a.dtype == np.uint16 and a.shape == GRID and int(a.max()) < 2048,
-                     f"{g}: {a.dtype} {a.shape}")
-        for r in recons:
-            v = load_nifti(r, as_closest_canonical=False).data
-            _require(v.shape == VOLUME and np.isfinite(v).all(), f"{r}: {v.shape}")
-        print(f"[cli] extraction: {extract_s / CLI_TRAIN:.2f} s per volume ({CLI_TRAIN} volumes "
-              f"in {extract_s:.1f} s; of which {_spent(spent)}), "
-              f"{vq.nearest_codeword.launches} argmin launches  [{smi}]")
-
-        # decoding two of the grids
-        lat = os.path.join(tmp, "latents")
-        os.makedirs(lat)
-        for g in grids[:2]:
-            os.link(g, os.path.join(lat, os.path.basename(g)))
-        t0 = time.perf_counter()
-        with _stopwatch({}, stages) as spent:
-            out = run(mode="decoding", **dict(flags, training_subjects=lat))
-        decode_s = time.perf_counter() - t0
-        samples = [p for p in out["written"] if p.endswith("_sample.nii.gz")]
-        _require(len(samples) == 2, f"decoding wrote {samples}")
-        for p in samples:
-            v = load_nifti(p, as_closest_canonical=False).data
-            _require(v.shape == VOLUME and np.isfinite(v).all(), f"{p}: {v.shape}")
-        print(f"[cli] decoding: {decode_s / 2:.2f} s per volume (2 volumes in {decode_s:.1f} s; "
-              f"of which {_spent(spent)})  [{smi}]")
-        del out
-        torch.cuda.empty_cache()
+    # decoding two of the grids
+    lat = os.path.join(tmp, "latents")
+    os.makedirs(lat)
+    for g in grids[:2]:
+        os.link(g, os.path.join(lat, os.path.basename(g)))
+    t0 = time.perf_counter()
+    with _stopwatch({}, stages) as spent:
+        out = run(mode="decoding", **dict(flags, training_subjects=lat))
+    decode_s = time.perf_counter() - t0
+    samples = [p for p in out["written"] if p.endswith("_sample.nii.gz")]
+    _require(len(samples) == 2, f"decoding wrote {samples}")
+    for p in samples:
+        v = load_nifti(p, as_closest_canonical=False).data
+        _require(v.shape == VOLUME and np.isfinite(v).all(), f"{p}: {v.shape}")
+    print(f"[cli] decoding: {decode_s / 2:.2f} s per volume (2 volumes in {decode_s:.1f} s; "
+          f"of which {_spent(spent)})  [{smi}]")
+    del out
+    torch.cuda.empty_cache()
 
     # tools/bench at the paper form: its JSON line, never the last line
     fd.fused_decode_step.launches = 0
@@ -2501,37 +2523,310 @@ def _check_cli(dev, smi):
     return win["ms"] / 2
 
 
-CLI_PHASE_TIMEOUT_S = 600
+# phase 19: the prior's CLI and the synthesis tool on phase 18's latents,
+# with the README's stage-2 flags at the paper form tools/bench runs
+PRIOR_FLAGS = dict(
+    vocab_size=2048, n_embd=512, n_layers=24, n_head=16, local_attn_heads=8,
+    local_window_size=420, ordering_type="raster_scan", use_rezero=True,
+    spatial_position_emb="absolute",
+)
+PRIOR_TRAIN, PRIOR_SAMPLE, PRIOR_DECODE = 12, 32, 4
+# per prior train step: 24 layers x (row 5: 3 forward + 4 backward, row 6:
+# 1 forward + 2 backward)
+PRIOR_FAVOR_PER_STEP, PRIOR_LOCAL_PER_STEP = 24 * 7, 24 * 3
 
 
-def _run_cli_phase():
-    """Runs phase 18 in a child process (this script with ``--cli-phase``),
-    its output on this one's; returns the CLI's ms per step.  The child is
-    killed if it outlives ``CLI_PHASE_TIMEOUT_S``."""
+def _argv(**flags):
+    """``run --flag=value ...`` as a user types it (tuples as literals)."""
+    return ["run"] + [f"--{k}={v}" for k, v in flags.items()]
+
+
+@contextlib.contextmanager
+def _per_call(owner, attr, counters, calls, sync):
+    """Wraps ``owner.attr`` (a function returning callables, or a method)
+    so that each call of what it wraps appends (host start, wall s; the
+    change of each counter) to ``calls``.  ``counters`` are (object,
+    attribute) pairs read before and after.  With ``sync`` the card is
+    synchronised around each call, so that the wall time is the call's;
+    without it the host may run ahead, as it does in the unwrapped run."""
+    import torch
+
+    def read():
+        return [getattr(o, a) for o, a in counters]
+
+    def timed(fn):
+        def run(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            before, t0 = read(), time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            calls.append((t0, time.perf_counter() - t0,
+                          [x - y for x, y in zip(read(), before)]))
+            return out
+        return run
+
+    real = getattr(owner, attr)
+    if isinstance(owner, type):  # a method
+        patch = timed(real)
+    else:  # a factory: time what it returns
+        def patch(*a, **k):
+            return timed(real(*a, **k))
+    with mock.patch.object(owner, attr, patch):
+        yield calls
+
+
+def _check_prior_cli(dev, smi, tmp):
+    """Phase 19: ``synthanatomy_tpu_torch.run_transformer`` trains (then
+    resumes) the paper prior on phase 18's extracted grids and samples
+    from it; ``run_vqvae`` decodes samples with phase 18's stage-1
+    checkpoint; ``tools/synthesize`` runs both experiments in one command.
+    Each goes through ``cli.dispatch`` with the argv a user types.  Runs in
+    a process of its own (``_run_phase``).  Returns its numbers."""
+    import glob
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch import inferers
+    from synthanatomy_tpu_torch.cli import dispatch
+    from synthanatomy_tpu_torch.data import nifti
+    from synthanatomy_tpu_torch.interop import export_performer_state_dict
+    from synthanatomy_tpu_torch.models import sampling
+    from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.run_transformer import run as run_prior
+    from synthanatomy_tpu_torch.run_vqvae import run as run_vqvae
+    from synthanatomy_tpu_torch.runners import transformer as prunner
+    from synthanatomy_tpu_torch.runners import vqvae as vrunner
+    from synthanatomy_tpu_torch.tools import synthesize
+    from synthanatomy_tpu_torch.train import checkpoints as ckpt
+    from synthanatomy_tpu_torch.train import transformer_steps
+
+    t_phase = time.perf_counter()
+    proj = os.path.join(tmp, "experiments")
+    grids = sorted(glob.glob(os.path.join(proj, "smoke", "baseline_vqvae", "outputs",
+                                          "*_quantization_0.npy")))
+    _require(len(grids) == CLI_TRAIN, f"phase 18 left {len(grids)} extracted grids")
+    dirs = {}
+    for name, n in (("train", PRIOR_TRAIN), ("sample", PRIOR_SAMPLE)):
+        dirs[name] = os.path.join(tmp, f"prior_{name}")
+        os.makedirs(dirs[name])
+        for i in range(n):  # copies under new names
+            shutil.copy(grids[i % len(grids)], os.path.join(dirs[name], f"lat{i:02d}.npy"))
+    common = dict(project_directory=proj, experiment_name="smoke", num_workers=4, **PRIOR_FLAGS)
+    train_flags = dict(common, mode="training", training_subjects=dirs["train"],
+                       validation_subjects=dirs["train"], batch_size=TRAIN_BATCH,
+                       eval_batch_size=TRAIN_BATCH, eval_every=2, checkpoint_every=1,
+                       log_every=1)
+    print(f"[prior] {PRIOR_TRAIN} training and {PRIOR_SAMPLE} sampling grids {GRID} copied from "
+          f"phase 18's extraction")
+
+    # training, traced by the runner's StepProfiler; each step's launches
+    # read around the step
+    counters = [(fa.favor_attention_fused, "launches"), (lf.local_attention_flash, "launches")]
+    steps = []
+    trace_dir = os.path.join(tmp, "prior_trace")
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["SYNTHANATOMY_PROFILE_DIR"] = trace_dir
+    try:
+        with _per_call(transformer_steps, "make_transformer_train_step", counters, steps, False):
+            t0 = time.perf_counter()
+            out = dispatch({"run": run_prior}, _argv(**train_flags, epochs=2))
+            train_s = time.perf_counter() - t0
+    finally:
+        del os.environ["SYNTHANATOMY_PROFILE_DIR"]
+    hist = out["history"]
+    _require(len(hist) == 2 and "val_Loss" in hist[1]
+             and all(np.isfinite(v) for h in hist for v in h.values()),
+             f"prior training history {hist}")
+    per_step = {tuple(n) for _, _, n in steps}
+    _require(len(steps) == 4 and per_step == {(PRIOR_FAVOR_PER_STEP, PRIOR_LOCAL_PER_STEP)},
+             f"prior steps' launches (row 5, row 6): {[n for _, _, n in steps]}, want "
+             f"{(PRIOR_FAVOR_PER_STEP, PRIOR_LOCAL_PER_STEP)} a step")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json.load(f)
+    win = _trace_window(trace, 2, 3)
+    names = _trace_window(trace, 0, 3)["by_kernel"]
+    rows = {"5": r"favor_(state|scan|fwd|dq|dkv)_kernel", "6": r"local_(fwd|bwd_dq|bwd_dkv)_kernel"}
+    missing = [r for r, pat in rows.items() if not any(re.search(pat, k) for k in names)]
+    _require(not missing, f"row(s) {missing} missing from the prior's trace")
+    step_ms, busy = win["ms"] / 2, 100 * win["busy_ms"] / win["ms"]
+    print(f"[prior] training: 2 epochs x 2 steps of B{TRAIN_BATCH} + eval ({train_s:.1f} s); "
+          f"history {[{k: round(v, 5) for k, v in h.items()} for h in hist]}; launches a step "
+          f"row 5 {PRIOR_FAVOR_PER_STEP} (24 x 7), row 6 {PRIOR_LOCAL_PER_STEP} (24 x 3) in all "
+          f"4 steps; rows 5 and 6 in the trace")
+    print(f"[prior] training through the CLI, steps 3-4 (epoch 2): {step_ms:.1f} ms per step (host "
+          f"start of step 3 to the end of step 4's device work, loader and host included; to "
+          f"step 4's host end {win['host_ms'] / 2:.1f}), device busy {busy:.1f}% "
+          f"({win['busy_ms'] / 2:.1f} ms a step)  [{smi}]")
+    for name, ms in sorted(win["by_kernel"].items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[prior]   {ms / 2:9.2f} ms a step  {name[:90]}")
+
+    # the second call resumes from checkpoint_epoch=2, untraced
+    resumed = []
+    t0 = time.perf_counter()
+    with _per_call(transformer_steps, "make_transformer_train_step", counters, resumed, False):
+        out = dispatch({"run": run_prior}, _argv(**train_flags, epochs=3))
+    resume_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ckdir = out["dirs"]["checkpoint_directory"]
+    _require(len(out["history"]) == 1 and out["state"].step == 6,
+             f"prior resume: {len(out['history'])} epochs, step {out['state'].step}")
+    _require({"checkpoint_epoch=3", "model_state_dict_epoch=3.pt"} <= set(os.listdir(ckdir)),
+             f"prior checkpoints {os.listdir(ckdir)}")
+    sd = torch.load(os.path.join(ckdir, "model_state_dict_epoch=3.pt"), weights_only=True)
+    want = export_performer_state_dict(out["state"].model)
+    _require(list(sd) == list(want), "the raw export's keys are not export_performer_state_dict's")
+    _require(tuple(sd["performer.net.layers.0.0.fn.fn.fast_attention.projection_matrix"].shape)
+             == (256, 64), "projection key")
+    print(f"[prior] resume: epoch 3 from checkpoint_epoch=2 (step {out['state'].step}, "
+          f"{resume_s:.1f} s), checkpoint_epoch=3 and model_state_dict_epoch=3.pt ({len(sd)} "
+          f"keys, export_performer_state_dict's); peak {peak:.2f} GiB over the training "
+          f"calls  [{smi}]")
+    # a host-bound loop issues steps at its step time: the pace between the
+    # resumed steps' host starts (one sample; the batch's copy included)
+    pace = 1e3 * (resumed[1][0] - resumed[0][0])
+    print(f"[prior] untraced, host start of resumed step 5 to that of step 6: {pace:.1f} ms "
+          f"(one sample)  [{smi}]")
+    del out, sd, want
+    torch.cuda.empty_cache()
+
+    # sampling: 32 grids in two sampler calls of B16
+    calls = []
+    stages = [(prunner, "build_performer"), (ckpt, "load_checkpoint")]
+    t0 = time.perf_counter()
+    with _per_call(inferers.TransformerInferenceInferer, "__call__",
+                   [(fd.fused_decode_step, "launches")], calls, True), \
+            _stopwatch({}, stages) as spent:
+        out = dispatch({"run": run_prior}, _argv(
+            **common, mode="inference", training_subjects=dirs["sample"], eval_batch_size=BATCH,
+            temperature=1.0, top_k=50))
+    sample_s = time.perf_counter() - t0
+    samples = sorted(p for p in out["written"] if p.endswith("_sample.npy"))
+    _require(len(samples) == PRIOR_SAMPLE, f"sampling wrote {len(samples)} grids")
+    for p in samples:
+        a = np.load(p)
+        _require(a.dtype == np.uint16 and a.shape == GRID and int(a.max()) < 2048,
+                 f"{p}: {a.dtype} {a.shape} max {a.max()}")
+    _require(len(calls) == PRIOR_SAMPLE // BATCH and all(n == [SEQ] for _, _, n in calls),
+             f"sampler calls' row 1 launches {[n for _, _, n in calls]}, want {SEQ} each")
+    call_s = [c for _, c, _ in calls]
+    print(f"[prior] sampling through the CLI: {PRIOR_SAMPLE} uint16 grids {GRID} below 2048 in "
+          f"{len(calls)} sampler calls of B{BATCH} (top-k 50), {SEQ} row 1 step launches each; "
+          f"per call {call_s[0]:.3f} s (the first: capture and warm-up) and {call_s[1]:.3f} s "
+          f"({BATCH * SEQ / call_s[1]:.1f} latent tok/s); the run {sample_s:.1f} s, of which "
+          f"model build {spent.get('build_performer', 0):.1f} s, checkpoint load "
+          f"{spent.get('load_checkpoint', 0):.1f} s  [{smi}]")
+    del out
+    torch.cuda.empty_cache()
+
+    # decoding 4 samples with phase 18's stage-1 checkpoint
+    dec_dir = os.path.join(tmp, "prior_decode")
+    os.makedirs(dec_dir)
+    for p in samples[:PRIOR_DECODE]:
+        os.link(p, os.path.join(dec_dir, os.path.basename(p)))
+    dstages = [(vrunner, "build_vqvae"), (ckpt, "load_checkpoint"), (nifti, "save_nifti"),
+               (inferers.VQVAEDecodingInferer, "__call__")]
+    t0 = time.perf_counter()
+    with _stopwatch({}, dstages) as spent:
+        out = dispatch({"run": run_vqvae}, _argv(**dict(
+            CLI_FLAGS, mode="decoding", training_subjects=dec_dir, project_directory=proj)))
+    decode_s = time.perf_counter() - t0
+    vols = [p for p in out["written"] if p.endswith("_sample.nii.gz")]
+    _require(len(vols) == PRIOR_DECODE, f"decoding wrote {vols}")
+    for p in vols:
+        v = nifti.load_nifti(p, as_closest_canonical=False).data
+        _require(v.shape == VOLUME and np.isfinite(v).all(), f"{p}: {v.shape}")
+    print(f"[prior] decoding the samples through run_vqvae: {decode_s / PRIOR_DECODE:.2f} s per "
+          f"volume ({PRIOR_DECODE} volumes in {decode_s:.1f} s; model build "
+          f"{spent.get('build_vqvae', 0):.1f} s, checkpoint load "
+          f"{spent.get('load_checkpoint', 0):.1f} s, forward {spent.get('__call__', 0):.1f} s, "
+          f"NIfTI writes {spent.get('save_nifti', 0):.1f} s)  [{smi}]")
+    del out
+    torch.cuda.empty_cache()
+
+    # one-command synthesis from both experiments
+    written_ok = []
+    real_save = nifti.save_nifti
+
+    def checked_save(path, data, affine=None):
+        written_ok.append(tuple(data.shape) == VOLUME and bool(np.isfinite(data).all()))
+        return real_save(path, data, affine)
+
+    vq_net = {k: CLI_FLAGS[k] for k in ("no_levels", "no_channels", "num_embeddings",
+                                        "embedding_dim", "downsample_parameters",
+                                        "upsample_parameters")}
+    sstages = [(sampling, "sample_fused"), (BaselineVQVAE, "decode_samples"),
+               (nifti, "save_nifti")]
+    synth_dir = os.path.join(tmp, "synthesis")
+    fd.fused_decode_step.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(nifti, "save_nifti", checked_save), \
+            _stopwatch({}, sstages) as spent:
+        written = dispatch({"run": synthesize.run}, _argv(
+            project_directory=proj, experiment_name="smoke", output_directory=synth_dir,
+            latent_shape=GRID, num_volumes=BATCH, batch_size=BATCH, top_k=50,
+            **PRIOR_FLAGS, **vq_net))
+    synth_s = time.perf_counter() - t0
+    _require(len(written) == BATCH and len(written_ok) == BATCH and all(written_ok),
+             f"synthesis wrote {len(written)} volumes, finite and {VOLUME}: {written_ok}")
+    _require(fd.fused_decode_step.launches == SEQ,
+             f"synthesis launched row 1 {fd.fused_decode_step.launches} times, want {SEQ}")
+    lat = sorted(glob.glob(os.path.join(synth_dir, "synth_*_latents.npy")))
+    _require(len(lat) == BATCH and all(np.load(p).shape == GRID for p in lat), "synth latents")
+    gen_s = sum(spent.get(k, 0.0) for k in ("sample_fused", "decode_samples", "save_nifti"))
+    print(f"[prior] tools/synthesize: {BATCH} finite volumes {VOLUME} in {synth_s:.1f} s "
+          f"({BATCH * 60 / synth_s:.1f} volumes/min with model builds and checkpoint loads; "
+          f"{BATCH * 60 / gen_s:.1f} over sampling, decoding and writes): sampling "
+          f"{spent.get('sample_fused', 0):.2f} s ({SEQ} row 1 launches), decoding "
+          f"{spent.get('decode_samples', 0):.2f} s, NIfTI writes {spent.get('save_nifti', 0):.2f} "
+          f"s  [{smi}]")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[prior] phase 19 took {phase_s:.1f} s in its own process")
+    return {"step_ms": step_ms, "busy": busy, "pace_ms": pace, "sample_call_s": call_s,
+            "phase_s": phase_s}
+
+
+PHASE_TIMEOUT_S = 600
+PHASES = {"--cli-phase": 18, "--prior-phase": 19}
+
+
+def _run_phase(flag, root):
+    """Runs phase 18 or 19 in a child process (this script with ``flag``
+    and ``root``, the directory the two phases share), its output on this
+    one's; returns what the child wrote.  The child is killed if it
+    outlives ``PHASE_TIMEOUT_S``."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        result = os.path.join(tmp, "cli.json")
+        result = os.path.join(tmp, "phase.json")
         sys.stdout.flush()
         sys.stderr.flush()
         try:
-            rc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), "--cli-phase",
-                                 result], timeout=CLI_PHASE_TIMEOUT_S).returncode
+            rc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), flag, root,
+                                 result], timeout=PHASE_TIMEOUT_S).returncode
         except subprocess.TimeoutExpired:
-            raise RuntimeError(f"phase 18 outlived {CLI_PHASE_TIMEOUT_S} s") from None
-        _require(rc == 0, f"phase 18 exited with code {rc}")
+            raise RuntimeError(f"phase {PHASES[flag]} outlived {PHASE_TIMEOUT_S} s") from None
+        _require(rc == 0, f"phase {PHASES[flag]} exited with code {rc}")
         with open(result) as f:
-            return json.load(f)["cli_step_ms"]
+            return json.load(f)
 
 
-def _cli_phase(result):
-    """The child's side of ``_run_cli_phase``: phase 18 on card 0, its ms
-    per step written to ``result``."""
+def _child_phase(flag, root, result):
+    """The child's side of ``_run_phase``: phase 18 or 19 on card 0, in
+    ``root``; what it returns written to ``result``."""
     import torch
 
     sys.path.insert(0, REPO)
+    check = {"--cli-phase": _check_cli, "--prior-phase": _check_prior_cli}[flag]
     with open(result, "w") as f:
-        json.dump({"cli_step_ms": _check_cli(torch.device("cuda", 0), _smi())}, f)
+        json.dump(check(torch.device("cuda", 0), _smi(), root), f)
     return 0
 
 
@@ -2579,8 +2874,13 @@ def main() -> int:
             print(f"[build] {line.strip()}")
     _check_sass()
 
-    # 18. the stage-1 CLI and tools/bench, in a process of its own
-    cli_step_ms = _run_cli_phase()
+    # 18-19. the stage-1 CLI and tools/bench, then the prior's CLI and the
+    # synthesis tool on phase 18's experiments, each in a process of its own
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as cli_root:
+        cli_step_ms = _run_phase("--cli-phase", cli_root)
+        prior = _run_phase("--prior-phase", cli_root)
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),
@@ -2751,6 +3051,10 @@ def main() -> int:
         print(f"[time] sampling B{BATCH}, {wq} weights, int8 rings, one CUDA graph per token: "
               f"{dt:.3f} s per "
               f"call, {BATCH * SEQ / dt:.1f} latent tok/s  [{smi}]")
+    cli_s = prior["sample_call_s"][1]
+    print(f"[prior] the CLI's second sampler call (phase 19, its own process, top-k 50) "
+          f"{cli_s:.3f} s, {BATCH * SEQ / cli_s:.1f} latent tok/s, against phase 5's int8 call "
+          f"{fused_s['int8']:.3f} s in this run  [{smi}]")
     with torch.no_grad():
         dec_ms = _time_ms(lambda: [vqvae.decode_samples([grids[i:i + 8]])
                                    for i in range(0, BATCH, 8)], 2) / BATCH
@@ -2859,6 +3163,10 @@ def main() -> int:
           f"{k2 * 1e3:.1f}), {tokens / (step_k / 1e3):.0f} tok/s, peak {peak:.2f} GiB; plain "
           f"{step_p:.1f} ms ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}), {tokens / (step_p / 1e3):.0f} "
           f"tok/s, peak {peak_plain:.2f} GiB  [{smi}]")
+    print(f"[prior] the CLI's step (phase 19, its own process, loader and host included) "
+          f"{prior['step_ms']:.1f} ms traced, device busy {prior['busy']:.1f}%, and "
+          f"{prior['pace_ms']:.1f} ms untraced (resumed steps' pace), against phase 8's bare "
+          f"step {step_k:.1f} ms in this run  [{smi}]")
 
     from synthanatomy_tpu_torch.ops.favor import gaussian_orthogonal_random_matrix
 
@@ -2984,6 +3292,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cli-phase"]:
-        sys.exit(_cli_phase(sys.argv[2]))
+    if sys.argv[1:2] and sys.argv[1] in PHASES:
+        sys.exit(_child_phase(*sys.argv[1:4]))
     sys.exit(main())

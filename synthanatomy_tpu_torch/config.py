@@ -2,8 +2,8 @@
 
 The port's own copy of ``synthanatomy_tpu/config.py`` (which holds no
 JAX); its comments on TPU behaviour describe the reference.  One change:
-``VQVAEConfig.device`` also takes ``"cpu"``, the port's way to run on
-the host.
+``VQVAEConfig.device`` and ``TransformerConfig.device`` also take
+``"cpu"``, the port's way to run on the host.
 
 The reference uses the ``run()`` function signature as the config schema
 and ``config = locals()`` as the config object, mutated en route
@@ -261,7 +261,7 @@ class TransformerConfig:
     conditionings: Optional[Tuple[str, ...]] = None
     conditioning_type: str = "bos_replacement"
     # --- hardware
-    device: int = 0
+    device: Union[int, str] = 0  # the port: a CUDA ordinal, or "cpu"
     deterministic: bool = False
     cuda_benchmark: bool = True
     seed: int = 2

@@ -17,8 +17,10 @@ The other direction, for the end-of-training release artifact
 ``export_vqvae_state_dict`` and ``export_discriminator_state_dict`` read
 the port's modules and return the reference's state-dict layout
 (``encoder.0.*``, ``decoder.0.*``, ``quantizer.0.impl.*``; ``main.*``),
-as JAX's ``synthanatomy_tpu/interop.py`` exports do; the port's weights
-are already in torch's layouts, so only the names change.
+and ``export_performer_state_dict`` the performer-pytorch layout
+(``performer.net.layers.*``), as JAX's ``synthanatomy_tpu/interop.py``
+exports do; the port's weights are already in torch's layouts, so only
+the names change.
 ``save_raw_state_dict`` writes one with ``torch.save``.
 
 No JAX is imported: the VQ state is read through its ``.codebook``
@@ -40,8 +42,8 @@ from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
 
 __all__ = ["discriminator_from_jax", "export_discriminator_state_dict",
-           "export_vqvae_state_dict", "lpips_from_jax", "performer_from_jax",
-           "save_raw_state_dict", "vqvae_from_jax"]
+           "export_performer_state_dict", "export_vqvae_state_dict", "lpips_from_jax",
+           "performer_from_jax", "save_raw_state_dict", "vqvae_from_jax"]
 
 
 def _conv_w_inv(w) -> np.ndarray:
@@ -281,6 +283,65 @@ def export_discriminator_state_dict(model: BaselineDiscriminator) -> Dict[str, t
         put_bn(f"main.{idx + 1}", getattr(model, f"norm_{n}"))
         idx += 3
     put_conv(f"main.{idx}", model.conv_out)
+    return sd
+
+
+def export_performer_state_dict(model: Performer) -> Dict[str, torch.Tensor]:
+    """Port ``Performer`` → performer-pytorch state dict with the
+    reference wrapper nesting (JAX:
+    ``synthanatomy_tpu/interop.py::export_performer_state_dict``):
+    pre-LayerNorm blocks as ``.0.fn.norm`` + ``.0.fn.fn.`` attention and
+    ``.1.fn.fn.fn.`` Chunk-wrapped FF; ReZero blocks with the wrapper's
+    ``g`` gain (a 0-d tensor) in place of the norm at the same nesting
+    position; each FAVOR layer's projection buffer as
+    ``fast_attention.projection_matrix``, which performer-pytorch
+    registers persistently.  ScaleNorm blocks have no reference form and
+    raise ``NotImplementedError``."""
+    sd: Dict[str, torch.Tensor] = {"token_emb.weight": _f32(model.token_emb.weight)}
+
+    def lin(prefix, layer):
+        sd[f"{prefix}.weight"] = _f32(layer.weight)
+        if layer.bias is not None:
+            sd[f"{prefix}.bias"] = _f32(layer.bias)
+
+    def norm(prefix, ln):
+        sd[f"{prefix}.norm.weight"] = _f32(ln.weight)
+        sd[f"{prefix}.norm.bias"] = _f32(ln.bias)
+
+    if hasattr(model, "abs_pos_emb"):
+        sd["pos_emb.emb.weight"] = _f32(model.abs_pos_emb.weight)
+    # JAX walks its parameter names in sorted order: the conditioning
+    # tables come before the spatial ones
+    for i, emb in enumerate(getattr(model, "conditioning_embs", ())):
+        sd[f"conditioning_emb.{i}.weight"] = _f32(emb.weight)
+    for i, emb in enumerate(getattr(model, "spatial_embs", ())):
+        sd[f"spatial_position_emb.{i}.emb.weight"] = _f32(emb.weight)
+
+    for i, blk in enumerate(model.blocks):
+        if not blk.use_rezero and not isinstance(blk.norm_attn, torch.nn.LayerNorm):
+            raise NotImplementedError(
+                "export supports pre-LayerNorm and ReZero blocks only "
+                "(ScaleNorm has no reference-checkpoint form)")
+        p = f"performer.net.layers.{i}"
+        if blk.use_rezero:
+            sd[f"{p}.0.fn.g"] = _f32(blk.g_attn).reshape(())
+        else:
+            norm(f"{p}.0.fn", blk.norm_attn)
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            lin(f"{p}.0.fn.fn.{name}", getattr(blk.attn, name))
+        if getattr(blk.attn, "projection", None) is not None:
+            sd[f"{p}.0.fn.fn.fast_attention.projection_matrix"] = _f32(blk.attn.projection)
+        if blk.use_rezero:
+            sd[f"{p}.1.fn.g"] = _f32(blk.g_ff).reshape(())
+        else:
+            norm(f"{p}.1.fn", blk.norm_ff)
+        lin(f"{p}.1.fn.fn.fn.w1", blk.ff.w1)
+        lin(f"{p}.1.fn.fn.fn.w2", blk.ff.w2)
+
+    sd["norm.weight"] = _f32(model.final_norm.weight)
+    sd["norm.bias"] = _f32(model.final_norm.bias)
+    if not model.tie_embed:
+        lin("to_out", model.to_out)
     return sd
 
 

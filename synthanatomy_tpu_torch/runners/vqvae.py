@@ -37,22 +37,10 @@ import torch
 
 from synthanatomy_tpu_torch.config import VQVAEConfig
 from synthanatomy_tpu_torch.train.vqvae_steps import create_vqvae_train_state
+from synthanatomy_tpu_torch.utils.general import run_device
 
-_MULTI_GPU = "ROADMAP.md §1, item 5 (Multi-GPU)"
-_DEVICE_AUGMENT = "ROADMAP.md §1, item 2 (ops/augment.py)"
-
-
-def _device(config: VQVAEConfig) -> torch.device:
-    """The run's device; raises without a card unless the CPU was asked
-    for.  On the card, ``--cuda_benchmark`` and ``--deterministic`` set
-    cuDNN's flags, as the reference does."""
-    if str(config.device) == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device=cpu to run on the CPU")
-    torch.backends.cudnn.benchmark = bool(config.cuda_benchmark)
-    torch.backends.cudnn.deterministic = bool(config.deterministic)
-    return torch.device(f"cuda:{int(config.device)}")
+_MULTI_GPU = "ROADMAP.md §1, item 4 (Multi-GPU)"
+_DEVICE_AUGMENT = "ROADMAP.md §1, item 1 (ops/augment.py)"
 
 
 def _check_supported(config: VQVAEConfig) -> None:
@@ -268,7 +256,7 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
     from synthanatomy_tpu_torch.utils.profiling import StepProfiler, device_memory_summary
 
     _check_supported(config)
-    device = _device(config)
+    device = run_device(config)
     logger, dirs, ckpt_path, starting_epoch, seed = basic_initialization(
         config, "vqvae-training"
     )
@@ -490,7 +478,7 @@ def inference(config: VQVAEConfig) -> Dict[str, Any]:
     from synthanatomy_tpu_torch.utils.general import basic_initialization
 
     _check_supported(config)
-    device = _device(config)
+    device = run_device(config)
     logger, dirs, ckpt_path, _, seed = basic_initialization(config, f"vqvae-{config.mode}")
 
     init = torch.Generator().manual_seed(seed)

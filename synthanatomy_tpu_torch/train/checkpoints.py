@@ -20,8 +20,12 @@ src/utils/general.py:75-282, run_vqvae.py:312-361):
 - ``evaluation_checkpoint ∈ {recent, best}`` selection at inference
   (general.py:141-166).
 
-A checkpoint holds G (with its EMA codebook buffers), D, both Adam
-states, the step and the state of the run's ``torch.Generator``.
+A stage-1 checkpoint holds G (with its EMA codebook buffers), D, both
+Adam states, the step and the state of the run's ``torch.Generator``.  A
+prior's (``train/transformer_steps.TransformerTrainState``) holds the
+Performer (its FAVOR projection buffers included), its Adam state, the
+step, the dropout and redraw generators and the steps since the last
+redraw, so a resumed run redraws on the uninterrupted run's schedule.
 """
 
 from __future__ import annotations
@@ -154,6 +158,15 @@ def check_for_checkpoints(
 
 
 def _state_dict(state: Any) -> Dict[str, Any]:
+    if hasattr(state, "optimizer"):  # the prior's TransformerTrainState
+        return {
+            "step": int(state.step),
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "generator": state.generator.get_state(),
+            "redraw_generator": state.redraw_generator.get_state(),
+            "steps_since_redraw": int(state.steps_since_redraw),
+        }
     d_model = getattr(state, "d_model", None)
     d_opt = getattr(state, "d_opt", None)
     return {
@@ -213,12 +226,21 @@ def save_best_checkpoint(
 
 def load_checkpoint(path: str, state: Any, *, models_only: bool = False) -> Any:
     """Restore a checkpoint written by :func:`save_checkpoint` into
-    ``state`` in place and return it.  ``models_only`` loads G and D
+    ``state`` in place and return it.  ``models_only`` loads the models
     only (the reference's ``to_load`` exclusion, run_vqvae.py:330-336:
-    a training checkpoint read for inference); D is loaded where both
-    the checkpoint and ``state`` hold one."""
+    a training checkpoint read for inference): G and D for stage 1, where
+    D is loaded if both the checkpoint and ``state`` hold one; the
+    Performer for the prior."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(ckpt["model"])
+    if "optimizer" in ckpt:  # the prior's state
+        if not models_only:
+            state.optimizer.load_state_dict(ckpt["optimizer"])
+            state.step = int(ckpt["step"])
+            state.generator.set_state(ckpt["generator"])
+            state.redraw_generator.set_state(ckpt["redraw_generator"])
+            state.steps_since_redraw = int(ckpt["steps_since_redraw"])
+        return state
     d_model = getattr(state, "d_model", None)
     if d_model is not None and ckpt["d_model"] is not None:
         d_model.load_state_dict(ckpt["d_model"])

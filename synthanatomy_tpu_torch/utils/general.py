@@ -30,6 +30,7 @@ __all__ = [
     "log_basic_info",
     "log_network_size",
     "basic_initialization",
+    "run_device",
     "quantize_conditionings",
     "uniform_sampling",
     "PreemptionGuard",
@@ -108,6 +109,20 @@ def basic_initialization(config, logger_name: str):
     )
     # per-rank seeding (reference set_determinism(seed + rank))
     return logger, dirs, checkpoint_path, starting_epoch, config.seed + config.rank
+
+
+def run_device(config) -> torch.device:
+    """A run's device from ``config.device``: ``"cpu"``, or a CUDA ordinal.
+    Raises without a card unless the CPU was asked for.  On the card,
+    ``--cuda_benchmark`` and ``--deterministic`` set cuDNN's flags, as the
+    reference does."""
+    if str(config.device) == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device=cpu to run on the CPU")
+    torch.backends.cudnn.benchmark = bool(config.cuda_benchmark)
+    torch.backends.cudnn.deterministic = bool(config.deterministic)
+    return torch.device(f"cuda:{int(config.device)}")
 
 
 def _qcut_labels(values, q: int):

@@ -298,7 +298,8 @@ NEW_MODULES = [
     "native/__init__.py", "metrics/__init__.py", "metrics/regression.py", "metrics/ssim.py",
     "metrics/classification.py", "train/schedulers.py", "train/logging.py",
     "train/checkpoints.py", "utils/__init__.py", "utils/general.py", "utils/profiling.py",
-    "tools/bench.py",
+    "tools/bench.py", "run_transformer.py", "runners/transformer.py", "tools/synthesize.py",
+    "tools/smoke_pipeline.py", "train/transformer_steps.py",
 ]
 
 
