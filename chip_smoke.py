@@ -192,7 +192,18 @@ result, without them.  Phases, each fatal on failure:
    D's maps; row 3 in its trace) and decoding of two grids, each in s per
    volume split into model build, checkpoint load, forward and NIfTI
    writes; then ``tools/bench`` at the paper form, whose JSON line comes
-   on a line of its own;
+   on a line of its own; then the device augmentation at paper width:
+   ``augment_batch`` on the card against the CPU (B3 x 160x224x160 f32,
+   the exact gather and the 3-pass form, every transform fired, noise
+   off; max abs error away from the voxels whose sample position lies
+   within 1e-5 of an integer, where the floor may flip, and their count),
+   the noise term's mean and std against ``noise_std``, each resampler's
+   ms per batch (elapsed and device time); the loader with device
+   parameters only (volumes/s); ``run_vqvae --device_augmentation=True``
+   at the flags above, 2 epochs of 2 steps (the 3-pass route in every
+   step, argmin and residual launches, ms per step and busy share over
+   steps 3-4 beside the host-augmented step); ``tools/bench_vqvae --device_augment`` at B3
+   with D and jukebox_perceptual; ``tools/bench_dataloader`` at --n=4;
 19. (right after phase 18, in a process of its own, on phase 18's
    experiment directory) the port's stage-2 CLI
    (``synthanatomy_tpu_torch.run_transformer``) and one-command synthesis
@@ -215,7 +226,19 @@ result, without them.  Phases, each fatal on failure:
    160x224x160 volumes, s per volume); ``tools/synthesize`` of 16
    volumes at B16 from both experiments (16 finite volumes, 1400 row 1
    launches, volumes/min split into sampling, decoding and NIfTI
-   writes).
+   writes); then the checkpoint round trip: phase 18's VQ-VAE and this
+   phase's prior through ``tools/export_checkpoint`` (reference ``.pt``),
+   ``tools/convert_checkpoint`` / ``convert_performer_checkpoint``
+   (``.npz``) and ``tools/import_checkpoint`` (``checkpoint_epoch=0`` of
+   a new experiment): every network tensor equal to the original's bit
+   for bit, then ``run_vqvae`` decodes 4 samples and ``run_transformer``
+   samples 16 grids (1400 row 1 launches) through the imported models;
+20. (in a process of its own) ``tools/quality_loop`` at its defaults: 32
+   synthetic 48^3 volumes, a 2-level/48-channel VQ-VAE trained to val
+   MS-SSIM >= 0.90, a 4L/d256 prior to val CE <= 1.0, 8 samples decoded,
+   all inside the reconstructions' statistics envelope and diverse (JAX's
+   bars, unchanged): the epochs each bar needed, and the launches of rows
+   1, 3, 5 and 6 (each > 0) and 7 (0 at these sizes, the reason printed).
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -2520,7 +2543,183 @@ def _check_cli(dev, smi, tmp):
     _require(fd.fused_decode_step.launches > 0, "tools/bench launched no fused step")
     _require(line["value"] > 0 and line["vs_baseline"] > 0, f"tools/bench {line}")
     print(f"[cli] tools/bench: {fd.fused_decode_step.launches} fused decode steps  [{smi}]")
+
+    _check_device_augment(dev, smi, tmp, flags, win["ms"] / 2, win["busy_ms"] / win["ms"])
     return win["ms"] / 2
+
+
+AUG_TOL = 1e-5  # card against CPU, away from the floor-flip voxels
+NEAR_INT = 1e-5  # a sample position this close to an integer may floor either way
+
+
+def _augment_params(seed, *, noise):
+    """The host's drawn parameters for a B3 paper batch with every
+    transform fired (p 1, strength 0: the production ranges)."""
+    import numpy as np
+
+    from synthanatomy_tpu_torch.data.transforms import VQVAETransform
+
+    tf = VQVAETransform(augment=True, augmentation_probability=1.0)
+    drawn = [tf.draw_device_params(VOLUME, np.random.default_rng(seed + i))[0]
+             for i in range(VQ_BATCH)]
+    params = {k: np.stack([d[k] for d in drawn]) for k in drawn[0]}
+    if not noise:
+        params["noise_fired"][:] = False
+    return params, tf
+
+
+def _near_integer(params, shifts, b, device):
+    """Voxels of sample ``b`` whose sample position (the gather's three
+    coordinates, or each pass's position) lies within ``NEAR_INT`` of an
+    integer: there the floor, and the inside test, may flip."""
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch.ops import augment as A
+
+    ii, jj, kk = A._grid(VOLUME, device)
+    m = np.asarray(params["matrix"][b], np.float32)
+    off = np.asarray(params["offset"][b], np.float32)
+    rows = ([(m[r, 0], m[r, 1], m[r, 2], off[r]) for r in range(3)] if shifts is None
+            else A._pass_coeffs(m, off))
+    near = torch.zeros(VOLUME, dtype=torch.bool, device=device)
+    for a_i, a_j, a_k, c in rows:
+        p = float(a_i) * ii + float(a_j) * jj + float(a_k) * kk + float(c)
+        near |= (p - torch.round(p)).abs() <= NEAR_INT
+    return near
+
+
+def _check_device_augment(dev, smi, tmp, flags, host_step_ms, host_busy):
+    """Phase 18, device augmentation at paper width: ``augment_batch`` on
+    the card against the CPU (both resamplers, noise off), the noise term,
+    each resampler's ms per batch; then ``run_vqvae --device_augmentation``
+    beside the host-augmented step, ``tools/bench_vqvae --device_augment``
+    and ``tools/bench_dataloader``."""
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch.config import VQVAEConfig
+    from synthanatomy_tpu_torch.ops import augment as A
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+    from synthanatomy_tpu_torch.run_vqvae import run
+    from synthanatomy_tpu_torch.runners import vqvae as runner
+    from synthanatomy_tpu_torch.tools import bench_dataloader, bench_vqvae
+
+    params, tf = _augment_params(70, noise=False)
+    shifts = A.shear_shift_bounds(VOLUME, **tf.affine_ranges())
+    x_cpu = torch.from_numpy(np.random.default_rng(71).uniform(size=(VQ_BATCH,) + VOLUME)
+                             .astype(np.float32))
+    x_dev = x_cpu.to(dev)
+    for mode, sh in (("exact gather", None), ("3-pass", shifts)):
+        t0 = time.perf_counter()
+        want = A.augment_batch(x_cpu, params, sh)
+        cpu_s = time.perf_counter() - t0
+        got = A.augment_batch(x_dev, params, sh).cpu()
+        diff = (got - want).abs()
+        near = torch.stack([_near_integer(params, sh, b, "cpu") for b in range(VQ_BATCH)])
+        far_err = float(diff[~near].max())
+        _require(far_err <= AUG_TOL and bool(torch.isfinite(got).all()),
+                 f"augment_batch ({mode}) card against CPU: max abs err {far_err:.3e} away from "
+                 f"the floor-flip voxels, tol {AUG_TOL}")
+        print(f"[augment] augment_batch ({mode}{'' if sh is None else f', shifts {sh}'}) B"
+              f"{VQ_BATCH} x {VOLUME} f32, every transform fired, noise off: card against CPU "
+              f"max abs err {far_err:.3e} (tol {AUG_TOL}) over the voxels whose sample position "
+              f"is not within {NEAR_INT} of an integer; {int(near.sum())} such voxels (where the "
+              f"floor may flip), max abs err there {float(diff[near].max()) if near.any() else 0:.3e}"
+              f"; all voxels {float(diff.max()):.3e}; the CPU took {cpu_s:.1f} s")
+    del want, got, diff, near
+
+    # the noise term alone on a constant 0.5 volume: N(0, noise_std²)
+    noise_p, _ = _augment_params(72, noise=True)
+    for k in ("affine_fired", "contrast_fired", "shift_fired"):
+        noise_p[k][:] = False
+    term = A.augment_batch(torch.full((VQ_BATCH,) + VOLUME, 0.5, device=dev), noise_p) - 0.5
+    std = float(noise_p["noise_std"][0])
+    n = term[0].numel()
+    for b in range(VQ_BATCH):
+        mean, sd = float(term[b].double().mean()), float(term[b].double().std())
+        _require(abs(mean) <= 5 * std / n ** 0.5 and abs(sd / std - 1) <= 0.01,
+                 f"noise term of sample {b}: mean {mean:.3e}, std {sd:.5f}, want 0 and {std}")
+    print(f"[augment] noise term on the card (seeded per sample): mean "
+          f"{float(term.double().mean()):.2e}, std {float(term.double().std()):.5f} against "
+          f"noise_std {std} over {VQ_BATCH} x {n} voxels")
+    del term
+
+    # ms per batch of each resampler, every transform fired (noise on)
+    full, _ = _augment_params(73, noise=True)
+    aug_ms = {}
+    for mode, sh in (("exact gather", None), ("3-pass", shifts)):
+        def call(sh=sh):
+            return A.augment_batch(x_dev, full, sh)
+
+        call()
+        aug_ms[mode] = (_time_ms(call, 5), _device_ms(call, 5))
+        print(f"[augment] {mode}: {aug_ms[mode][0]:.2f} ms per B{VQ_BATCH} batch elapsed, "
+              f"{aug_ms[mode][1]:.2f} ms device time  [{smi}]")
+    del x_dev, x_cpu
+    torch.cuda.empty_cache()
+
+    # the CLI with --device_augmentation: the loader alone, then 2 steps
+    aug_flags = dict(flags, device_augmentation=True, experiment_name="smoke_devaug")
+    loader = runner._make_loaders(VQVAEConfig(**aug_flags), "training")["train"]
+    _require(loader.dataset.device_augment, "the training set ships no device parameters")
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b["paths"]) for b in loader.epoch(0))
+    load_s = time.perf_counter() - t0
+    print(f"[augment] loader with device parameters only: {n_loaded / load_s:.3f} volumes/s "
+          f"over one epoch ({n_loaded} volumes, {CLI_FLAGS['num_workers']} threads)")
+    calls = []
+    real = A.augment_batch
+
+    def counting(x, p, sh=None):
+        calls.append(sh)
+        return real(x, p, sh)
+
+    trace_dir = os.path.join(tmp, "trace_devaug")
+    vq.nearest_codeword.launches = 0
+    rs.fused_residual_layer.launches = rs.fused_residual_layer.bwd_launches = 0
+    os.environ["SYNTHANATOMY_PROFILE_DIR"] = trace_dir
+    try:
+        with mock.patch.object(A, "augment_batch", counting):
+            t0 = time.perf_counter()
+            out = run(mode="training", epochs=2, **aug_flags)
+            aug_s = time.perf_counter() - t0
+    finally:
+        del os.environ["SYNTHANATOMY_PROFILE_DIR"]
+    n = (vq.nearest_codeword.launches, rs.fused_residual_layer.launches,
+         rs.fused_residual_layer.bwd_launches)
+    _require(min(n) > 0, f"device-augmented CLI step launches: argmin {n[0]}, residual fwd "
+                         f"{n[1]}, bwd {n[2]}")
+    _require(len(calls) == 4 and all(c == shifts for c in calls),
+             f"augment_batch calls {calls}, want 4 on the 3-pass route {shifts}")
+    hist = out["history"]
+    _require(len(hist) == 2 and all(np.isfinite(v) for h in hist for v in h.values()),
+             f"device-augmented training history {hist}")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json.load(f)
+    win = _trace_window(trace, 2, 3)
+    host = [_trace_window(trace, i, i)["host_ms"] for i in range(4)]
+    print(f"[augment] run_vqvae --device_augmentation=True (2 epochs of 2 steps, p 0.2, the "
+          f"3-pass route {shifts}, {aug_s:.1f} s; each step's host span "
+          f"{', '.join(f'{h:.1f}' for h in host)} ms): {win['ms'] / 2:.1f} ms per step (steps "
+          f"3-4, loader, augmentation and host included), device busy "
+          f"{100 * win['busy_ms'] / win['ms']:.1f}%, against the host-augmented step "
+          f"{host_step_ms:.1f} ms at {100 * host_busy:.1f}% busy (steps 3-4 above); launches "
+          f"argmin {n[0]}, residual fwd {n[1]}, bwd {n[2]}  [{smi}]")
+    for name, ms in sorted(win["by_kernel"].items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[augment]   {ms / 2:9.2f} ms a step  {name[:90]}")
+    del out
+    torch.cuda.empty_cache()
+
+    # the bench's train step with the chain, at the CLI's batch, losses and
+    # adversary, in this process (cuDNN's engines reused)
+    res = bench_vqvae.main([f"--batch={VQ_BATCH}", "--adversarial", "--loss=jukebox_perceptual",
+                            "--device_augment", "--recon=False"])
+    _require(np.isfinite(res["train_loss"]), f"bench_vqvae {res}")
+    torch.cuda.empty_cache()
+    rates = bench_dataloader.main(["--n=4", f"--workers={CLI_FLAGS['num_workers']}"])
+    _require(rates and all(r > 0 for r in rates.values()), f"bench_dataloader {rates}")
 
 
 # phase 19: the prior's CLI and the synthesis tool on phase 18's latents,
@@ -2787,44 +2986,186 @@ def _check_prior_cli(dev, smi, tmp):
           f"{spent.get('sample_fused', 0):.2f} s ({SEQ} row 1 launches), decoding "
           f"{spent.get('decode_samples', 0):.2f} s, NIfTI writes {spent.get('save_nifti', 0):.2f} "
           f"s  [{smi}]")
+    _check_round_trip(smi, tmp, proj, dec_dir, dirs["sample"])
     phase_s = time.perf_counter() - t_phase
     print(f"[prior] phase 19 took {phase_s:.1f} s in its own process")
     return {"step_ms": step_ms, "busy": busy, "pace_ms": pace, "sample_call_s": call_s,
             "phase_s": phase_s}
 
 
-PHASE_TIMEOUT_S = 600
-PHASES = {"--cli-phase": 18, "--prior-phase": 19}
+VQ_NET_FLAGS = ("no_levels", "no_channels", "num_embeddings", "embedding_dim",
+                "downsample_parameters", "upsample_parameters")
+
+
+def _check_round_trip(smi, tmp, proj, dec_dir, sample_dir):
+    """Phase 19's checkpoint round trip: phase 18's VQ-VAE and phase 19's
+    prior exported to reference ``.pt`` files, converted back to ``.npz``
+    and imported as ``checkpoint_epoch=0`` of a new experiment; every
+    network tensor equal to the original's, and both CLIs load them."""
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch.cli import dispatch
+    from synthanatomy_tpu_torch.data import nifti
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.run_transformer import run as run_prior
+    from synthanatomy_tpu_torch.run_vqvae import run as run_vqvae
+    from synthanatomy_tpu_torch.tools import (
+        convert_checkpoint,
+        convert_performer_checkpoint,
+        export_checkpoint,
+        import_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    rt = os.path.join(tmp, "round_trip")
+    os.makedirs(rt)
+    imported = "smoke_import"
+    target = [f"--project_directory={proj}", f"--experiment_name={imported}"]
+    vq_argv = [f"--{k}={CLI_FLAGS[k]}" for k in VQ_NET_FLAGS]
+    pr_argv = [f"--{k}={v}" for k, v in PRIOR_FLAGS.items()] + [f"--latent_shape={GRID}"]
+    origin = {}
+    for net, argv, convert, convert_argv in (
+            ("baseline_vqvae", vq_argv, convert_checkpoint.main,
+             ["--n_levels=4", "--n_res_layers=3"]),
+            ("performer", pr_argv, convert_performer_checkpoint.main, ["--depth=24"])):
+        src = os.path.join(proj, "smoke", net, "checkpoints", "checkpoint_epoch=3")
+        pt, npz = os.path.join(rt, f"{net}.pt"), os.path.join(rt, f"{net}.npz")
+        kind = "vqvae" if net == "baseline_vqvae" else "performer"
+        export_checkpoint.main([kind, src, pt] + argv)
+        convert([kind, pt, npz] + convert_argv if kind == "vqvae" else [pt, npz] + convert_argv)
+        path = import_checkpoint.main([kind, npz] + target + argv)
+        want = torch.load(src, map_location="cpu", weights_only=True)["model"]
+        got = torch.load(path, map_location="cpu", weights_only=True)["model"]
+        _require(list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want),
+                 f"{net}: the imported network differs from checkpoint_epoch=3")
+        origin[net] = len(want)
+    rt_s = time.perf_counter() - t0
+    print(f"[round trip] export -> convert -> import of phase 18's VQ-VAE and phase 19's prior "
+          f"(checkpoint_epoch=3 -> reference .pt -> .npz -> {imported}/*/checkpoint_epoch=0): "
+          f"{origin['baseline_vqvae']} and {origin['performer']} network tensors equal bit for "
+          f"bit ({rt_s:.1f} s on the host)")
+
+    # both CLIs load them: decoding phase 19's samples, sampling 16 grids
+    out = dispatch({"run": run_vqvae}, _argv(**dict(
+        CLI_FLAGS, mode="decoding", training_subjects=dec_dir, project_directory=proj,
+        experiment_name=imported)))
+    vols = sorted(p for p in out["written"] if p.endswith("_sample.nii.gz"))
+    _require(len(vols) == PRIOR_DECODE, f"decoding through the imported VQ-VAE wrote {vols}")
+    dmax = max(float(np.abs(
+        nifti.load_nifti(p, as_closest_canonical=False).data
+        - nifti.load_nifti(_output(proj, "smoke", "baseline_vqvae", p),
+                           as_closest_canonical=False).data).max()) for p in vols)
+    seed_dir = os.path.join(rt, "sample16")
+    os.makedirs(seed_dir)
+    for p in sorted(os.listdir(sample_dir))[:BATCH]:
+        os.link(os.path.join(sample_dir, p), os.path.join(seed_dir, p))
+    fd.fused_decode_step.launches = 0
+    out = dispatch({"run": run_prior}, _argv(
+        project_directory=proj, experiment_name=imported, num_workers=4, mode="inference",
+        training_subjects=seed_dir, eval_batch_size=BATCH, temperature=1.0, top_k=50,
+        **PRIOR_FLAGS))
+    grids = sorted(p for p in out["written"] if p.endswith("_sample.npy"))
+    _require(len(grids) == BATCH and fd.fused_decode_step.launches == SEQ,
+             f"sampling through the imported prior: {len(grids)} grids, "
+             f"{fd.fused_decode_step.launches} row 1 launches")
+    same = np.mean([np.array_equal(np.load(p), np.load(_output(proj, "smoke", "performer", p)))
+                    for p in grids])
+    print(f"[round trip] run_vqvae decodes {len(vols)} samples through the imported VQ-VAE (max "
+          f"abs difference from phase 19's decoding of the same grids {dmax:.3e}); "
+          f"run_transformer samples {len(grids)} grids through the imported prior ({SEQ} row 1 "
+          f"launches; {100 * same:.0f}% of the grids equal to the first call of phase 19's "
+          f"sampling with the same seed)  [{smi}]")
+
+
+def _output(proj, experiment, network, path):
+    """The file of ``path``'s name among another experiment's outputs."""
+    return os.path.join(proj, experiment, network, "outputs", os.path.basename(path))
+
+
+# phase 20: the two-stage quality loop at its defaults
+QUALITY_ROWS = {"1": ("fused_decode", "fused_decode_step", "launches"),
+                "3": ("vq", "nearest_codeword", "launches"),
+                "5": ("favor_attention", "favor_attention_fused", "launches"),
+                "6": ("local_attention_flash", "local_attention_flash", "launches"),
+                "7": ("res_stack", "fused_residual_layer", "launches")}
+
+
+def _check_quality(dev, smi, tmp):
+    """Phase 20: ``tools/quality_loop`` at its defaults on the card (JAX's
+    bars: MS-SSIM 0.90, CE 1.0, half the grids distinct, every sample in
+    the reconstructions' envelope), with the launches of the rows it
+    reaches.  Runs in a process of its own (``_run_phase``)."""
+    import importlib
+
+    from synthanatomy_tpu_torch.models import vqvae as vqm
+    from synthanatomy_tpu_torch.tools import quality_loop
+
+    fns = {row: getattr(importlib.import_module(f"synthanatomy_tpu_torch.ops.{mod}"), fn)
+           for row, (mod, fn, _) in QUALITY_ROWS.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = quality_loop.main(["--workdir", os.path.join(tmp, "quality_loop")])
+    wall = time.perf_counter() - t0
+    n = {row: fn.launches for row, fn in fns.items()}
+    notes = {}
+    # the loop's largest residual-layer input: level 0, half the volume's side
+    largest = (48 // 2) ** 3
+    if n["7"] == 0:
+        _require(largest < vqm._FUSED_MIN_VOXELS, "row 7 reached no launch at a size it takes")
+        notes["7"] = (f"not reached: the fused residual layer runs on volumes of >= "
+                      f"{vqm._FUSED_MIN_VOXELS} voxels (JAX's routing), and the loop's largest "
+                      f"residual input is 24^3 = {largest}")
+    missing = [row for row in ("1", "3", "5", "6") if n[row] == 0]
+    _require(not missing, f"the quality loop launched no kernel of row(s) {missing}: {n}")
+    print(f"[quality] tools/quality_loop at its defaults: VQ-VAE val MS-SSIM "
+          f"{result['val_ms_ssim']} after {result['vq_epochs']} epochs (bar 0.90), prior val CE "
+          f"{result['prior_val_ce']} after {result['prior_epochs']} epochs (bar 1.0), "
+          f"{result['unique_grids']}/{result['n_samples']} distinct grids, "
+          f"{result['samples_in_envelope']}/{result['n_samples']} samples in the envelope, "
+          f"mean pairwise |d| {result['decoded_diversity']}; {wall:.1f} s  [{smi}]")
+    print(f"[quality] launches: " + ", ".join(
+        f"row {row} {n[row]}" + (f" ({notes[row]})" if row in notes else "")
+        for row in sorted(n)))
+    return {"result": result, "launches": n, "wall_s": wall}
+
+
+# phase number and seconds before its child is killed (phase 20 took 44-62 s on
+# an H100 80GB HBM3 at 700 W; the rest leaves room for 80 + 40 epochs)
+PHASES = {"--cli-phase": (18, 600), "--prior-phase": (19, 600), "--quality-phase": (20, 300)}
 
 
 def _run_phase(flag, root):
-    """Runs phase 18 or 19 in a child process (this script with ``flag``
-    and ``root``, the directory the two phases share), its output on this
-    one's; returns what the child wrote.  The child is killed if it
-    outlives ``PHASE_TIMEOUT_S``."""
+    """Runs phase 18, 19 or 20 in a child process (this script with
+    ``flag`` and ``root``, the directory the phases share), its output on
+    this one's; returns what the child wrote.  The child is killed if it
+    outlives its phase's seconds in ``PHASES``."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         result = os.path.join(tmp, "phase.json")
         sys.stdout.flush()
         sys.stderr.flush()
+        number, timeout = PHASES[flag]
         try:
             rc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), flag, root,
-                                 result], timeout=PHASE_TIMEOUT_S).returncode
+                                 result], timeout=timeout).returncode
         except subprocess.TimeoutExpired:
-            raise RuntimeError(f"phase {PHASES[flag]} outlived {PHASE_TIMEOUT_S} s") from None
-        _require(rc == 0, f"phase {PHASES[flag]} exited with code {rc}")
+            raise RuntimeError(f"phase {number} outlived {timeout} s") from None
+        _require(rc == 0, f"phase {number} exited with code {rc}")
         with open(result) as f:
             return json.load(f)
 
 
 def _child_phase(flag, root, result):
-    """The child's side of ``_run_phase``: phase 18 or 19 on card 0, in
-    ``root``; what it returns written to ``result``."""
+    """The child's side of ``_run_phase``: phase 18, 19 or 20 on card 0,
+    in ``root``; what it returns written to ``result``."""
     import torch
 
     sys.path.insert(0, REPO)
-    check = {"--cli-phase": _check_cli, "--prior-phase": _check_prior_cli}[flag]
+    check = {"--cli-phase": _check_cli, "--prior-phase": _check_prior_cli,
+             "--quality-phase": _check_quality}[flag]
     with open(result, "w") as f:
         json.dump(check(torch.device("cuda", 0), _smi(), root), f)
     return 0
@@ -2881,6 +3222,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as cli_root:
         cli_step_ms = _run_phase("--cli-phase", cli_root)
         prior = _run_phase("--prior-phase", cli_root)
+    # 20. the two-stage quality loop, in a process of its own
+    with tempfile.TemporaryDirectory() as quality_root:
+        _run_phase("--quality-phase", quality_root)
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),

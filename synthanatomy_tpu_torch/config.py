@@ -85,18 +85,12 @@ class VQVAEConfig:
     eval_every: int = 5
     augmentation_probability: float = 0.2
     augmentation_strength: float = 0.0
-    # TPU-native extension: run the randomized augmentations (affine
-    # resample + photometric ops) on-device inside the train step jit
-    # instead of scipy on the host.  Decisions/params still come from
-    # the per-sample host rng, so the trace CSV contract holds.
-    # Full-volume training only (patch mode stays on host).  Measured
-    # free on-chip via the 3-pass shear resampler (BASELINE.md round 4:
-    # 710 ms/step adversarial @ b2 with the chain fired at p=1, inside
-    # the 709–821 no-augment variance band) while tripling host-side
-    # loader throughput (0.55 → 1.99 vol/s/worker).  Default stays OFF
-    # for strict host/MONAI interpolation parity (the shear form is
-    # multi-pass linear, not scipy-bit-exact); turn ON for production
-    # few-core hosts — 2 workers then feed the chip instead of 8.
+    # run the randomized augmentations (affine resample + photometric
+    # ops) on the device before each train step (ops/augment.py) instead
+    # of scipy on the host.  Decisions and parameters still come from the
+    # per-sample host rng, so the trace CSV contract holds.  Full-volume
+    # training only (patch mode stays on the host).  Off by default: the
+    # 3-pass resampler is multi-pass linear, not scipy-exact.
     device_augmentation: bool = False
     # --- loss
     loss: str = "jukebox_perceptual"

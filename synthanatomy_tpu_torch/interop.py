@@ -1,7 +1,7 @@
 """Carry trained weights from the JAX package into the port.
 
-``performer_from_jax``, ``vqvae_from_jax`` and ``discriminator_from_jax``
-take the JAX variables as numpy trees (``jax.device_get`` of the flax
+``performer_from_jax``, ``vqvae_from_jax``, ``discriminator_from_jax`` and
+``vq_layer_from_jax`` take the JAX variables as numpy trees (``jax.device_get`` of the flax
 variables) and return port modules loaded with ``strict=True``, on the
 card unless ``device`` says otherwise; ``lpips_from_jax`` carries an
 LPIPS parameter tree.  The transposes (the port's own copies of those
@@ -41,9 +41,11 @@ from synthanatomy_tpu_torch.models.discriminator import BaselineDiscriminator
 from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
 
-__all__ = ["discriminator_from_jax", "export_discriminator_state_dict",
-           "export_performer_state_dict", "export_vqvae_state_dict", "lpips_from_jax",
-           "performer_from_jax", "save_raw_state_dict", "vqvae_from_jax"]
+__all__ = ["discriminator_from_jax", "discriminator_state_dict_from_jax",
+           "export_discriminator_state_dict", "export_performer_state_dict",
+           "export_vqvae_state_dict", "lpips_from_jax", "performer_from_jax",
+           "performer_state_dict_from_jax", "save_raw_state_dict", "vq_layer_from_jax",
+           "vqvae_from_jax", "vqvae_state_dict_from_jax"]
 
 
 def _conv_w_inv(w) -> np.ndarray:
@@ -90,7 +92,14 @@ def performer_from_jax(
                                                    np.asarray(params["axial_emb_1"]).shape[1]))
     config.setdefault("device", "cuda")
     model = Performer(num_tokens, max_seq_len, dim, depth, **config)
+    model.load_state_dict(performer_state_dict_from_jax(params, favor, depth), strict=True)
+    return model
 
+
+def performer_state_dict_from_jax(params: Dict[str, Any], favor: Dict[str, Any],
+                                  depth: int) -> Dict[str, torch.Tensor]:
+    """Flax ``Performer`` variables → the port ``Performer``'s state dict
+    (one tensor per array; f32)."""
     sd = {
         "token_emb.weight": _t(params["token_emb"]["embedding"]),
         "final_norm.weight": _t(params["final_norm"]["scale"]),
@@ -126,8 +135,7 @@ def performer_from_jax(
                     sd[f"{p}.{norm}.bias"] = _t(blk[norm]["bias"])
         if f"block_{i}" in favor:
             sd[f"{p}.attn.projection"] = _t(favor[f"block_{i}"]["attn"]["projection"])
-    model.load_state_dict(sd, strict=True)
-    return model
+    return sd
 
 
 def vqvae_from_jax(
@@ -140,8 +148,7 @@ def vqvae_from_jax(
     residual, device, ...); codebook size, embedding width and channel
     counts are read from the shapes.  Weights stay f32, as flax keeps
     them; the model computes in ``dtype``."""
-    state = vq["level_0"]
-    get = (lambda k: getattr(state, k)) if hasattr(state, "codebook") else state.__getitem__
+    get = _state_getter(vq["level_0"])
     n_embed, embed_dim = np.asarray(get("codebook")).shape
     n_channels = np.asarray(params["decoder_in_conv"]["kernel"]).shape[-1]
     n_res_channels = np.asarray(params["decoder_res_0_0"]["TorchConv3d_0"]["kernel"]).shape[-1]
@@ -152,7 +159,22 @@ def vqvae_from_jax(
         n_channels=n_channels, n_res_channels=n_res_channels,
         n_res_layers=n_res_layers, dtype=dtype, **config,
     )
+    model.load_state_dict(vqvae_state_dict_from_jax(params, vq, n_levels, n_res_layers),
+                          strict=True)
+    return model
 
+
+def _state_getter(state):
+    """Reads a VQ state given as a ``VQState`` or as a dict."""
+    return (lambda k: getattr(state, k)) if hasattr(state, "codebook") else state.__getitem__
+
+
+def vqvae_state_dict_from_jax(params: Dict[str, Any], vq: Dict[str, Any], n_levels: int,
+                              n_res_layers: int) -> Dict[str, torch.Tensor]:
+    """Flax ``BaselineVQVAE`` variables → the port ``BaselineVQVAE``'s
+    state dict (one tensor per array; f32).  The last up-sampler is the
+    sub-pixel convolution where ``params`` holds ``decoder_subpixel``."""
+    get = _state_getter(vq["level_0"])
     sd: Dict[str, torch.Tensor] = {}
 
     def conv(prefix, entry, transposed=False):
@@ -170,7 +192,7 @@ def vqvae_from_jax(
             res(f"encoder_res.{i}.{j}", params[f"encoder_res_{i}_{j}"])
         for j in range(n_res_layers):
             res(f"decoder_res.{i}.{j}", params[f"decoder_res_{i}_{j}"])
-        if i == n_levels - 1 and model.use_subpixel_conv:
+        if i == n_levels - 1 and "decoder_subpixel" in params:
             conv(f"decoder_ups.{i}", params["decoder_subpixel"])
         else:
             conv(f"decoder_ups.{i}", params[f"decoder_up_{i}"], transposed=True)
@@ -178,8 +200,25 @@ def vqvae_from_jax(
     conv("decoder_in_conv", params["decoder_in_conv"])
     for k in ("codebook", "cluster_size", "embed_avg"):
         sd[f"vq.{k}"] = _t(get(k))
-    model.load_state_dict(sd, strict=True)
-    return model
+    return sd
+
+
+def vq_layer_from_jax(variables: Dict[str, Any], **config):
+    """Flax ``VectorQuantizerEMA`` variables (``{"vq": {"ema": VQState}}``,
+    the state as a ``VQState`` or a dict) → loaded port
+    ``models.vq_layer.VectorQuantizerEMA``.  ``config`` holds the
+    remaining constructor arguments (commitment cost, decay, epsilon,
+    ``use_pallas``, device); codebook size and width are read from the
+    shapes."""
+    from synthanatomy_tpu_torch.models.vq_layer import VectorQuantizerEMA
+
+    get = _state_getter(variables["vq"]["ema"])
+    num_embeddings, embedding_dim = np.asarray(get("codebook")).shape
+    config.setdefault("device", "cuda")
+    layer = VectorQuantizerEMA(num_embeddings, embedding_dim, **config)
+    layer.load_state_dict({f"ema.{k}": _t(get(k)) for k in ("codebook", "cluster_size",
+                                                              "embed_avg")}, strict=True)
+    return layer
 
 
 def discriminator_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
@@ -193,6 +232,15 @@ def discriminator_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
     config.setdefault("device", "cuda")
     model = BaselineDiscriminator(input_nc=k0.shape[3], ndf=k0.shape[4], n_layers=n_layers,
                                   **config)
+    model.load_state_dict(discriminator_state_dict_from_jax(params, batch_stats), strict=True)
+    return model
+
+
+def discriminator_state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """Flax ``BaselineDiscriminator`` variables → the port
+    ``BaselineDiscriminator``'s state dict (f32)."""
+    n_layers = sum(1 for k in params if k.startswith("norm_"))
     sd: Dict[str, torch.Tensor] = {}
     for name in ["conv_0", *(f"conv_{n}" for n in range(1, n_layers + 1)), "conv_out"]:
         sd[f"{name}.weight"] = _t(_conv_w_inv(params[name]["kernel"]))
@@ -203,8 +251,7 @@ def discriminator_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
             sd[f"norm_{n}.{k}"] = _t(params[f"norm_{n}"][k])
         for k in ("mean", "var"):
             sd[f"norm_{n}.{k}"] = _t(batch_stats[f"norm_{n}"][k])
-    model.load_state_dict(sd, strict=True)
-    return model
+    return sd
 
 
 def lpips_from_jax(params, device="cuda") -> Dict[str, Any]:

@@ -45,7 +45,7 @@ def run(
     eval_every: int = 5,
     augmentation_probability: float = 0.2,
     augmentation_strength: float = 0,
-    # on-device augmentation (not ported yet: True raises)
+    # on-device augmentation (ops/augment.py), training only
     device_augmentation: bool = False,
     # Loss parameters
     loss: str = "jukebox_perceptual",

@@ -39,7 +39,7 @@ from synthanatomy_tpu_torch.utils.general import run_device
 
 __all__ = ["build_ordering", "build_performer", "prepare_batch", "training", "inference"]
 
-_MULTI_GPU = "ROADMAP.md §1, item 4 (Multi-GPU)"
+_MULTI_GPU = "ROADMAP.md §1, item 1 (Multi-GPU)"
 
 
 def _check_supported(config: TransformerConfig) -> None:

@@ -17,12 +17,15 @@ reference's checkpoint / eval / logging cadences and output contracts:
 
 One device: ``config.device`` is a CUDA ordinal, or ``"cpu"`` (the
 tests' way to ask for the host).  Volumes go to the models as NCDHW.
-The mesh, its sharding and ZeRO-1 over several devices, and the device
-augmentation, are not ported yet (ROADMAP.md §1): they raise
-``NotImplementedError``.  Forward-only passes (the evaluator and both
-inference modes) run the residual layers off the fused kernel, as JAX
-does; the nearest-codeword search takes its kernel on the card unless
-``--use_pallas_vq=False``.
+The mesh, its sharding and ZeRO-1 over several devices are not ported
+yet (ROADMAP.md §1): they raise ``NotImplementedError``.  With
+``--device_augmentation`` the training loader ships the drawn
+parameters and ``ops/augment.augment_batch`` applies them on the
+device before each step (JAX's resampler rule: the 3-pass form below a
+0.5 rad rotation range, else the exact gather).  Forward-only passes
+(the evaluator and both inference modes) run the residual layers off
+the fused kernel, as JAX does; the nearest-codeword search takes its
+kernel on the card unless ``--use_pallas_vq=False``.
 """
 
 from __future__ import annotations
@@ -39,8 +42,7 @@ from synthanatomy_tpu_torch.config import VQVAEConfig
 from synthanatomy_tpu_torch.train.vqvae_steps import create_vqvae_train_state
 from synthanatomy_tpu_torch.utils.general import run_device
 
-_MULTI_GPU = "ROADMAP.md §1, item 4 (Multi-GPU)"
-_DEVICE_AUGMENT = "ROADMAP.md §1, item 1 (ops/augment.py)"
+_MULTI_GPU = "ROADMAP.md §1, item 1 (Multi-GPU)"
 
 
 def _check_supported(config: VQVAEConfig) -> None:
@@ -48,10 +50,6 @@ def _check_supported(config: VQVAEConfig) -> None:
         raise NotImplementedError(
             f"--mesh_shape={config.mesh_shape} (and --zero1 over it) spans several devices; "
             f"the port runs on one device until {_MULTI_GPU}")
-    if config.device_augmentation:
-        raise NotImplementedError(
-            f"--device_augmentation=True needs the device augmentation, {_DEVICE_AUGMENT}; "
-            "the host augmentation (the default) is ported")
 
 
 def _dtype(config: VQVAEConfig) -> torch.dtype:
@@ -62,6 +60,16 @@ def _volumes(batch: Dict[str, Any], device) -> torch.Tensor:
     """The loader's (B, D, H, W, 1) volumes → (B, 1, D, H, W) on ``device``."""
     x = torch.from_numpy(np.ascontiguousarray(batch["MRI"], np.float32))
     return x.permute(0, 4, 1, 2, 3).contiguous().to(device)
+
+
+def _augmented(x: torch.Tensor, batch: Dict[str, Any], shifts) -> torch.Tensor:
+    """The device chain (``ops/augment.augment_batch``) on ``_volumes``'
+    output, returned in the same layout (a channels-last view): cuDNN
+    keys its engines on the layout, so the step meets the host path's."""
+    from synthanatomy_tpu_torch.ops.augment import augment_batch
+
+    return augment_batch(x.permute(0, 2, 3, 4, 1), batch["augment"], shifts).permute(
+        0, 4, 1, 2, 3)
 
 
 def build_vqvae(config: VQVAEConfig, dtype=None, *, device="cuda", generator=None):
@@ -126,6 +134,9 @@ def _make_loaders(config: VQVAEConfig, mode: str):
         return VolumeDataset(
             subjects, tf, load_nii_canonical=config.load_nii_canonical,
             seed=config.seed,
+            # on-device augmentation in training only: the inference
+            # modes take host-final volumes
+            device_augment=config.device_augmentation and augment and mode == "training",
         )
 
     # batches loaded ahead of the step: DataLoader's prefetch_factor is per worker
@@ -289,6 +300,21 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
 
     lpips_params = resolve_lpips_params(config, logger, device)
 
+    device_aug = loaders["train"].dataset.device_augment
+    aug_shifts = None
+    if device_aug:
+        from synthanatomy_tpu_torch.ops.augment import shear_shift_bounds
+
+        ranges = loaders["train"].dataset.transform.affine_ranges()
+        if ranges["rotate_range"] < 0.5:
+            # JAX's rule: the 3-pass resampler, its static shift bounds
+            # covering the whole parameter box
+            aug_shifts = shear_shift_bounds(input_shape, **ranges)
+            logger.info(f"device augment: 3-pass resampler, shifts {aug_shifts}")
+        else:
+            logger.info("device augment: exact-gather resampler "
+                        "(rotation range too large for the 3-pass form)")
+
     def build_step(train_generator: bool):
         return make_vqvae_train_step(
             state.model,
@@ -370,6 +396,8 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
                 break
             x = _volumes(batch, device)
             with profiler.step(global_step):
+                if device_aug:
+                    x = _augmented(x, batch, aug_shifts)
                 state, metrics = step_fn(state, x, sched, lpips_params)
             global_step += 1
             n_it += 1

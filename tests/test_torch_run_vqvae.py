@@ -14,7 +14,8 @@ the JAX package's, at ``tests/test_end_to_end.py``'s tiny f32 flags
 
 The JAX runner runs once for the module.  Also: the port's ``run()``
 has the top-level ``run_vqvae.run``'s flags and defaults, auto-resume
-flips on a second call, the options not ported yet raise, and
+flips on a second call, the options not ported yet raise,
+``--device_augmentation`` trains and leaves extraction alone, and
 ``use_pallas_vq=False`` picks the same codes as the default route."""
 
 import inspect
@@ -242,8 +243,8 @@ def test_decoding_matches_jax(runs):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("flags", [dict(device_augmentation=True), dict(mesh_shape=(2,)),
-                                   dict(mesh_shape=(4,), zero1=True)])
+@pytest.mark.parametrize("flags", [dict(mesh_shape=(2,)), dict(mesh_shape=(4,), zero1=True)],
+                         ids=["flags1", "flags2"])
 @pytest.mark.parametrize("mode", ["training", "extracting"])
 def test_unported_options_raise(tmp_path, flags, mode):
     from synthanatomy_tpu_torch.run_vqvae import run
@@ -251,6 +252,64 @@ def test_unported_options_raise(tmp_path, flags, mode):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run(training_subjects=str(tmp_path), project_directory=str(tmp_path),
             **dict(TFLAGS, mode=mode, **flags))
+
+
+def _recording_datasets(monkeypatch):
+    """Records each VolumeDataset's ``device_augment`` as the runner builds it."""
+    from synthanatomy_tpu_torch.data import datasets
+
+    seen = []
+    real = datasets.VolumeDataset
+
+    class Recording(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(self.device_augment)
+
+    monkeypatch.setattr(datasets, "VolumeDataset", Recording)
+    return seen
+
+
+def test_device_augmentation_trains(runs, tmp_path, monkeypatch):
+    """``--device_augmentation=True`` no longer raises: the training set
+    ships the drawn parameters (the evaluators' sets do not), every step
+    takes ``augment_batch`` and the run trains to finite losses."""
+    from synthanatomy_tpu_torch.ops import augment
+    from synthanatomy_tpu_torch.run_vqvae import run
+
+    seen = _recording_datasets(monkeypatch)
+    calls = []
+    real = augment.augment_batch
+    monkeypatch.setattr(augment, "augment_batch",
+                        lambda x, p, s=None: calls.append(s) or real(x, p, s))
+    out = run(training_subjects=runs["data"], validation_subjects=runs["data"],
+              project_directory=str(tmp_path),
+              **dict(TFLAGS, device_augmentation=True, augmentation_probability=1.0,
+                     eval_every=1))
+    assert seen == [True, False, False]  # train, val, train_eval
+    assert len(calls) == out["state"].step == 2 and all(s is not None for s in calls)
+    assert all(np.isfinite(v) for v in out["history"][0].values())
+
+
+def test_extracting_ignores_device_augmentation(runs, monkeypatch):
+    """Extraction takes host-final volumes whatever the flag, as JAX's
+    runner does: the flag changes no output byte."""
+    from synthanatomy_tpu_torch.run_vqvae import run
+
+    seen = _recording_datasets(monkeypatch)
+    proj, _ = _port_checkpoint(runs, "torch_extract_devaug")
+    outs = [run(training_subjects=runs["data"], project_directory=proj,
+                **dict(TFLAGS, mode="extracting", device_augmentation=flag,
+                       no_augmented_extractions=1))
+            for flag in (True, False)]
+    assert seen == [False, False]
+    a, b = _by_name(outs[0]["written"]), _by_name(outs[1]["written"])
+    assert sorted(a) == sorted(b) and a
+    for name in a:
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(a[name]), np.load(b[name]), err_msg=name)
+        elif name.endswith(".nii.gz"):
+            np.testing.assert_array_equal(load_nifti(a[name]).data, load_nifti(b[name]).data)
 
 
 def test_one_device_mesh_is_accepted():
