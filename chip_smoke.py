@@ -238,7 +238,29 @@ result, without them.  Phases, each fatal on failure:
    MS-SSIM >= 0.90, a 4L/d256 prior to val CE <= 1.0, 8 samples decoded,
    all inside the reconstructions' statistics envelope and diverse (JAX's
    bars, unchanged): the epochs each bar needed, and the launches of rows
-   1, 3, 5 and 6 (each > 0) and 7 (0 at these sizes, the reason printed).
+   1, 3, 5 and 6 (each > 0) and 7 (0 at these sizes, the reason printed);
+21. (in a process of its own) data parallelism: (a) two ranks over gloo
+   sharing card 0 (NCCL refuses two ranks on one card; ``--dp-rank``,
+   started by ``parallel.distributed.launch``), each held on rank 0
+   against one process on the concatenated batch: the prior's DP step
+   (paper prior, f32, B6 a rank; loss within 1e-5 relative, gradients
+   1e-4 in norm; rows 5 and 6), the stage-1 DP step (paper VQ-VAE bf16
+   with D, the jukebox loss, the adaptive weight and the runner's device
+   augmentation, B3 a rank, the later rank's volumes at 0.25x intensity;
+   the reconstruction loss within 1e-5 relative, D's loss 5e-3, the
+   weight 2e-3, at most 3% of the codes flipped, G gradients 5e-3, D 5e-2
+   and the EMA state on unflipped codes 1e-6 in norm; rows 3 and 7, then
+   row 4 with ``FUSED_EMA_STATS``: the same indices), parameters,
+   gradients and EMA
+   state bit-identical over the ranks, and ``make_dp_sampler`` at global
+   B16 (row 1; at least 99% of the codes equal to each rank's B8 run with
+   its folded generator), with each DP step's and call's time beside one
+   process's; (b) ``torchrun --nproc_per_node=1`` (NCCL) through both
+   CLIs with ``--mesh_shape='(1,)' --zero1=True`` at paper width on
+   phase 18's volumes and phase 19's grids: an epoch of 2 training steps
+   with evaluation each (rows 3 and 7, then 5 and 6), rank 0's checkpoint
+   with every Adam state, a one-device resume of it to epoch 2, and one
+   sampling call of 16 grids (1400 row 1 launches).
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -2552,16 +2574,16 @@ AUG_TOL = 1e-5  # card against CPU, away from the floor-flip voxels
 NEAR_INT = 1e-5  # a sample position this close to an integer may floor either way
 
 
-def _augment_params(seed, *, noise):
-    """The host's drawn parameters for a B3 paper batch with every
-    transform fired (p 1, strength 0: the production ranges)."""
+def _augment_params(seed, *, noise, n=VQ_BATCH):
+    """The host's drawn parameters for n paper volumes (a B3 batch) with
+    every transform fired (p 1, strength 0: the production ranges)."""
     import numpy as np
 
     from synthanatomy_tpu_torch.data.transforms import VQVAETransform
 
     tf = VQVAETransform(augment=True, augmentation_probability=1.0)
     drawn = [tf.draw_device_params(VOLUME, np.random.default_rng(seed + i))[0]
-             for i in range(VQ_BATCH)]
+             for i in range(n)]
     params = {k: np.stack([d[k] for d in drawn]) for k in drawn[0]}
     if not noise:
         params["noise_fired"][:] = False
@@ -3131,13 +3153,410 @@ def _check_quality(dev, smi, tmp):
     return {"result": result, "launches": n, "wall_s": wall}
 
 
+# phase 21: data parallelism.  Two ranks share card 0 over gloo (NCCL
+# refuses two ranks on one card; gloo carries CUDA tensors), each at the
+# CLIs' batch: phase 18 peaks at 10.52 GiB at B3 on an H100 80GB HBM3, so
+# two B3 ranks and rank 0's B6 reference step (20.91 GiB) fit the card.
+DP_RANKS = 2
+DP_SAMPLE_BATCH = BATCH  # the global batch of the DP sampler
+# the stage-1 DP step against one process: losses and the adaptive weight
+# (relative), the share of codes flipped, G's and D's gradients and the EMA
+# state on unflipped codes (norm-relative)
+DP_LOSS = {"Loss-Reconstruction-Total": 1e-5, "Loss-Discriminator-Total": 5e-3,
+           "Adversarial-Weight": 2e-3}
+DP_FLIPS, DP_G, DP_D, DP_EMA = 0.03, 5e-3, 5e-2, 1e-6
+
+
+def _dp_rank(root):
+    """One rank of phase 21(a) (``chip_smoke.py --dp-rank ROOT``, started
+    by ``parallel.distributed.launch``): the prior's DP step, the stage-1
+    DP step and the DP sampler at paper width over gloo on card 0, each
+    held on rank 0 against one process on the concatenated batch.  Rank 0
+    writes its record to ``ROOT/dp.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from synthanatomy_tpu_torch.models.discriminator import BaselineDiscriminator
+    from synthanatomy_tpu_torch.models.sampling import make_dp_sampler, make_sampler
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+    from synthanatomy_tpu_torch.ops.augment import shear_shift_bounds
+    from synthanatomy_tpu_torch.parallel import distributed as D
+    from synthanatomy_tpu_torch.runners.transformer import prepare_batch
+    from synthanatomy_tpu_torch.runners.vqvae import _augmented
+    from synthanatomy_tpu_torch.train.transformer_steps import (
+        create_transformer_train_state,
+        make_transformer_train_step,
+        make_transformer_train_step_dp,
+    )
+    from synthanatomy_tpu_torch.train.vqvae_steps import (
+        create_vqvae_train_state,
+        make_vqvae_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    D.maybe_initialize_distributed(backend="gloo")
+    group = D.default_group()
+    rank, world = D.group_info(group)
+    dev = torch.device("cuda", 0)
+    smi = _smi()
+    note = f"{world} ranks sharing one card, gloo; {smi}"
+    rec = {"launches": {}}
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    def wall_ms(fn, reps):
+        """ms per call of ``fn`` on every rank at once (barriers around)."""
+        torch.cuda.synchronize()
+        D.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        D.barrier(group)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # (a1) the prior's DP step: f32 (the kernels' f32 instantiations: only
+    # summation order differs from one process), B6 a rank
+    model, ordering = _train_prior(dev, torch.float32)
+    b = TRAIN_BATCH
+    mine = slice(rank * b, (rank + 1) * b)
+    latents = np.random.default_rng(21).integers(0, 2048, size=(world * b,) + GRID)
+    inputs, targets = (torch.as_tensor(x, device=dev)
+                       for x in prepare_batch(latents, ordering, 2048))
+    sched = {"lr": 1e-4}
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = create_transformer_train_state(model, seed=0, rank=rank)
+    step = make_transformer_train_step_dp(model, group)
+    fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+    _, m = step(state, inputs[mine], targets[mine], None, sched)
+    torch.cuda.synchronize()
+    rec["launches"].update({"5": fa.favor_attention_fused.launches,
+                            "6": lf.local_attention_flash.launches})
+    g_dp, loss_dp = _grads(model), float(m["Loss"])
+    _require(D.ranks_agree(list(model.state_dict().values()), group),
+             "prior: the ranks' parameters differ after the DP step")
+    _require(rec["launches"]["5"] > 0 and rec["launches"]["6"] > 0,
+             f"prior DP step launches {rec['launches']}")
+    rec["prior_dp_ms"] = wall_ms(lambda: step(state, inputs[mine], targets[mine], None, sched), 2)
+    del state, step
+    torch.cuda.empty_cache()
+    D.barrier(group)
+    if rank == 0:
+        model.load_state_dict(init)
+        one_state = create_transformer_train_state(model, seed=0)
+        one = make_transformer_train_step(model)
+        _, m1 = one(one_state, inputs, targets, None, sched)
+        g1 = _grads(model)
+        loss1, rel = float(m1["Loss"]), _rel(g_dp, g1)
+        wname, wrel = _worst(g_dp, g1)
+        _require(abs(loss_dp - loss1) <= 1e-5 * abs(loss1) and rel <= 1e-4,
+                 f"prior DP step vs one process: loss {loss_dp} vs {loss1}, gradients {rel}")
+        rec["prior_one_ms"] = _time_ms(lambda: one(one_state, inputs, targets, None, sched), 2)
+        rec["prior"] = {"loss_rel": abs(loss_dp - loss1) / abs(loss1), "grad_rel": rel}
+        say(f"[dp] prior DP step, paper prior f32, B{b} a rank x {world} ranks: loss "
+            f"{loss_dp:.7f} vs one process on the B{world * b} batch {loss1:.7f} (tol 1e-5 "
+            f"relative), gradients norm-relative {rel:.3e} (tol 1e-4; largest per tensor "
+            f"{wrel:.3e} at {wname}); parameters bit-identical over the ranks; launches a "
+            f"rank: row 5 {rec['launches']['5']}, row 6 {rec['launches']['6']}; "
+            f"{rec['prior_dp_ms']:.1f} ms a DP step against {rec['prior_one_ms']:.1f} ms for "
+            f"one process at B{world * b}  [{note}]")
+        del one_state, one
+    del model, init, g_dp
+    torch.cuda.empty_cache()
+    D.barrier(group)
+
+    # (a2) the stage-1 DP step (bf16, remat, the runner's device
+    # augmentation on the 3-pass route, jukebox loss, D and the adaptive
+    # weight), B3 a rank, against one process at B6
+    b = VQ_BATCH
+    mine = slice(rank * b, (rank + 1) * b)
+    model = _paper_vqvae(dev, torch.bfloat16, use_remat=True)
+    d_model = BaselineDiscriminator(dtype=torch.bfloat16,
+                                    generator=torch.Generator().manual_seed(31), device=dev)
+    _seed_codebook(model, _stage1_volumes(dev, 41), 43)
+    params, tf = _augment_params(50, noise=False, n=world * b)
+    shifts = shear_shift_bounds(VOLUME, **tf.affine_ranges())
+    vols = torch.rand(world * b, 1, *VOLUME, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(44))
+    x_all = _augmented(vols, {"augment": params}, shifts)
+    # the ranks' subjects differ in intensity, as real ones do: a rank that
+    # skipped an all-reduce then sees other statistics than the global batch
+    x_all[b:].mul_(0.25)
+    del vols
+
+    def make(g):
+        return make_vqvae_train_step(model, loss_name="jukebox", d_model=d_model,
+                                     use_adaptive_weight=True, process_group=g)
+
+    snap = _snapshot(model, d_model)
+    _require(D.ranks_agree([t for s in snap for t in s.values()], group),
+             "stage 1: the ranks start from different weights")
+    dp_step = make(group)
+    vq.nearest_codeword.launches = vq.nearest_codeword_stats.launches = 0
+    rs.fused_residual_layer.launches = rs.fused_residual_layer.bwd_launches = 0
+    mk, gk, dk, vk, ik = _one_step(model, d_model, None, dp_step, x_all[mine], snap)
+    torch.cuda.synchronize()
+    rec["launches"].update({"3": vq.nearest_codeword.launches,
+                            "7": rs.fused_residual_layer.launches,
+                            "7 bwd": rs.fused_residual_layer.bwd_launches})
+    _require(D.ranks_agree([*gk.values(), *dk.values(), *vk.values()], group),
+             "stage 1: the ranks' gradients or EMA state differ after the DP step")
+    with mock.patch.object(vq, "FUSED_EMA_STATS", True):
+        _, _, _, v4, i4 = _one_step(model, d_model, None, dp_step, x_all[mine], snap)
+    torch.cuda.synchronize()
+    rec["launches"]["4"] = vq.nearest_codeword_stats.launches
+    _require(all(rec["launches"][k] > 0 for k in ("3", "4", "7", "7 bwd")),
+             f"stage-1 DP step launches {rec['launches']}")
+    _require(torch.equal(i4, ik), "FUSED_EMA_STATS changes the DP step's indices")
+    ema4 = max(_compare_grad(f"EMA {k} (row 4 route)", v4[k], vk[k]) for k in vk)
+    ik_all = D.gather_to_rank0(ik, group)
+    state = create_vqvae_train_state(model, rank, d_model=d_model, device=dev)
+    rec["stage1_dp_ms"] = wall_ms(lambda: dp_step(state, x_all[mine], VQ_SCHED), 2)
+    del state
+    torch.cuda.empty_cache()
+    D.barrier(group)
+    if rank == 0:
+        model.load_state_dict(snap[0])  # the timed steps moved the weights
+        d_model.load_state_dict(snap[1])
+        m1, g1, d1, v1, i1 = _one_step(model, d_model, None, make(None), x_all, snap)
+        n_flip, v_rel = _ema_rel(vk, v1, ik_all, i1)
+        g_rel, d_rel = _rel(gk, g1), _rel(dk, d1)
+        loss_rel = {k: abs(mk[k] - m1[k]) / abs(m1[k]) for k in
+                    ("Loss-Reconstruction-Total", "Loss-Discriminator-Total",
+                     "Adversarial-Weight")}
+        # cuDNN's engines at B3 and B6 round the bf16 encoder apart, and with
+        # the codebook seeded from the latents a flip is a near-tie (under 1%
+        # flipped on an H100 80GB HBM3 at 700 W); the bounds sit 2-100 times
+        # above the readings, and a dropped BatchNorm all-reduce or
+        # last-layer average lands 3-93 times above one (PERF.md)
+        _require(n_flip <= DP_FLIPS * i1.numel(), f"stage-1 DP: {n_flip} of {i1.numel()} codes "
+                                                  f"differ from one process")
+        _require(all(loss_rel[k] <= tol for k, tol in DP_LOSS.items()) and g_rel <= DP_G
+                 and d_rel <= DP_D and v_rel <= DP_EMA,
+                 f"stage-1 DP step vs one process: {loss_rel}, G {g_rel}, D {d_rel}, EMA {v_rel}")
+        state = create_vqvae_train_state(model, 0, d_model=d_model, device=dev)
+        one = make(None)
+        rec["stage1_one_ms"] = _time_ms(lambda: one(state, x_all, VQ_SCHED), 2)
+        rec["stage1"] = {"loss_rel": loss_rel, "g_rel": g_rel, "d_rel": d_rel,
+                         "ema_rel": v_rel, "flips": n_flip, "ema_row4_err": ema4}
+        say(f"[dp] stage-1 DP step, paper VQ-VAE bf16 + D, jukebox, adaptive weight, device "
+            f"augmentation (3-pass), B{b} a rank x {world} ranks, against one process on the "
+            f"B{world * b} batch (the later rank's volumes at 0.25x intensity): relative error "
+            f"of the reconstruction loss {loss_rel['Loss-Reconstruction-Total']:.3e} (tol "
+            f"{DP_LOSS['Loss-Reconstruction-Total']:g}), D loss "
+            f"{loss_rel['Loss-Discriminator-Total']:.3e} (tol "
+            f"{DP_LOSS['Loss-Discriminator-Total']:g}), adaptive weight "
+            f"{loss_rel['Adversarial-Weight']:.3e} (tol {DP_LOSS['Adversarial-Weight']:g}); "
+            f"{n_flip} of {i1.numel()} codes differ (tol {DP_FLIPS:.0%}); norm-relative G "
+            f"gradients {g_rel:.3e} (tol {DP_G:g}), D gradients {d_rel:.3e} (tol {DP_D:g}), "
+            f"EMA state on unflipped codes {v_rel:.3e} (tol {DP_EMA:g}); gradients and EMA "
+            f"state bit-identical over the ranks; the row 4 route's EMA state max abs err "
+            f"{ema4:.3e} against row 3's, same indices; launches a rank: "
+            f"row 3 {rec['launches']['3']}, row 4 {rec['launches']['4']}, row 7 "
+            f"{rec['launches']['7']} forward + {rec['launches']['7 bwd']} backward; "
+            f"{rec['stage1_dp_ms']:.1f} ms a DP step against {rec['stage1_one_ms']:.1f} ms for "
+            f"one process at B{world * b}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB on rank 0  [{note}]")
+        del state, one
+    del model, d_model, snap, x_all
+    torch.cuda.empty_cache()
+    D.barrier(group)
+
+    # (a3) the DP sampler at global B16 (row 1): each rank B8 with its
+    # rank folded into the generator, gathered on rank 0
+    performer, ordering = _performer(True, seed=0, device=dev, **PAPER)
+    local = DP_SAMPLE_BATCH // world
+    sampler = make_dp_sampler(performer, ordering, global_batch=DP_SAMPLE_BATCH,
+                              process_group=group, ring_quant=True, top_k=50)
+    fd.fused_decode_step.launches = 0
+    with torch.no_grad():
+        grids = sampler(torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        rec["launches"]["1"] = fd.fused_decode_step.launches
+        rec["sampler_dp_s"] = wall_ms(lambda: sampler(torch.Generator(device=dev)
+                                                      .manual_seed(4)), 1) / 1e3
+    _require(rec["launches"]["1"] >= SEQ, f"DP sampler: {rec['launches']['1']} row 1 launches")
+    if rank == 0:
+        with torch.no_grad():
+            solo = make_sampler(performer, ordering, batch=local, ring_quant=True, top_k=50)
+            want = torch.cat([solo(D.fold_in(torch.Generator(device=dev).manual_seed(3), r))
+                              for r in range(world)])
+        agree = float((grids == want).float().mean())
+        _require(tuple(grids.shape) == (DP_SAMPLE_BATCH,) + GRID and agree >= 0.99,
+                 f"DP sampler grids {tuple(grids.shape)}, agreement {agree} with one process")
+        rec["sampler_agree"] = agree
+        say(f"[dp] DP sampler, paper prior, global B{DP_SAMPLE_BATCH} (B{local} a rank, int8 "
+            f"weights and rings, top-k 50): grids {tuple(grids.shape)} gathered on rank 0, "
+            f"{agree:.4f} of the codes equal to one process running each rank's B{local} with "
+            f"its folded generator (tol 0.99); {rec['launches']['1']} row 1 launches a rank; "
+            f"{rec['sampler_dp_s']:.3f} s a DP sampler call  [{note}]")
+        with open(os.path.join(root, "dp.json"), "w") as f:
+            json.dump(rec, f)
+    D.barrier(group)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dp_cli(root):
+    """Phase 21(b)'s process under ``torchrun --nproc_per_node=1``
+    (``chip_smoke.py --dp-cli ROOT``): the CLI calls of
+    ``ROOT/dp_cli.json``, each through ``cli.dispatch`` with a user's argv
+    (the first sets up NCCL); each call's kernel launches are written to
+    ``ROOT/dp_cli_launches.json``."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from synthanatomy_tpu_torch.cli import dispatch
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+    from synthanatomy_tpu_torch.ops import fused_decode as fd
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.ops import res_stack as rs
+    from synthanatomy_tpu_torch.ops import vq
+
+    counters = {"1": (fd.fused_decode_step, "launches"), "3": (vq.nearest_codeword, "launches"),
+                "5": (fa.favor_attention_fused, "launches"),
+                "6": (lf.local_attention_flash, "launches"),
+                "7": (rs.fused_residual_layer, "launches"),
+                "7 bwd": (rs.fused_residual_layer, "bwd_launches")}
+    with open(os.path.join(root, "dp_cli.json")) as f:
+        calls = json.load(f)
+    launches = []
+    for module, argv in calls:
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        mod = importlib.import_module(f"synthanatomy_tpu_torch.{module}")
+        dispatch({"run": mod.run}, argv)
+        torch.cuda.synchronize()
+        launches.append({k: getattr(o, a) for k, (o, a) in counters.items()})
+    _require(torch.distributed.get_backend() == "nccl", "the CLIs did not set up NCCL")
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(root, "dp_cli_launches.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def _check_dp(dev, smi, root):
+    """Phase 21: (a) two ranks over gloo on card 0 (``_dp_rank``); (b)
+    ``torchrun --nproc_per_node=1`` (one rank, NCCL) through both CLIs with
+    ``--mesh_shape='(1,)' --zero1=True`` at paper width on phase 18's
+    volumes and phase 19's grids in ``root`` (``_dp_cli``): an epoch of 2
+    training steps with evaluation, and one sampling call; then the rank-0
+    checkpoints and a one-device resume of each (this process, no
+    torchrun).  Runs in a process of its own."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch.cli import dispatch
+    from synthanatomy_tpu_torch.parallel.distributed import launch
+
+    t0 = time.perf_counter()
+    launch([sys.executable, "-u", os.path.abspath(__file__), "--dp-rank", root], DP_RANKS,
+           timeout=170)
+    with open(os.path.join(root, "dp.json")) as f:
+        rec = json.load(f)
+    rec["two_ranks_s"] = time.perf_counter() - t0
+
+    # (b) the CLIs under torchrun, one rank over NCCL, ZeRO-1, paper width;
+    # cuDNN's heuristics pick the engines (autotuning is phase 18's)
+    t0 = time.perf_counter()
+    sample_dir = os.path.join(root, "dp_sample")
+    os.makedirs(sample_dir)
+    for name in sorted(os.listdir(os.path.join(root, "prior_sample")))[:BATCH]:
+        os.link(os.path.join(root, "prior_sample", name), os.path.join(sample_dir, name))
+    proj = os.path.join(root, "dp_experiments")
+    common = dict(project_directory=proj, experiment_name="dp", cuda_benchmark=False)
+    vq = dict(CLI_FLAGS, **common, training_subjects=os.path.join(root, "train"),
+              validation_subjects=os.path.join(root, "val"), eval_every=1,
+              use_adversarial_adaptive_weight=True)
+    prior = dict(PRIOR_FLAGS, **common, training_subjects=os.path.join(root, "prior_train"),
+                 validation_subjects=os.path.join(root, "prior_train"), batch_size=TRAIN_BATCH,
+                 eval_batch_size=TRAIN_BATCH, eval_every=1, checkpoint_every=1, num_workers=4)
+    dp = dict(mesh_shape="(1,)", zero1=True)
+    calls = [("run_vqvae", _argv(epochs=1, **vq, **dp)),
+             ("run_transformer", _argv(epochs=1, **prior, **dp)),
+             ("run_transformer", _argv(**dict(prior, mode="inference", training_subjects=sample_dir,
+                                              eval_batch_size=BATCH, top_k=50), **dp))]
+    with open(os.path.join(root, "dp_cli.json"), "w") as f:
+        json.dump(calls, f)
+    rc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node=1", os.path.abspath(__file__), "--dp-cli", root],
+                        cwd=REPO, timeout=160).returncode
+    _require(rc == 0, f"torchrun through the CLIs exited with code {rc}")
+    rec["torchrun_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "dp_cli_launches.json")) as f:
+        launched = json.load(f)
+    for n, rows in zip(launched, (("3", "7", "7 bwd"), ("5", "6"), ("1",))):
+        _require(all(n[r] > 0 for r in rows), f"torchrun launches {launched}")
+    _require(launched[2]["1"] == SEQ, f"torchrun sampling: {launched[2]['1']} row 1 launches")
+    ckpt = {}
+    t0 = time.perf_counter()
+    for network, module, flags in (("baseline_vqvae", "run_vqvae", vq),
+                                   ("performer", "run_transformer", prior)):
+        ckdir = os.path.join(proj, "dp", network, "checkpoints")
+        _require("checkpoint_epoch=1" in os.listdir(ckdir), f"{module}: no rank-0 checkpoint")
+        written = torch.load(os.path.join(ckdir, "checkpoint_epoch=1"), map_location="cpu",
+                             weights_only=True)
+        opt = written["g_opt" if "g_opt" in written else "optimizer"]
+        n_params = len(opt["param_groups"][0]["params"])
+        _require(len(opt["state"]) == n_params, f"{module}: the ZeRO-1 checkpoint holds "
+                                                f"{len(opt['state'])} of {n_params} states")
+        del written, opt
+        # the one-device resume: this process has no torchrun environment
+        mod = importlib.import_module(f"synthanatomy_tpu_torch.{module}")
+        res = dispatch({"run": mod.run}, _argv(epochs=2, **flags))
+        hist = res["history"]
+        _require(len(hist) == 1 and all(np.isfinite(v) for v in hist[0].values()
+                                        if isinstance(v, float)), f"{module} resume {hist}")
+        _require("checkpoint_epoch=2" in os.listdir(ckdir), f"{module}: resume wrote no epoch 2")
+        ckpt[module] = {"resumed_step": int(res["state"].step), "n_params": n_params}
+        _require(ckpt[module]["resumed_step"] == 4, f"{module} resumed to step "
+                                                    f"{ckpt[module]['resumed_step']}")
+        del res
+        torch.cuda.empty_cache()
+    rec["resume_s"] = time.perf_counter() - t0
+    out = os.path.join(proj, "dp", "performer", "outputs")
+    samples = sorted(n for n in os.listdir(out) if n.endswith("_sample.npy"))
+    _require(len(samples) == BATCH, f"torchrun sampling wrote {len(samples)} grids")
+    for n in samples:
+        grid = np.load(os.path.join(out, n))
+        _require(grid.dtype == np.uint16 and grid.shape == GRID and int(grid.max()) < 2048,
+                 f"sampled grid {n}: {grid.dtype} {grid.shape}")
+    rec["torchrun_launches"] = launched
+    print(f"[dp] torchrun --nproc_per_node=1 (NCCL, --mesh_shape='(1,)' --zero1=True), paper "
+          f"width on phase 18's volumes and phase 19's grids: run_vqvae (B3, jukebox + "
+          f"perceptual, D, adaptive weight) and run_transformer (24L/d512, B6) each trained an "
+          f"epoch of 2 steps with evaluation, rank 0 wrote checkpoint_epoch=1 with all "
+          f"{ckpt['run_vqvae']['n_params']} and {ckpt['run_transformer']['n_params']} Adam "
+          f"states gathered, and run_transformer --mode=inference sampled {len(samples)} grids "
+          f"{GRID} at B{BATCH}; launches row 3 {launched[0]['3']}, row 7 {launched[0]['7']} + "
+          f"{launched[0]['7 bwd']}, row 5 {launched[1]['5']}, row 6 {launched[1]['6']}, row 1 "
+          f"{launched[2]['1']}; a one-device process resumed each to epoch 2 (step 4); (a) "
+          f"{rec['two_ranks_s']:.1f} s, (b) torchrun {rec['torchrun_s']:.1f} s, resumes "
+          f"{rec['resume_s']:.1f} s  [{smi}]")
+    return rec
+
+
 # phase number and seconds before its child is killed (phase 20 took 44-62 s on
 # an H100 80GB HBM3 at 700 W; the rest leaves room for 80 + 40 epochs)
-PHASES = {"--cli-phase": (18, 600), "--prior-phase": (19, 600), "--quality-phase": (20, 300)}
+PHASES = {"--cli-phase": (18, 600), "--prior-phase": (19, 600), "--quality-phase": (20, 300),
+          "--dp-phase": (21, 240)}
 
 
 def _run_phase(flag, root):
-    """Runs phase 18, 19 or 20 in a child process (this script with
+    """Runs phase 18, 19, 20 or 21 in a child process (this script with
     ``flag`` and ``root``, the directory the phases share), its output on
     this one's; returns what the child wrote.  The child is killed if it
     outlives its phase's seconds in ``PHASES``."""
@@ -3159,13 +3578,13 @@ def _run_phase(flag, root):
 
 
 def _child_phase(flag, root, result):
-    """The child's side of ``_run_phase``: phase 18, 19 or 20 on card 0,
-    in ``root``; what it returns written to ``result``."""
+    """The child's side of ``_run_phase``: phase 18, 19, 20 or 21 on card
+    0, in ``root``; what it returns written to ``result``."""
     import torch
 
     sys.path.insert(0, REPO)
     check = {"--cli-phase": _check_cli, "--prior-phase": _check_prior_cli,
-             "--quality-phase": _check_quality}[flag]
+             "--quality-phase": _check_quality, "--dp-phase": _check_dp}[flag]
     with open(result, "w") as f:
         json.dump(check(torch.device("cuda", 0), _smi(), root), f)
     return 0
@@ -3222,9 +3641,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as cli_root:
         cli_step_ms = _run_phase("--cli-phase", cli_root)
         prior = _run_phase("--prior-phase", cli_root)
-    # 20. the two-stage quality loop, in a process of its own
-    with tempfile.TemporaryDirectory() as quality_root:
-        _run_phase("--quality-phase", quality_root)
+        # 20. the two-stage quality loop, in a process of its own
+        with tempfile.TemporaryDirectory() as quality_root:
+            _run_phase("--quality-phase", quality_root)
+        # 21. data parallelism: two ranks on the card over gloo, then the
+        # CLIs under torchrun on phase 18's and 19's data, in a process of
+        # its own
+        _run_phase("--dp-phase", cli_root)
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),
@@ -3638,4 +4061,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] and sys.argv[1] in PHASES:
         sys.exit(_child_phase(*sys.argv[1:4]))
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(_dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-cli"]:
+        sys.exit(_dp_cli(sys.argv[2]))
     sys.exit(main())

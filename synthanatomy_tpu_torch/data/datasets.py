@@ -324,7 +324,10 @@ class PrefetchLoader:
 
     shard_id/num_shards split the subject list like DistributedSampler
     (vqvae.py:406-408): training drops the non-divisible tail (even
-    batches per shard), eval pads by wrapping.
+    batches per shard); otherwise the subjects are dealt round-robin,
+    each once (a shard may hold one fewer).  JAX's loader pads that case
+    by wrapping, which scores a subject twice; the port's evaluation
+    weights each rank by its real samples instead.
     """
 
     def __init__(
@@ -363,9 +366,7 @@ class PrefetchLoader:
                 per = n // self.num_shards
                 idx = idx[self.shard_id * per : (self.shard_id + 1) * per]
             else:
-                per = -(-n // self.num_shards)
-                padded = np.resize(idx, per * self.num_shards)
-                idx = padded[self.shard_id :: self.num_shards]
+                idx = idx[self.shard_id :: self.num_shards]
         return idx.tolist()
 
     def __len__(self):

@@ -11,7 +11,11 @@ flax's momentum 0.9 and biased variance, where PyTorch's ``BatchNorm3d``
 would use the unbiased one.  ``stat_groups=2`` (with
 ``use_split_bn``) normalises each half of the batch by its own
 statistics and updates the running ones half by half, as two forwards
-would.
+would.  With a ``process_group`` (data parallelism) each group's moments
+are those of the global batch, as GSPMD gives JAX: the f32 per-group
+sums, sums of squares and counts are summed over the ranks (an
+all-reduce that autograd differentiates), so every rank normalises alike
+and keeps the same running statistics.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from synthanatomy_tpu_torch.models.vqvae import TorchConv3d
+from synthanatomy_tpu_torch.parallel.distributed import all_reduce_sum
 
 __all__ = ["BaselineDiscriminator", "SplitBatchNorm"]
 
@@ -51,7 +56,7 @@ class SplitBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
 
-    def forward(self, x, *, training: bool, groups: int = 1):
+    def forward(self, x, *, training: bool, groups: int = 1, process_group=None):
         shp = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
         if not training:
@@ -63,8 +68,16 @@ class SplitBatchNorm(nn.Module):
             raise ValueError(f"batch {b} does not split into {groups} groups")
         xg = xf.reshape(groups, b // groups, *x.shape[1:])
         axes = (1,) + tuple(range(3, xg.dim()))  # batch + spatial of each group
-        mean = xg.mean(axes)  # (groups, C)
-        var = torch.square(xg).mean(axes) - torch.square(mean)
+        if process_group is None:
+            mean = xg.mean(axes)  # (groups, C)
+            var = torch.square(xg).mean(axes) - torch.square(mean)
+        else:  # the global batch's moments, group by group
+            c = x.shape[1]
+            n = torch.full((groups, 1), float(xg[0, :, 0].numel()), device=x.device)
+            sums = all_reduce_sum(torch.cat([xg.sum(axes), torch.square(xg).sum(axes), n], 1),
+                                  process_group)
+            mean = sums[:, :c] / sums[:, 2 * c:]
+            var = sums[:, c:2 * c] / sums[:, 2 * c:] - torch.square(mean)
         if not self.split:  # flax clips the fast variance at zero
             var = var.clamp_min(0.0)
         inv = torch.rsqrt(var + self.epsilon)
@@ -110,16 +123,19 @@ class BaselineDiscriminator(nn.Module):
                         mod.scale.copy_(1.0 + 0.02 * torch.randn(mod.scale.shape,
                                                                   generator=generator))
 
-    def forward(self, x, *, training: bool = False, stat_groups: int = 1):
+    def forward(self, x, *, training: bool = False, stat_groups: int = 1,
+                process_group=None):
         """``stat_groups > 1`` (needs ``use_split_bn``) computes train-mode
-        statistics per batch group: the one-pass fake + real variant."""
+        statistics per batch group: the one-pass fake + real variant.
+        ``process_group``: train-mode statistics over every rank's batch."""
         if stat_groups > 1 and not self.use_split_bn:
             raise ValueError("stat_groups>1 requires use_split_bn=True")
         groups = stat_groups if training else 1
         h = F.leaky_relu(self.conv_0(x), 0.2)
         for n in range(1, self.n_layers + 1):
             h = getattr(self, f"conv_{n}")(h)
-            h = F.leaky_relu(getattr(self, f"norm_{n}")(h, training=training, groups=groups), 0.2)
+            h = F.leaky_relu(getattr(self, f"norm_{n}")(h, training=training, groups=groups,
+                                                         process_group=process_group), 0.2)
         h = self.conv_out(h)
         if 0 in h.shape:
             raise ValueError(f"discriminator patch map is empty ({tuple(h.shape)}): input "

@@ -19,9 +19,12 @@ fused-engine sampler ``sample_fused``, the reference-shaped
   the draw outside it.
 - ``sample_naive`` re-runs the full forward over the prefix each step.
 
-The multi-device ``make_dp_sampler`` waits for the multi-GPU slice.
-Random draws come from an explicit ``torch.Generator`` and do not
-reproduce JAX's streams: parity is checked with greedy decoding.
+``make_dp_sampler`` is the data-parallel sampler: each rank samples its
+share of the global batch through ``make_sampler`` (the fused step
+wherever it covers the prior) with its rank folded into the generator,
+and rank 0 gathers the grids in rank order.  Random draws come from an
+explicit ``torch.Generator`` and do not reproduce JAX's streams: parity
+is checked with greedy decoding.
 """
 
 from __future__ import annotations
@@ -44,6 +47,12 @@ from synthanatomy_tpu_torch.ops.fused_decode import (
     supports_fused_decode,
     update_rings,
 )
+from synthanatomy_tpu_torch.parallel.distributed import (
+    default_group,
+    fold_in,
+    gather_to_rank0,
+    group_info,
+)
 
 __all__ = [
     "top_k_logits",
@@ -55,6 +64,7 @@ __all__ = [
     "sample_fused",
     "sample_naive",
     "make_sampler",
+    "make_dp_sampler",
 ]
 
 
@@ -409,4 +419,46 @@ def make_sampler(
         )
 
     sampler.fused = use_fused
+    return sampler
+
+
+def make_dp_sampler(
+    model,
+    ordering: Ordering,
+    *,
+    global_batch: int,
+    process_group=None,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    do_sample: bool = True,
+    bos_token: Optional[int] = None,
+    with_conditionings: bool = False,
+    fused="auto",
+    ring_quant: bool = False,
+    weight_quant: str = "int8",
+):
+    """Data-parallel sampler (JAX's ``make_dp_sampler``):
+    ``sampler(generator=None[, conditionings])`` on every rank of
+    ``process_group`` (default: all).  Each rank runs :func:`make_sampler`
+    at ``global_batch // world`` on its rows of the global batch (its
+    slice of ``conditionings``, which hold the global batch's values)
+    with ``fold_in(generator, rank)``; the grids are gathered to rank 0
+    in rank order.  Returns the (global_batch, *grid) int32 grid on rank
+    0 and None on the other ranks."""
+    group = default_group() if process_group is None else process_group
+    rank, world = group_info(group)
+    if global_batch % world:
+        raise ValueError(f"global_batch {global_batch} must divide over {world} ranks")
+    local = global_batch // world
+    inner = make_sampler(model, ordering, batch=local, temperature=temperature, top_k=top_k,
+                         do_sample=do_sample, bos_token=bos_token,
+                         with_conditionings=with_conditionings, fused=fused,
+                         ring_quant=ring_quant, weight_quant=weight_quant)
+
+    def sampler(generator=None, conditionings=None):
+        if conditionings is not None:
+            conditionings = [c[rank * local:(rank + 1) * local] for c in conditionings]
+        return gather_to_rank0(inner(fold_in(generator, rank), conditionings), group)
+
+    sampler.fused = inner.fused
     return sampler

@@ -40,13 +40,15 @@ class VectorQuantizerEMA(nn.Module):
         self.ema = vq_ops.init_vq_state(num_embeddings, embedding_dim, embedding_init,
                                         generator=generator, device=device)
 
-    def forward(self, x: torch.Tensor, *, training: bool = False
+    def forward(self, x: torch.Tensor, *, training: bool = False, process_group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (quantized_st, commitment_loss); with ``training`` the
-        EMA state is updated in place."""
+        EMA state is updated in place, from the statistics of every rank
+        of ``process_group`` when one is given (JAX's ``axis_name``)."""
         q, loss, _, _ = vq_ops.quantize_ema(
             self.ema, x, decay=self.decay, commitment_cost=self.commitment_cost,
-            training=training, eps=self.epsilon, plain=self.use_pallas is False)
+            training=training, eps=self.epsilon, plain=self.use_pallas is False,
+            process_group=process_group)
         return q, loss
 
     def quantize(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -267,15 +267,18 @@ class BaselineVQVAE(nn.Module):
         return [self.encoder_out_conv(x)]
 
     def quantize(self, encodings: List[torch.Tensor], *, decay=0.5, commitment_cost=0.25,
-                 training: bool = False):
+                 training: bool = False, process_group=None):
         """→ ``([quantized (B, C, d, h, w)], [commitment loss], [indices
-        (B, d, h, w)])``; updates the EMA codebook when ``training``."""
+        (B, d, h, w)])``; updates the EMA codebook when ``training``, from
+        the statistics of every rank of ``process_group`` (JAX's
+        ``axis_name``), which the perplexity also covers."""
         z = encodings[0].permute(0, 2, 3, 4, 1)  # the VQ works channels-last
         q, loss, idx, _ = vq_ops.quantize_ema(self.vq, z, decay=decay,
                                               commitment_cost=commitment_cost,
                                               training=training,
-                                              plain=self.use_pallas_vq is False)
-        self.diagnostics["perplexity"] = vq_ops.perplexity(idx, self.n_embed)
+                                              plain=self.use_pallas_vq is False,
+                                              process_group=process_group)
+        self.diagnostics["perplexity"] = vq_ops.perplexity(idx, self.n_embed, process_group)
         return [q.permute(0, 4, 1, 2, 3).to(self.dtype)], [loss], [idx]
 
     def decode(self, quantizations: List[torch.Tensor], *, deterministic: bool = True,
@@ -311,10 +314,12 @@ class BaselineVQVAE(nn.Module):
         return self.decode([codes.permute(0, 4, 1, 2, 3).to(self.dtype)])
 
     def forward(self, images, *, decay=0.5, commitment_cost=0.25, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, List[torch.Tensor]]:
+                generator: Optional[torch.Generator] = None,
+                process_group=None) -> Dict[str, List[torch.Tensor]]:
         enc = self.encode(images, deterministic=not training, generator=generator)
         q, losses, _ = self.quantize(enc, decay=decay, commitment_cost=commitment_cost,
-                                     training=training)
+                                     training=training,
+                                     process_group=process_group if training else None)
         recon = self.decode(q, deterministic=not training, generator=generator)
         return {"reconstruction": [recon], "quantization_losses": losses}
 

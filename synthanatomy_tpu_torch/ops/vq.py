@@ -14,7 +14,10 @@ indices from the current codebook, EMA counts and Σx reduced over the
 whole batch before the update, Laplace smoothing, commitment loss and
 the straight-through estimator, as in JAX.  Where JAX returns a new
 ``VQState``, the port updates the state's buffers in place under
-``no_grad`` and returns the same object.
+``no_grad`` and returns the same object.  Its ``process_group`` is JAX's
+``axis_name``: the counts and Σx are summed over the ranks (f32
+all-reduce) before the update, on either statistics route, so every
+rank ends the step with the same codebook; the search stays local.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from synthanatomy_tpu_torch._build import SMEM_PER_BLOCK, load_library
@@ -78,10 +82,15 @@ def embed_indices(state: VQState, indices: torch.Tensor) -> torch.Tensor:
     return state.codebook[indices.long()]
 
 
-def perplexity(indices: torch.Tensor, num_embeddings: int) -> torch.Tensor:
-    """exp(entropy) of the empirical codeword usage."""
+def perplexity(indices: torch.Tensor, num_embeddings: int, process_group=None) -> torch.Tensor:
+    """exp(entropy) of the empirical codeword usage (over every rank's
+    indices with a ``process_group``)."""
     counts = torch.bincount(indices.reshape(-1).long(), minlength=num_embeddings).float()
-    probs = counts / indices.numel()
+    if process_group is None:
+        probs = counts / indices.numel()
+    else:
+        dist.all_reduce(counts, group=process_group)
+        probs = counts / counts.sum()
     return torch.exp(-torch.sum(probs * torch.log(probs + 1e-10)))
 
 
@@ -207,10 +216,11 @@ nearest_codeword_stats.launches = 0
 
 
 def quantize_ema(state: VQState, x: torch.Tensor, *, decay, commitment_cost, training: bool,
-                 eps: float = 1e-5, plain: bool = False):
+                 eps: float = 1e-5, plain: bool = False, process_group=None):
     """Quantize x (..., D) with straight-through gradients; when
     ``training``, update the EMA state in place (counts and Σx of the
-    whole batch first, then the update).  ``plain`` takes the plain
+    whole batch first, summed over ``process_group``'s ranks when one is
+    given, then the update).  ``plain`` takes the plain
     nearest-codeword search on any device (JAX's ``use_pallas=False``).  Returns ``(quantized_st (x's
     dtype), commitment_loss (f32), indices (x.shape[:-1], int32),
     state)``; the quantized values come from the codebook before the
@@ -233,6 +243,11 @@ def quantize_ema(state: VQState, x: torch.Tensor, *, decay, commitment_cost, tra
         with torch.no_grad():
             if counts is None:
                 counts, dw = _onehot_stats(indices, flat, k)
+            if process_group is not None:
+                # reduce before the update: the global batch's statistics
+                stats = torch.cat([counts[:, None], dw], dim=1)
+                dist.all_reduce(stats, group=process_group)
+                counts, dw = stats[:, 0], stats[:, 1:]
             cluster = state.cluster_size * decay + counts * (1.0 - decay)
             avg = state.embed_avg * decay + dw * (1.0 - decay)
             n_total = cluster.sum()

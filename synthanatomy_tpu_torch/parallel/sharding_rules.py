@@ -1,0 +1,54 @@
+"""ZeRO-1: the Adam moments sharded over the data ranks.
+
+Port of the ZeRO-1 half of ``synthanatomy_tpu/parallel/sharding_rules.py``
+(:129-153), where the moments are a placement annotation under GSPMD:
+here ``torch.distributed.optim.ZeroRedundancyOptimizer`` around the
+port's Adam (β 0.9/0.999, eps 1e-8, as ``optax.adam``), which keeps each
+parameter's moments on one rank, updates it there and broadcasts it.  Its
+parameter groups carry Adam's own defaults, so a consolidated state dict
+is a one-device Adam state dict and the reverse.  The tensor-parallel
+specs (:50-126) wait for tensor parallelism (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Optional
+
+import torch
+
+__all__ = ["adam", "full_state_dict", "is_zero1"]
+
+BETAS, EPS = (0.9, 0.999), 1e-8
+
+
+def adam(params: Iterable[torch.nn.Parameter], lr: float, *, zero1: bool = False,
+         process_group=None) -> torch.optim.Optimizer:
+    """Adam over ``params``; with ``zero1`` its state sharded over
+    ``process_group``'s ranks."""
+    params = list(params)
+    opt = torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS)
+    if not zero1:
+        return opt
+    if process_group is None:
+        raise ValueError("ZeRO-1 shards the optimizer over a process group: launch the ranks "
+                         "with torchrun")
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    return ZeroRedundancyOptimizer(params, optimizer_class=torch.optim.Adam,
+                                   process_group=process_group, **opt.defaults)
+
+
+def is_zero1(opt: Any) -> bool:
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    return isinstance(opt, ZeroRedundancyOptimizer)
+
+
+def full_state_dict(opt: torch.optim.Optimizer) -> Optional[Dict[str, Any]]:
+    """The optimizer's whole state dict: a ZeRO-1 optimizer's is gathered
+    to rank 0 (a collective: every rank calls this) and is None
+    elsewhere."""
+    if not is_zero1(opt):
+        return opt.state_dict()
+    opt.consolidate_state_dict(to=0)
+    return opt.state_dict() if opt.rank == 0 else None

@@ -7,7 +7,10 @@ Modes: ``training`` / ``inference``
 (reference src/utils/transformer.py:16-18; dispatch :624-631).
 ``--device`` picks the CUDA device by ordinal; ``--device=cpu`` runs on
 the host (the tests do).  Without a card and without ``--device=cpu``
-the run raises.
+the run raises.  Several cards, one process each:
+``torchrun --nproc_per_node=N -m synthanatomy_tpu_torch.run_transformer run
+--mesh_shape='(N,)' [--zero1=True] ...`` (rank r on ``cuda:LOCAL_RANK``
+over NCCL; with ``--device=cpu`` the ranks run on the CPU over gloo).
 """
 
 from __future__ import annotations
@@ -84,8 +87,8 @@ def run(
     position_emb: str = "absolute",
     spatial_position_emb: Optional[str] = None,
     evaluation_checkpoint: str = "recent",
-    # additions of the JAX package (one device: a wider mesh, zero1,
-    # sp_shards and pp_stages raise in training)
+    # additions of the JAX package (the data mesh: one rank per card under
+    # torchrun; sp_shards, pp_stages and a model axis raise in training)
     mesh_shape: Optional[Tuple[int, ...]] = None,
     compute_dtype: str = "bfloat16",
     attn_compute_dtype: str = "bfloat16",
@@ -101,6 +104,13 @@ def run(
     cfg_kwargs = {
         k: v for k, v in locals().items() if k in TransformerConfig.__dataclass_fields__
     }
+    # torchrun's ranks (the reference's RANK/WORLD_SIZE plumbing,
+    # run_vqvae.py:831-846): the process group first, then the rank
+    from synthanatomy_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from synthanatomy_tpu_torch.parallel.mesh import host_shard_info
+
+    maybe_initialize_distributed(device)
+    cfg_kwargs["rank"], cfg_kwargs["world_size"] = host_shard_info()
     config = TransformerConfig(**cfg_kwargs)
 
     from synthanatomy_tpu_torch.runners import transformer as runner

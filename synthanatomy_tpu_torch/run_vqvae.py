@@ -7,7 +7,10 @@ Modes: ``training`` / ``extracting`` / ``decoding``
 (reference src/utils/vqvae.py:34-37; dispatch run_vqvae.py:848-855).
 ``--device`` picks the CUDA device by ordinal; ``--device=cpu`` runs on
 the host (the tests do).  Without a card and without ``--device=cpu``
-the run raises.
+the run raises.  Several cards, one process each:
+``torchrun --nproc_per_node=N -m synthanatomy_tpu_torch.run_vqvae run
+--mesh_shape='(N,)' [--zero1=True] ...`` (rank r on ``cuda:LOCAL_RANK``
+over NCCL; with ``--device=cpu`` the ranks run on the CPU over gloo).
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ def run(
     load_nii_canonical: bool = True,
     save_2d_images: tuple = ("axial", "saggital", "coronal"),
     save_3d_images: Optional[tuple] = None,
-    # additions of the JAX package (the mesh over one device only)
+    # additions of the JAX package (the data mesh: one rank per card under torchrun)
     mesh_shape: Optional[Tuple[int, ...]] = None,
     compute_dtype: str = "bfloat16",
     use_pallas_vq: bool = True,
@@ -124,6 +127,13 @@ def run(
     cfg_kwargs = {
         k: v for k, v in locals().items() if k in VQVAEConfig.__dataclass_fields__
     }
+    # torchrun's ranks (the reference's RANK/WORLD_SIZE plumbing,
+    # run_vqvae.py:831-846): the process group first, then the rank
+    from synthanatomy_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from synthanatomy_tpu_torch.parallel.mesh import host_shard_info
+
+    maybe_initialize_distributed(device)
+    cfg_kwargs["rank"], cfg_kwargs["world_size"] = host_shard_info()
     # amp=False → f32 compute (the reference's AMP toggle; the 'on'
     # form is the bf16 policy)
     if not amp and compute_dtype == "bfloat16":

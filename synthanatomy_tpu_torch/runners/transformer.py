@@ -9,11 +9,23 @@ reference's checkpoint / eval / logging cadences, and batch sampling
 written as ``*_sample.npy`` uint16 (run_transformer.py:390-398).
 
 One device: ``config.device`` is a CUDA ordinal, or ``"cpu"`` (the
-tests' way to ask for the host).  A mesh over several devices, ZeRO-1,
-sequence and pipeline parallelism are not ported yet (ROADMAP.md §1):
-training raises ``NotImplementedError`` for them; inference ignores
-``--sp_shards``/``--pp_stages`` with a warning, as JAX does, and never
-takes JAX's data-parallel sampler, which needs several devices.  The
+tests' way to ask for the host).  Several devices (JAX :238-242,
+341-360, 749-790): one process per card under torchrun,
+``--mesh_shape=(N,)`` naming its N ranks.  Training runs the DP step
+(``make_transformer_train_step_dp``: gradients, loss and summaries
+averaged over the ranks, dropout from each rank's generator, the
+projection redraw equal on all) on each rank's shard of the latents,
+``--zero1`` sharding Adam's state; rank 0 writes checkpoints and logs,
+and the evaluation weights each rank's CE by its real samples.
+Inference takes the DP sampler (``models/sampling.make_dp_sampler``)
+when the job has several ranks and ``--eval_batch_size`` divides over
+them: each rank samples its rows of every global batch and rank 0
+writes the grids.  When it does not divide, rank 0 samples every batch
+on its own card, as JAX runs the one-device sampler then.  Sequence and
+pipeline parallelism and a model axis are not ported yet (ROADMAP.md
+§1): training raises
+``NotImplementedError`` for them; inference ignores
+``--sp_shards``/``--pp_stages`` with a warning, as JAX does.  The
 attention takes rows 5 and 6's kernels on the card under
 ``--use_pallas_favor_attn`` / ``--use_pallas_local_attn``; sampling
 takes the fused decode step (row 1) wherever it covers the prior.
@@ -25,7 +37,6 @@ the redraw counter travels in the checkpoint.
 
 from __future__ import annotations
 
-import math
 import os
 import time
 from typing import Any, Dict, List
@@ -34,25 +45,32 @@ import numpy as np
 import torch
 
 from synthanatomy_tpu_torch.config import TransformerConfig
+from synthanatomy_tpu_torch.parallel.distributed import (
+    any_rank,
+    barrier,
+    default_group,
+    fold_in,
+    sample_weighted_means,
+)
+from synthanatomy_tpu_torch.parallel.mesh import check_data_mesh
 from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
 from synthanatomy_tpu_torch.utils.general import run_device
 
 __all__ = ["build_ordering", "build_performer", "prepare_batch", "training", "inference"]
 
-_MULTI_GPU = "ROADMAP.md §1, item 1 (Multi-GPU)"
+_NOT_PORTED = {
+    "sp_shards": "ROADMAP.md §1, item 1 (Multi-GPU: sequence parallelism)",
+    "pp_stages": "ROADMAP.md §1, item 1 (Multi-GPU: pipeline parallelism)",
+}
 
 
 def _check_supported(config: TransformerConfig) -> None:
-    if config.mesh_shape is not None and math.prod(config.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"--mesh_shape={config.mesh_shape} spans several devices; the port runs on "
-            f"one device until {_MULTI_GPU}")
-    for flag, value in (("zero1", config.zero1), ("sp_shards", config.sp_shards > 1),
-                        ("pp_stages", config.pp_stages > 1)):
-        if value:
+    for flag, item in _NOT_PORTED.items():
+        if getattr(config, flag) > 1:
             raise NotImplementedError(
                 f"--{flag}={getattr(config, flag)} shards the prior's training over "
-                f"devices; the port runs on one device until {_MULTI_GPU}")
+                f"devices; not ported yet ({item})")
+    check_data_mesh(config.mesh_shape, config.world_size)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -167,7 +185,10 @@ def _make_datasets(config: TransformerConfig, logger):
     return train_ds, val_ds
 
 
-def _loader(config: TransformerConfig, dataset, batch_size: int, train: bool):
+def _loader(config: TransformerConfig, dataset, batch_size: int, train: bool,
+            sharded: bool = True):
+    """This rank's shard of ``dataset`` (equal shards in training, each
+    file once otherwise); ``sharded=False``: all of it."""
     from synthanatomy_tpu_torch.data.datasets import PrefetchLoader
 
     # batches loaded ahead of the step: DataLoader's prefetch_factor is per worker
@@ -175,6 +196,8 @@ def _loader(config: TransformerConfig, dataset, batch_size: int, train: bool):
         dataset, batch_size, shuffle=train, drop_last=train,
         num_workers=config.num_workers, prefetch=config.num_workers * config.prefetch_factor,
         seed=config.seed, collate_keys=("latents",),
+        shard_id=config.rank if sharded else 0,
+        num_shards=config.world_size if sharded else 1,
     )
 
 
@@ -199,6 +222,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     from synthanatomy_tpu_torch.train.transformer_steps import (
         make_transformer_eval_step,
         make_transformer_train_step,
+        make_transformer_train_step_dp,
     )
     from synthanatomy_tpu_torch.utils.general import (
         PreemptionGuard,
@@ -209,6 +233,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
 
     _check_supported(config)
     device = run_device(config)
+    group = default_group()
     logger, dirs, ckpt_path, starting_epoch, seed = basic_initialization(
         config, "transformer-training"
     )
@@ -222,15 +247,24 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     logger.info(f"Latent shape: {latent_shape}")
 
     ordering = build_ordering(config, latent_shape)
+    # the same weights and projections on every rank; dropout from seed + rank
     model = build_performer(config, ordering, latent_shape, device=device,
-                            generator=torch.Generator().manual_seed(seed))
-    state = create_transformer_train_state(model, seed, learning_rate=config.learning_rate)
+                            generator=torch.Generator().manual_seed(config.seed))
+    zero1 = config.zero1 and group is not None
+    state = create_transformer_train_state(model, config.seed, rank=config.rank,
+                                           learning_rate=config.learning_rate, zero1=zero1,
+                                           process_group=group)
     log_network_size(state.model, logger, config.network)
+    if zero1:
+        logger.info(f"ZeRO-1: Adam state sharded over {config.world_size} ranks")
     if ckpt_path:
         state = C.load_checkpoint(ckpt_path, state)
+        if config.world_size > 1:  # the file holds rank 0's dropout generator
+            state.generator.set_state(fold_in(state.generator, config.rank).get_state())
         logger.info(f"Restored checkpoint from {ckpt_path}")
 
-    step_fn = make_transformer_train_step(state.model)
+    step_fn = (make_transformer_train_step(state.model) if group is None
+               else make_transformer_train_step_dp(state.model, group))
     eval_fn = make_transformer_eval_step(state.model)
     tb_train = TBLogger(f"{dirs['logs_directory']}/train", enabled=config.rank == 0)
     tb_val = TBLogger(f"{dirs['logs_directory']}/val_eval", enabled=config.rank == 0)
@@ -241,7 +275,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
 
     history: List[Dict[str, float]] = []
     best_metric = np.inf
-    profiler = StepProfiler()
+    profiler = StepProfiler(rank=config.rank)
     guard = PreemptionGuard(logger)
     global_step = int(state.step)
 
@@ -268,6 +302,8 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
                 f"({time.time() - t0:.1f}s)"
             )
 
+        # a signal may reach the ranks at different steps: all stop, or none
+        guard.should_stop = any_rank(guard.should_stop, group, device)
         if (epoch + 1) % config.checkpoint_every == 0 or guard.should_stop:
             C.save_checkpoint(dirs["checkpoint_directory"], state, epoch + 1)
         if guard.should_stop:
@@ -275,12 +311,16 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
             break
 
         if val_loader and (epoch + 1) % config.eval_every == 0:
-            vlosses = []
+            vlosses, sizes = [], []
             for batch in val_loader.epoch(epoch):
                 inputs, targets, conds = _tensors(batch, ordering, config.vocab_size, device)
                 vlosses.append(eval_fn(state, inputs, targets, conds)[1]["Loss"])
+                sizes.append(inputs.shape[0])
             # one host read per evaluation
-            val_ce = float(torch.stack(vlosses).mean())
+            if group is None:
+                val_ce = float(torch.stack(vlosses).mean())
+            else:  # over the ranks: each batch's CE weighted by its real samples
+                val_ce = sample_weighted_means({"CE": vlosses}, sizes, group, device)["CE"]
             # the eval CE reaches callers through the history
             if history:
                 history[-1]["val_Loss"] = val_ce
@@ -328,36 +368,52 @@ def inference(config: TransformerConfig) -> Dict[str, Any]:
     logger, dirs, ckpt_path, _, seed = basic_initialization(config, "transformer-inference")
     if config.sp_shards > 1 or config.pp_stages > 1:
         logger.warning(
-            "--sp_shards/--pp_stages are training-only flags; inference ignores them"
+            "--sp_shards/--pp_stages are training-only flags; inference ignores them "
+            "(sampling scales out data-parallel)"
         )
+    check_data_mesh(config.mesh_shape, config.world_size)
+    group = default_group()
+    # several ranks: the DP sampler on every global batch when the batch
+    # divides over them, else rank 0 alone (JAX's one-device sampler)
+    dp = config.world_size > 1 and config.eval_batch_size % config.world_size == 0
     train_ds, _ = _make_datasets(config, logger)
-    loader = _loader(config, train_ds, config.eval_batch_size, False)
+    loader = _loader(config, train_ds, config.eval_batch_size, False, sharded=False)
     latent_shape = _latent_shape(train_ds)
     ordering = build_ordering(config, latent_shape)
     model = build_performer(config, ordering, latent_shape, device=device,
-                            generator=torch.Generator().manual_seed(seed))
-    state = create_transformer_train_state(model, seed)
+                            generator=torch.Generator().manual_seed(config.seed))
+    state = create_transformer_train_state(model, config.seed)
     if ckpt_path:
         C.load_checkpoint(ckpt_path, state, models_only=True)
         logger.info(f"Loaded checkpoint {ckpt_path}")
     model.eval()
 
     with_conds = config.conditioning_num_tokens is not None
-    # the reference inferer object (src/inferer/transformer.py:32-71);
-    # "auto" takes the fused decode step wherever it covers the prior
-    sampler = TransformerInferenceInferer(
-        model, ordering,
-        batch=config.eval_batch_size,
-        temperature=config.temperature,
-        top_k=config.top_k,
-        sample=config.sample,
-        with_conditionings=with_conds,
-        ring_quant=config.use_int8_rings,
-    )
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+    if dp:
+        from synthanatomy_tpu_torch.models.sampling import make_dp_sampler
+
+        sampler = make_dp_sampler(
+            model, ordering, global_batch=config.eval_batch_size, process_group=group,
+            temperature=config.temperature, top_k=config.top_k, do_sample=config.sample,
+            with_conditionings=with_conds, ring_quant=config.use_int8_rings,
+        )
+        logger.info(f"DP sampler over {config.world_size} ranks")
+    else:
+        # the reference inferer object (src/inferer/transformer.py:32-71);
+        # "auto" takes the fused decode step wherever it covers the prior
+        sampler = TransformerInferenceInferer(
+            model, ordering,
+            batch=config.eval_batch_size,
+            temperature=config.temperature,
+            top_k=config.top_k,
+            sample=config.sample,
+            with_conditionings=with_conds,
+            ring_quant=config.use_int8_rings,
+        )
 
     written: List[str] = []
-    generator = torch.Generator(device=device).manual_seed(config.seed)
-    for batch in loader.epoch(0):
+    for batch in loader.epoch(0) if dp or config.rank == 0 else ():
         n_real = batch["latents"].shape[0]
         conds = None
         if with_conds:
@@ -366,11 +422,15 @@ def inference(config: TransformerConfig) -> Dict[str, Any]:
             reps = config.eval_batch_size - n_real
             conds = [torch.as_tensor(np.concatenate([c, np.repeat(c[-1:], reps, axis=0)]),
                                      device=device) for c in batch["conditionings"]]
-        grids = sampler(generator, conds).cpu().numpy().astype(np.uint16)
+        grids = sampler(generator, conds)
+        if grids is None:  # a DP rank other than 0: rank 0 writes the batch
+            continue
+        grids = grids.cpu().numpy().astype(np.uint16)
         for b, src in enumerate(batch["paths"][:n_real]):
             base = os.path.basename(src).replace(".npy", "")
             out = f"{dirs['outputs_directory']}/{base}_sample.npy"
             np.save(out, grids[b])
             written.append(out)
+    barrier(group)  # every rank's files are written when any rank returns
     logger.info(f"Wrote {len(written)} samples to {dirs['outputs_directory']}")
     return {"written": written, "dirs": dirs}

@@ -17,8 +17,19 @@ reference's checkpoint / eval / logging cadences and output contracts:
 
 One device: ``config.device`` is a CUDA ordinal, or ``"cpu"`` (the
 tests' way to ask for the host).  Volumes go to the models as NCDHW.
-The mesh, its sharding and ZeRO-1 over several devices are not ported
-yet (ROADMAP.md §1): they raise ``NotImplementedError``.  With
+Several devices (JAX :221-245, 277, 380-410, 470-480, 629-790): one
+process per card under torchrun, ``--mesh_shape=(N,)`` naming its N
+ranks (``parallel/mesh.check_data_mesh``).  Every rank builds the same
+networks from ``--seed``, loads its shard of the subject list
+(``--batch_size`` samples a step, the training tail dropped) and runs the
+DP step (``train/vqvae_steps.py``: EMA statistics, D's batch-norm
+moments, the adaptive weight's gradients, G's and D's gradients and the
+metrics reduced over the ranks); ``--zero1`` shards both Adam states.
+Rank 0 writes checkpoints, logs and TensorBoard.  Evaluation scores
+each rank's subjects once and weights the metrics by the real samples
+over all ranks (JAX's padded tail would count a volume twice);
+extraction and decoding deal the files out over the ranks, each output
+under its one-device name.  With
 ``--device_augmentation`` the training loader ships the drawn
 parameters and ``ops/augment.augment_batch`` applies them on the
 device before each step (JAX's resampler rule: the 3-pass form below a
@@ -30,7 +41,6 @@ kernel on the card unless ``--use_pallas_vq=False``.
 
 from __future__ import annotations
 
-import math
 import os
 import time
 from typing import Any, Dict, List
@@ -39,17 +49,20 @@ import numpy as np
 import torch
 
 from synthanatomy_tpu_torch.config import VQVAEConfig
+from synthanatomy_tpu_torch.parallel.distributed import (
+    any_rank,
+    barrier,
+    default_group,
+    fold_in,
+    sample_weighted_means,
+)
+from synthanatomy_tpu_torch.parallel.mesh import check_data_mesh
 from synthanatomy_tpu_torch.train.vqvae_steps import create_vqvae_train_state
 from synthanatomy_tpu_torch.utils.general import run_device
 
-_MULTI_GPU = "ROADMAP.md §1, item 1 (Multi-GPU)"
-
 
 def _check_supported(config: VQVAEConfig) -> None:
-    if config.mesh_shape is not None and math.prod(config.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"--mesh_shape={config.mesh_shape} (and --zero1 over it) spans several devices; "
-            f"the port runs on one device until {_MULTI_GPU}")
+    check_data_mesh(config.mesh_shape, config.world_size)
 
 
 def _dtype(config: VQVAEConfig) -> torch.dtype:
@@ -108,7 +121,8 @@ def _build_discriminator(config: VQVAEConfig, *, device, generator=None):
 
 def _make_loaders(config: VQVAEConfig, mode: str):
     """The train loader (and the val and train_eval loaders with
-    ``--validation_subjects``) on one device: no sharding."""
+    ``--validation_subjects``) over this rank's shard of the subjects:
+    equal shards in training, every subject once otherwise."""
     from synthanatomy_tpu_torch.data.datasets import (
         PrefetchLoader,
         VolumeDataset,
@@ -141,27 +155,24 @@ def _make_loaders(config: VQVAEConfig, mode: str):
 
     # batches loaded ahead of the step: DataLoader's prefetch_factor is per worker
     ahead = config.num_workers * config.prefetch_factor
+    shard = dict(num_workers=config.num_workers, prefetch=ahead, seed=config.seed,
+                 shard_id=config.rank, num_shards=config.world_size)
     augment_train = mode == "training" or config.no_augmented_extractions > 0
     train_ds = dataset(config.training_subjects, augment_train, config.patch_size)
     loaders = {
         "train": PrefetchLoader(
             train_ds, config.batch_size, shuffle=mode == "training",
-            drop_last=mode == "training", num_workers=config.num_workers,
-            prefetch=ahead, seed=config.seed,
+            drop_last=mode == "training", **shard,
         )
     }
     if config.validation_subjects:
         val_ds = dataset(config.validation_subjects, False, config.eval_patch_size)
         loaders["val"] = PrefetchLoader(
-            val_ds, config.eval_batch_size, shuffle=False, drop_last=False,
-            num_workers=config.num_workers, prefetch=ahead,
-            seed=config.seed,
+            val_ds, config.eval_batch_size, shuffle=False, drop_last=False, **shard,
         )
         train_eval_ds = dataset(config.training_subjects, False, config.eval_patch_size)
         loaders["train_eval"] = PrefetchLoader(
-            train_eval_ds, config.eval_batch_size, shuffle=False, drop_last=False,
-            num_workers=config.num_workers, prefetch=ahead,
-            seed=config.seed,
+            train_eval_ds, config.eval_batch_size, shuffle=False, drop_last=False, **shard,
         )
     return loaders
 
@@ -268,10 +279,11 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
 
     _check_supported(config)
     device = run_device(config)
+    group = default_group()
     logger, dirs, ckpt_path, starting_epoch, seed = basic_initialization(
         config, "vqvae-training"
     )
-    profiler = StepProfiler()
+    profiler = StepProfiler(rank=config.rank)
     guard = PreemptionGuard(logger)
     loaders = _make_loaders(config, "training")
     epoch_length = config.training_epoch_length or len(loaders["train"])
@@ -281,21 +293,29 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
     input_shape = loaders["train"].dataset.get(0)["MRI"].shape[:3]
     logger.info(f"Input shape: {input_shape}")
 
-    init = torch.Generator().manual_seed(seed)
+    # the same weights on every rank; the step's draws from seed + rank
+    init = torch.Generator().manual_seed(config.seed)
     model = build_vqvae(config, device=device, generator=init)
     d_model = (_build_discriminator(config, device=device, generator=init)
                if config.adversarial_component else None)
+    zero1 = config.zero1 and group is not None
     state = create_vqvae_train_state(
         model, seed,
         learning_rate=config.learning_rate,
         d_model=d_model,
         d_learning_rate=config.discriminator_learning_rate,
         device=device,
+        zero1=zero1,
+        process_group=group,
     )
     log_network_size(state.model, logger, config.network)
+    if zero1:
+        logger.info(f"ZeRO-1: Adam states sharded over {config.world_size} ranks")
 
     if ckpt_path:
         state = C.load_checkpoint(ckpt_path, state)
+        if config.world_size > 1:  # the file holds rank 0's generator
+            state.generator.set_state(fold_in(state.generator, config.rank).get_state())
         logger.info(f"Restored checkpoint from {ckpt_path}")
 
     lpips_params = resolve_lpips_params(config, logger, device)
@@ -327,6 +347,7 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
             adaptive_value=config.adaptive_adversarial_weight_value,
             train_generator=train_generator,
             d_grouped_stats=config.grouped_stat_bn,
+            process_group=group,
         )
 
     g_frozen = config.finetune_adversarial_component is not None
@@ -371,10 +392,12 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
         # metric scalars stay on the device inside the loop; one sync
         # per metric at the end
         vals = {"MAE": [], "MSE": [], "MS-SSIM": []}
+        sizes = []
         last = None
         with torch.no_grad(), state.model.unfused():
             for batch in loader.epoch(epoch):
                 x = _volumes(batch, device)
+                sizes.append(x.shape[0])
                 recon, _ = eval_step(state, x, sched, lpips_params)
                 recon = recon.float()
                 vals["MAE"].append(mae(recon, x))
@@ -384,7 +407,11 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
                 last = (batch["MRI"][0], recon[0, 0])
         if last is not None:
             last = (last[0], last[1].cpu().numpy())
-        return {k: float(torch.stack(vs).mean()) for k, vs in vals.items() if vs}, last
+        if group is None:
+            return {k: float(torch.stack(vs).mean()) for k, vs in vals.items() if vs}, last
+        # over the ranks: each batch's means weighted by its real samples
+        keys = ["MAE", "MSE"] + (["MS-SSIM"] if ms_ssim_win is not None else [])
+        return sample_weighted_means({k: vals[k] for k in keys}, sizes, group, device), last
 
     for epoch in range(max(starting_epoch, 0), config.epochs):
         sched = _scheduled(config, epoch, epoch_length)
@@ -430,6 +457,8 @@ def training(config: VQVAEConfig) -> Dict[str, Any]:
             )
         history.append(epoch_metrics)
 
+        # a signal may reach the ranks at different steps: all stop, or none
+        guard.should_stop = any_rank(guard.should_stop, group, device)
         if (epoch + 1) % config.checkpoint_every == 0 or guard.should_stop:
             C.save_checkpoint(dirs["checkpoint_directory"], state, epoch + 1)
         if guard.should_stop:
@@ -509,7 +538,7 @@ def inference(config: VQVAEConfig) -> Dict[str, Any]:
     device = run_device(config)
     logger, dirs, ckpt_path, _, seed = basic_initialization(config, f"vqvae-{config.mode}")
 
-    init = torch.Generator().manual_seed(seed)
+    init = torch.Generator().manual_seed(config.seed)
     model = build_vqvae(config, device=device, generator=init)
     # The reference's inference engine also loads the discriminator when
     # adversarial training was on, scores the reconstruction/sample as
@@ -575,6 +604,7 @@ def inference(config: VQVAEConfig) -> Dict[str, Any]:
             loader = PrefetchLoader(
                 LatentDataset(subjects), config.batch_size, shuffle=False, drop_last=False,
                 num_workers=config.num_workers, collate_keys=("latents",),
+                shard_id=config.rank, num_shards=config.world_size,
             )
             # patient-space orientation for decoded samples: latent .npy
             # files carry no affine (the reference also writes identity
@@ -607,5 +637,6 @@ def inference(config: VQVAEConfig) -> Dict[str, Any]:
         else:
             raise ValueError(f"inference() got mode {config.mode!r}")
 
+    barrier(default_group())  # every rank's files are written when any rank returns
     logger.info(f"Wrote {len(written)} outputs to {dirs['outputs_directory']}")
     return {"written": written, "dirs": dirs}

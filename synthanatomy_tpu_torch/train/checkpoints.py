@@ -26,6 +26,13 @@ prior's (``train/transformer_steps.TransformerTrainState``) holds the
 Performer (its FAVOR projection buffers included), its Adam state, the
 step, the dropout and redraw generators and the steps since the last
 redraw, so a resumed run redraws on the uninterrupted run's schedule.
+
+Data parallelism: every rank calls the savers; rank 0 writes (after
+gathering a ZeRO-1 optimizer's shards to itself, a collective) and a
+barrier follows, so every rank may read the file next.  The file is the
+one-device file whatever the job's ranks or ZeRO-1: it holds rank 0's
+generator, and it loads into one device or into a DP or ZeRO-1 state
+(each rank keeps its shard of the optimizer's state).
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from synthanatomy_tpu_torch.parallel.distributed import barrier, default_group, group_info
+from synthanatomy_tpu_torch.parallel.sharding_rules import full_state_dict
 
 __all__ = [
     "create_folder_structure",
@@ -162,7 +172,7 @@ def _state_dict(state: Any) -> Dict[str, Any]:
         return {
             "step": int(state.step),
             "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "optimizer": full_state_dict(state.optimizer),
             "generator": state.generator.get_state(),
             "redraw_generator": state.redraw_generator.get_state(),
             "steps_since_redraw": int(state.steps_since_redraw),
@@ -172,20 +182,36 @@ def _state_dict(state: Any) -> Dict[str, Any]:
     return {
         "step": int(state.step),
         "model": state.model.state_dict(),
-        "g_opt": state.g_opt.state_dict(),
+        "g_opt": full_state_dict(state.g_opt),
         "d_model": d_model.state_dict() if d_model is not None else None,
-        "d_opt": d_opt.state_dict() if d_opt is not None else None,
+        "d_opt": full_state_dict(d_opt) if d_opt is not None else None,
         "generator": state.generator.get_state(),
     }
 
 
-def _write(path: str, state: Any) -> str:
+def _on_rank0(write) -> None:
+    """``write()`` on rank 0 only, then a barrier (no-op on one device)."""
+    group = default_group()
+    if group_info(group)[0] == 0:
+        write()
+    barrier(group)
+
+
+def _write(path: str, state: Any, then=None) -> str:
     """``torch.save`` to a private name, then rename: a run stopped
-    mid-write leaves no half checkpoint under the discovered name."""
-    tmp = f"{path}.tmp"
-    torch.save(_state_dict(state), tmp)
-    _remove(path)
-    os.replace(tmp, path)
+    mid-write leaves no half checkpoint under the discovered name.  Rank
+    0 writes (and runs ``then``), the others wait for it."""
+    sd = _state_dict(state)  # every rank: ZeRO-1 gathers to rank 0
+
+    def write():
+        tmp = f"{path}.tmp"
+        torch.save(sd, tmp)
+        _remove(path)
+        os.replace(tmp, path)
+        if then is not None:
+            then()
+
+    _on_rank0(write)
     return path
 
 
@@ -199,9 +225,8 @@ def _remove(path: str) -> None:
 def save_checkpoint(checkpoint_directory: str, state: Any, epoch: int) -> str:
     """Write ``checkpoint_epoch={epoch}``, pruning older epoch
     checkpoints to n_saved=1 (run_vqvae.py:346-352)."""
-    path = _write(os.path.join(checkpoint_directory, f"checkpoint_epoch={epoch}"), state)
-    prune_old_checkpoints(checkpoint_directory, keep_epoch=epoch)
-    return path
+    return _write(os.path.join(checkpoint_directory, f"checkpoint_epoch={epoch}"), state,
+                  lambda: prune_old_checkpoints(checkpoint_directory, keep_epoch=epoch))
 
 
 def prune_old_checkpoints(checkpoint_directory: str, keep_epoch: int) -> None:
@@ -215,9 +240,12 @@ def save_best_checkpoint(
 ) -> str:
     """Best-key-metric saver (run_vqvae.py:354-361): keeps exactly one
     ``checkpoint_key_metric={value}`` checkpoint."""
-    for name in os.listdir(checkpoint_directory):
-        if _BEST_RE.match(name):
-            _remove(os.path.join(checkpoint_directory, name))
+    def remove_best():
+        for name in os.listdir(checkpoint_directory):
+            if _BEST_RE.match(name):
+                _remove(os.path.join(checkpoint_directory, name))
+
+    _on_rank0(remove_best)
     return _write(
         os.path.join(checkpoint_directory, f"checkpoint_key_metric={metric_value:.4f}"),
         state,

@@ -21,6 +21,19 @@ the generator that dropout and the slice drop of the perceptual losses
 draw from.  The adaptive weight's head re-runs the loss with the
 generator rewound, so it drops the same slices as the main loss, as
 JAX's head reuses the same key.
+
+Data parallelism (``process_group``; JAX's step over a data mesh): each
+rank runs the step on its own batch, and the step equals the one-device
+step on the ranks' batches concatenated in rank order.  The EMA
+statistics and D's batch-norm moments are summed over the ranks in the
+forward; the adaptive weight's two last-layer gradients are averaged
+before their norms; G's and D's gradients are averaged in f32 after each
+backward (one all-reduce of the flattened gradients per optimizer, which
+also holds where DDP's reducer would not: two optimizers, gradients by
+``torch.autograd.grad``, D frozen in G's pass); the metrics are averaged
+as JAX's ``pmean``.  Each rank's ``generator`` is its own (the runner
+seeds it with the rank), and ``create_vqvae_train_state(zero1=True)``
+shards both Adam states (``parallel/sharding_rules.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ from synthanatomy_tpu_torch.losses import vqvae as vqvae_losses
 from synthanatomy_tpu_torch.losses.adversarial import discriminator_loss, generator_loss
 from synthanatomy_tpu_torch.models.discriminator import BaselineDiscriminator
 from synthanatomy_tpu_torch.models.vqvae import BaselineVQVAE
+from synthanatomy_tpu_torch.parallel import distributed as D
+from synthanatomy_tpu_torch.parallel.sharding_rules import adam
 
 __all__ = [
     "VQVAETrainState",
@@ -48,31 +63,29 @@ __all__ = [
 class VQVAETrainState:
     step: int
     model: BaselineVQVAE
-    g_opt: torch.optim.Adam
+    g_opt: torch.optim.Optimizer  # Adam, or Adam behind ZeRO-1
     generator: torch.Generator  # dropout and slice-drop draws (on the model's device)
     d_model: Optional[BaselineDiscriminator] = None
-    d_opt: Optional[torch.optim.Adam] = None
-
-
-def _adam(params, lr):
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    d_opt: Optional[torch.optim.Optimizer] = None
 
 
 def create_vqvae_train_state(model: BaselineVQVAE, seed: int = 0, *,
                              learning_rate: float = 3e-4,
                              d_model: Optional[BaselineDiscriminator] = None,
                              d_learning_rate: float = 5e-4,
-                             device="cuda") -> VQVAETrainState:
+                             device="cuda", zero1: bool = False,
+                             process_group=None) -> VQVAETrainState:
     """Moves the models to ``device``; Adam over G's parameters (the
-    codebook is buffers, updated by EMA) and over D's; a generator seeded
-    from ``seed``."""
+    codebook is buffers, updated by EMA) and over D's, each sharded over
+    ``process_group`` with ``zero1``; a generator seeded from ``seed``."""
     model.to(device)
     d_opt = None
+    kw = dict(zero1=zero1, process_group=process_group)
     if d_model is not None:
         d_model.to(device)
-        d_opt = _adam(d_model.parameters(), d_learning_rate)
+        d_opt = adam(d_model.parameters(), d_learning_rate, **kw)
     return VQVAETrainState(
-        step=0, model=model, g_opt=_adam(model.parameters(), learning_rate),
+        step=0, model=model, g_opt=adam(model.parameters(), learning_rate, **kw),
         generator=torch.Generator(device=device).manual_seed(seed),
         d_model=d_model, d_opt=d_opt)
 
@@ -121,10 +134,14 @@ def make_vqvae_train_step(
     adaptive_value: float = 1.0,
     train_generator: bool = True,
     d_grouped_stats: bool = False,
+    process_group=None,
 ) -> Callable:
     """step(state, batch, sched, lpips_params=None) → (state, metrics).
     ``batch`` is (B, 1, D, H, W) in [0, 1]; ``sched`` holds 'lr', 'd_lr',
-    'decay', 'commitment_cost', 'gdl_factor' and 'epoch'."""
+    'decay', 'commitment_cost', 'gdl_factor' and 'epoch'.  With a
+    ``process_group`` it is this rank's part of the global batch (see
+    the module docstring)."""
+    group = process_group
     loss_fn = vqvae_losses.get_vqvae_loss(loss_name)
     adversarial = d_model is not None
 
@@ -137,7 +154,7 @@ def make_vqvae_train_step(
 
         with _frozen(d_model):
             out = model(x, decay=sched["decay"], commitment_cost=sched["commitment_cost"],
-                        training=True, generator=gen)
+                        training=True, generator=gen, process_group=group)
             loss_rng_state = gen.get_state()
             recon_loss, summaries = loss_fn(
                 out, x, **_loss_kwargs(loss_name, sched, lpips_params, gen))
@@ -163,6 +180,7 @@ def make_vqvae_train_step(
                                         criterion=generator_criterion, weight=adversarial_weight)
                 (g_r_last,) = torch.autograd.grad(r_l, last.weight, retain_graph=True)
                 (g_g_last,) = torch.autograd.grad(g_l, last.weight)
+                D.average_((g_r_last, g_g_last), group)  # the global batch's, before the norms
                 w = torch.clamp(torch.linalg.norm(g_r_last.reshape(-1))
                                 / (torch.linalg.norm(g_g_last.reshape(-1)) + 1e-4), 0.0, 1e4)
                 if sched["epoch"] < adaptive_threshold:
@@ -174,6 +192,7 @@ def make_vqvae_train_step(
             if train_generator:
                 state.g_opt.zero_grad(set_to_none=True)
                 (recon_loss + w * gen_loss if adversarial else recon_loss).backward()
+                D.average_gradients(model.parameters(), group)
                 _set_lr(state.g_opt, sched["lr"])
                 state.g_opt.step()
             else:
@@ -187,24 +206,26 @@ def make_vqvae_train_step(
         if adversarial:
             fake = recon.detach().float()
             if d_grouped_stats:
-                logits = d_model(torch.cat([fake, x.float()]), training=True, stat_groups=2)
+                logits = d_model(torch.cat([fake, x.float()]), training=True, stat_groups=2,
+                                 process_group=group)
                 logits_fake, logits_real = logits.chunk(2)
             else:
-                logits_fake = d_model(fake, training=True)
-                logits_real = d_model(x.float(), training=True)
+                logits_fake = d_model(fake, training=True, process_group=group)
+                logits_real = d_model(x.float(), training=True, process_group=group)
             dl, dsum = discriminator_loss(logits_fake, logits_real,
                                           criterion=discriminator_criterion,
                                           weight=adversarial_weight)
             d_loss = dl * w
             state.d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
+            D.average_gradients(d_model.parameters(), group)
             _set_lr(state.d_opt, sched["d_lr"])
             state.d_opt.step()
             metrics.update({k: v.detach() for k, v in dsum.items()})
             metrics["Loss-Discriminator-Total"] = d_loss.detach()
             metrics["Loss-Generator-Total"] = (recon_loss + gen_loss * w).detach()
         state.step += 1
-        return state, metrics
+        return state, D.average_metrics(metrics, group)
 
     return step
 

@@ -112,17 +112,26 @@ def basic_initialization(config, logger_name: str):
 
 
 def run_device(config) -> torch.device:
-    """A run's device from ``config.device``: ``"cpu"``, or a CUDA ordinal.
-    Raises without a card unless the CPU was asked for.  On the card,
-    ``--cuda_benchmark`` and ``--deterministic`` set cuDNN's flags, as the
-    reference does."""
+    """A run's device from ``config.device``: ``"cpu"``, or a CUDA ordinal;
+    under torchrun (``parallel.distributed.launched``) a card run takes
+    ``cuda:LOCAL_RANK`` instead, which must exist.  Raises without a card
+    unless the CPU was asked for.  On the card, ``--cuda_benchmark`` and
+    ``--deterministic`` set cuDNN's flags, as the reference does."""
+    from synthanatomy_tpu_torch.parallel.distributed import launched, local_rank
+
     if str(config.device) == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device=cpu to run on the CPU")
+    index = int(config.device)
+    if launched():
+        index = local_rank()
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"LOCAL_RANK {index} has no card: this host has "
+                               f"{torch.cuda.device_count()}")
     torch.backends.cudnn.benchmark = bool(config.cuda_benchmark)
     torch.backends.cudnn.deterministic = bool(config.deterministic)
-    return torch.device(f"cuda:{int(config.device)}")
+    return torch.device(f"cuda:{index}")
 
 
 def _qcut_labels(values, q: int):

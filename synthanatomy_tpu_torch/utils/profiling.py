@@ -48,10 +48,13 @@ class StepProfiler:
     ...     with prof.step(step):
     ...         train_step(...)
     >>> prof.close()                       # writes <profile_dir>/trace.json
+
+    In a data-parallel job only ``rank`` 0 traces (one trace.json).
     """
 
-    def __init__(self, profile_dir: Optional[str] = None, num_steps: Optional[int] = None):
-        self.dir = profile_dir or os.environ.get("SYNTHANATOMY_PROFILE_DIR")
+    def __init__(self, profile_dir: Optional[str] = None, num_steps: Optional[int] = None,
+                 *, rank: int = 0):
+        self.dir = None if rank else profile_dir or os.environ.get("SYNTHANATOMY_PROFILE_DIR")
         self.num_steps = num_steps or int(
             os.environ.get("SYNTHANATOMY_PROFILE_STEPS", "5")
         )

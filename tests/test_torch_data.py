@@ -182,23 +182,43 @@ def test_load_conditionings_matches_jax(tmp_path, ext):
 @pytest.mark.parametrize("shards", [(0, 1), (0, 2), (1, 2), (2, 3)])
 @pytest.mark.parametrize("train", [True, False])
 def test_loader_order_and_sharding_match_jax(tmp_path, shards, train):
+    """Training shards (drop_last) and one shard equal JAX's loader.  An
+    evaluation shard differs on purpose: the port deals the subjects
+    round-robin, each once, where JAX pads by wrapping; its samples are
+    JAX's one-shard samples r, r + n, ..."""
     d = _tree(tmp_path, 7)
     kw = dict(augment=train, augmentation_probability=0.5)
 
-    def batches(mod_ds, mod_tf):
+    def batches(mod_ds, mod_tf, shard):
         subjects = mod_ds.discover_subjects(str(d))
         ds = mod_ds.VolumeDataset(subjects, mod_tf.VQVAETransform(**kw), seed=3, use_native=False)
         loader = mod_ds.PrefetchLoader(ds, 2, shuffle=train, drop_last=train, num_workers=2,
-                                       prefetch=2, shard_id=shards[0], num_shards=shards[1],
+                                       prefetch=2, shard_id=shard[0], num_shards=shard[1],
                                        seed=3)
         return len(loader), [b for e in (0, 1) for b in loader.epoch(e)]
 
-    (tn, tb), (jn, jb) = batches(tds, ttf), batches(jds, jtf)
-    assert tn == jn and len(tb) == len(jb)
-    for t, j in zip(tb, jb):
-        assert t["paths"] == j["paths"] and t["traces"] == j["traces"]
-        np.testing.assert_array_equal(t["MRI"], j["MRI"])
-        np.testing.assert_array_equal(np.stack(t["affines"]), np.stack(j["affines"]))
+    def samples(bs):
+        return [(p, t, m, a) for b in bs
+                for p, t, m, a in zip(b["paths"], b["traces"], b["MRI"], b["affines"])]
+
+    dealt = not train and shards[1] > 1
+    (tn, tb), (jn, jb) = batches(tds, ttf, shards), batches(jds, jtf, (0, 1) if dealt else shards)
+    if dealt:
+        r, n = shards
+        per_epoch = samples(jb[:jn])
+        want = per_epoch[r::n] * 2
+        assert tn == -(-len(per_epoch[r::n]) // 2) and len(tb) == 2 * tn
+    else:
+        assert tn == jn and len(tb) == len(jb)
+        for t, j in zip(tb, jb):
+            assert t["paths"] == j["paths"]
+        want = samples(jb)
+    got = samples(tb)
+    assert len(got) == len(want)
+    for (tp, tt, tm, ta), (jp, jt, jm, ja) in zip(got, want):
+        assert tp == jp and tt == jt
+        np.testing.assert_array_equal(tm, jm)
+        np.testing.assert_array_equal(ta, ja)
 
 
 class _CountingDataset:

@@ -306,13 +306,20 @@ def test_resume_continues_the_uninterrupted_run(runs, monkeypatch):
     assert "checkpoint_epoch=2" in os.listdir(second["dirs"]["checkpoint_directory"])
 
 
-@pytest.mark.parametrize("flags", [dict(mesh_shape=(2,)), dict(mesh_shape=(2, 2)),
-                                   dict(zero1=True), dict(sp_shards=2), dict(pp_stages=2)],
-                         ids=["mesh", "mesh-tp", "zero1", "sp", "pp"])
-def test_unported_options_raise(tmp_path, flags):
+@pytest.mark.parametrize("flags,error,match", [
+    (dict(mesh_shape=(2,)), ValueError, "WORLD_SIZE"),
+    (dict(mesh_shape=(2, 2)), NotImplementedError, "ROADMAP.md"),
+    (dict(zero1=True, mesh_shape=(2,)), ValueError, "WORLD_SIZE"),
+    (dict(sp_shards=2), NotImplementedError, "ROADMAP.md"),
+    (dict(pp_stages=2), NotImplementedError, "ROADMAP.md"),
+], ids=["mesh", "mesh-tp", "zero1", "sp", "pp"])
+def test_unported_options_raise(tmp_path, flags, error, match):
+    """Sequence, pipeline and tensor parallelism raise, naming their
+    ROADMAP item; a data mesh wider than the job's ranks (one process
+    here) raises before any work.  The DP runs: test_torch_run_dp.py."""
     from synthanatomy_tpu_torch.run_transformer import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         run(training_subjects=str(tmp_path), project_directory=str(tmp_path),
             **dict(TFLAGS, **flags))
 

@@ -247,9 +247,11 @@ def test_decoding_matches_jax(runs):
                          ids=["flags1", "flags2"])
 @pytest.mark.parametrize("mode", ["training", "extracting"])
 def test_unported_options_raise(tmp_path, flags, mode):
+    """A data mesh wider than the job's ranks (one process here) raises
+    before any work; the DP runs themselves are in test_torch_run_dp.py."""
     from synthanatomy_tpu_torch.run_vqvae import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         run(training_subjects=str(tmp_path), project_directory=str(tmp_path),
             **dict(TFLAGS, mode=mode, **flags))
 
