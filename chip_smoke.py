@@ -168,13 +168,14 @@ result, without them.  Phases, each fatal on failure:
    for the local forward, SDPA with the banded mask;
 17. ``tools/validate_fused_decode`` at its defaults with int8 and with
    int4 weights: a 6L/d256 prior (window 64, m 128) trained 400 steps
-   through rows 5 and 6 on structured latents, then greedy agreement of
+   through rows 5 and 6 on structured latents (once: both formats read
+   the same trained prior), then greedy agreement of
    the fused step with the exact path (bf16 and int8 rings), the
    teacher-forced logit perturbation, KL and total variation, with the
    fused kernel step held against its plain version at these widths;
 18. (run right after phase 2, in a process of its own: a user's fresh
-   process, so the engines cuDNN autotunes under the CLI's flags never
-   reach the later phases, nor theirs it) the port's stage-1 CLI
+   process, with ``--cuda_benchmark=False``, cuDNN's heuristic engines,
+   as phase 11 and 21 take them) the port's stage-1 CLI
    (``synthanatomy_tpu_torch.run_vqvae``) at paper width from NIfTI
    files: 6 training and 3 validation smooth int16 phantoms of
    160x224x160 written by ``save_nifti``; the loader alone (volumes/s,
@@ -243,8 +244,8 @@ result, without them.  Phases, each fatal on failure:
    sharing card 0 (NCCL refuses two ranks on one card; ``--dp-rank``,
    started by ``parallel.distributed.launch``), each held on rank 0
    against one process on the concatenated batch: the prior's DP step
-   (paper prior, f32, B6 a rank; loss within 1e-5 relative, gradients
-   1e-4 in norm; rows 5 and 6), the stage-1 DP step (paper VQ-VAE bf16
+   (paper widths at 6 of 24 layers, f32, B6 a rank; loss within 1e-5
+   relative, gradients 1e-4 in norm; rows 5 and 6), the stage-1 DP step (paper VQ-VAE bf16
    with D, the jukebox loss, the adaptive weight and the runner's device
    augmentation, B3 a rank, the later rank's volumes at 0.25x intensity;
    the reconstruction loss within 1e-5 relative, D's loss 5e-3, the
@@ -253,14 +254,34 @@ result, without them.  Phases, each fatal on failure:
    row 4 with ``FUSED_EMA_STATS``: the same indices), parameters,
    gradients and EMA
    state bit-identical over the ranks, and ``make_dp_sampler`` at global
-   B16 (row 1; at least 99% of the codes equal to each rank's B8 run with
+   B16 (6 of 24 layers; row 1; at least 99% of the codes equal to each rank's B8 run with
    its folded generator), with each DP step's and call's time beside one
    process's; (b) ``torchrun --nproc_per_node=1`` (NCCL) through both
    CLIs with ``--mesh_shape='(1,)' --zero1=True`` at paper width on
-   phase 18's volumes and phase 19's grids: an epoch of 2 training steps
-   with evaluation each (rows 3 and 7, then 5 and 6), rank 0's checkpoint
-   with every Adam state, a one-device resume of it to epoch 2, and one
-   sampling call of 16 grids (1400 row 1 launches).
+   phase 18's volumes and phase 19's grids (the depth cut: the prior at 2
+   of its 24 layers, the VQ-VAE at 1 of its 3 residual layers a level):
+   an epoch of 2 training steps with evaluation each (rows 3 and 7, then
+   5 and 6), rank 0's checkpoint with every Adam state, a one-device
+   resume of it to epoch 2, and one sampling call of 16 grids (1400 row 1
+   launches).
+22. (in a process of its own) sequence and tensor parallelism: (a) two
+   ranks over gloo sharing card 0 (``--sptp-rank``), each held on rank 0
+   against one process on the same B6 batch, the paper prior in f32 with
+   ReZero gains 0.1: the SP step (seq_len 1400 padded to 1680, 840 tokens a
+   rank; the plain attention, as JAX's SP step; loss within 1e-5 relative,
+   gradients 1e-4 in norm against one process on the plain paths, the
+   ranks' summed gradients bit-identical) and the TP step at (1, 2) (4
+   FAVOR and 4 local heads a rank through rows 5 and 6; the gradients
+   gathered and unpacked, at the same bounds against one process with the
+   same kernels; each rank's row 5 and row 6 launches, all > 0), each
+   step's time beside one process's; (b) ``run_transformer`` at paper
+   width on phase 19's grids over two gloo ranks on card 0 that set up the
+   group before the CLI's ``run()`` (the same rank processes, after (a)):
+   an epoch of 2 steps
+   under ``--sp_shards=2`` (no row 5 or 6 launch) and one under
+   ``--mesh_shape='(1,2)'`` (rows 5 and 6 on both ranks), rank 0's
+   canonical checkpoints with every Adam state, and a one-device resume of
+   the TP checkpoint to epoch 2.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -279,6 +300,15 @@ import time
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+_T_START = time.perf_counter()
+# the kernel libraries phases 18-22 launch (the rest are built while they run)
+PHASE_LIBS = ("fused_decode", "favor_attention", "local_attention", "vq_argmin", "res_stack")
+
+
+def _mark(what):
+    """Prints the seconds since the script started, after ``what``: the
+    smoke's time by part, against its limit of 1200 s."""
+    print(f"[clock] {time.perf_counter() - _T_START:.1f} s: {what}", flush=True)
 GRID = (10, 14, 10)
 SEQ = 1400
 BATCH = 16
@@ -709,7 +739,7 @@ def _plain_kernels():
         yield
 
 
-def _train_prior(dev, dtype):
+def _train_prior(dev, dtype, depth=24):
     """The paper prior for training, both kernels on, compute and
     attention in ``dtype``.  The ReZero gains are set to 0.1: non-zero
     (at zero every block weight has a zero gradient), and small enough
@@ -725,7 +755,7 @@ def _train_prior(dev, dtype):
 
     ordering = Ordering("raster_scan", 3, GRID)
     model = Performer(
-        num_tokens=2049, max_seq_len=SEQ + 1, dim=512, depth=24, heads=16, dim_head=64,
+        num_tokens=2049, max_seq_len=SEQ + 1, dim=512, depth=depth, heads=16, dim_head=64,
         local_attn_heads=8, local_window_size=420, use_rezero=True,
         spatial_position_emb="absolute", spatial_shape=GRID, ordering=ordering,
         use_pallas_local=True, use_pallas_favor=True, attn_compute_dtype=dtype,
@@ -2286,21 +2316,28 @@ def _check_validation(dev, smi):
     from synthanatomy_tpu_torch.ops import local_attention_flash as lf
     from synthanatomy_tpu_torch.tools import validate_fused_decode
 
+    fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+    t0 = time.perf_counter()
+    args = validate_fused_decode.parse_args([])
+    trained = validate_fused_decode.train_prior(args, dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n_train = (fa.favor_attention_fused.launches, lf.local_attention_flash.launches)
+    _require(min(n_train) > 0, f"validate_fused_decode's training launches: favor "
+                               f"{n_train[0]}, local {n_train[1]}")
     for wq in ("int8", "int4"):
         fd.fused_decode_step.launches = 0
-        fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
         t0 = time.perf_counter()
-        rec = validate_fused_decode.main(["--weight-quant", wq])
+        rec = validate_fused_decode.validate(trained, wq, args, dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n = (fd.fused_decode_step.launches, fa.favor_attention_fused.launches,
-             lf.local_attention_flash.launches)
-        _require(min(n) > 0, f"validate_fused_decode ({wq}) launches: fused step {n[0]}, "
-                             f"favor {n[1]}, local {n[2]}")
+        n = fd.fused_decode_step.launches
+        _require(n > 0, f"validate_fused_decode ({wq}) launched no fused step")
         _require(rec["trained_ce"] < 2.0, f"validation prior did not train: CE "
                                           f"{rec['trained_ce']}")
-        print(f"[validate] {wq} weights: {json.dumps(rec)}; launches: fused step {n[0]}, favor "
-              f"{n[1]}, local {n[2]}; {dt:.1f} s  [{smi}]")
+        print(f"[validate] {wq} weights: {json.dumps(rec)}; launches: fused step {n}, training "
+              f"favor {n_train[0]}, local {n_train[1]}; training {train_s:.1f} s, this "
+              f"validation {dt:.1f} s  [{smi}]")
 
 
 # phase 18: the stage-1 CLI at paper width (README's stage-1 flags)
@@ -2310,6 +2347,9 @@ CLI_FLAGS = dict(
     downsample_parameters=((4, 2, 1, 1),) * 4, upsample_parameters=((4, 2, 1, 0, 1),) * 4,
     batch_size=3, eval_batch_size=3, training_epoch_length=2, checkpoint_every=1, eval_every=2,
     experiment_name="smoke", num_workers=8, prefetch_factor=4,
+    # cuDNN's heuristic engines: autotuning every new shape (the CLI's
+    # default) took ~90 s of the first call, which the smoke cannot spare
+    cuda_benchmark=False,
 )
 CLI_TRAIN, CLI_VAL = 6, 3
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -2486,8 +2526,8 @@ def _check_cli(dev, smi, tmp):
           f"host included; to step 4's host end {win['host_ms'] / 2:.1f}), device busy "
           f"{100 * win['busy_ms'] / win['ms']:.1f}% ({win['busy_ms'] / 2:.1f} ms a step); "
           f"the first call "
-          f"(4 steps, eval, 2 checkpoints; cuDNN autotunes each new shape under "
-          f"--cuda_benchmark, the CLI's default) took {train_s:.1f} s  [{smi}]")
+          f"(4 steps, eval, 2 checkpoints; --cuda_benchmark=False, cuDNN's heuristic "
+          f"engines) took {train_s:.1f} s  [{smi}]")
     top = sorted(win["by_kernel"].items(), key=lambda kv: -kv[1])
     for name, ms in top[:10]:
         print(f"[cli]   {ms / 2:9.2f} ms a step  {name[:90]}")
@@ -3159,6 +3199,13 @@ def _check_quality(dev, smi, tmp):
 # two B3 ranks and rank 0's B6 reference step (20.91 GiB) fit the card.
 DP_RANKS = 2
 DP_SAMPLE_BATCH = BATCH  # the global batch of the DP sampler
+# 21(b)'s networks at paper widths, their depth cut to keep the smoke inside
+# its time (the full depths train in phases 18, 19 and 22): the prior at 2
+# of its 24 layers, the VQ-VAE at 1 of its 3 residual layers a level
+DP_CLI_LAYERS, DP_CLI_RES_LAYERS = 2, 1
+# 21(a)'s prior DP step and DP sampler: paper widths at 6 of the 24 layers
+# (the ranks' agreement with one process does not depend on the depth)
+DP_CHECK_LAYERS = 6
 # the stage-1 DP step against one process: losses and the adaptive weight
 # (relative), the share of codes flipped, G's and D's gradients and the EMA
 # state on unflipped codes (norm-relative)
@@ -3226,7 +3273,7 @@ def _dp_rank(root):
 
     # (a1) the prior's DP step: f32 (the kernels' f32 instantiations: only
     # summation order differs from one process), B6 a rank
-    model, ordering = _train_prior(dev, torch.float32)
+    model, ordering = _train_prior(dev, torch.float32, depth=DP_CHECK_LAYERS)
     b = TRAIN_BATCH
     mine = slice(rank * b, (rank + 1) * b)
     latents = np.random.default_rng(21).integers(0, 2048, size=(world * b,) + GRID)
@@ -3262,7 +3309,8 @@ def _dp_rank(root):
                  f"prior DP step vs one process: loss {loss_dp} vs {loss1}, gradients {rel}")
         rec["prior_one_ms"] = _time_ms(lambda: one(one_state, inputs, targets, None, sched), 2)
         rec["prior"] = {"loss_rel": abs(loss_dp - loss1) / abs(loss1), "grad_rel": rel}
-        say(f"[dp] prior DP step, paper prior f32, B{b} a rank x {world} ranks: loss "
+        say(f"[dp] prior DP step, paper widths at {DP_CHECK_LAYERS} of 24 layers, f32, B{b} a "
+            f"rank x {world} ranks: loss "
             f"{loss_dp:.7f} vs one process on the B{world * b} batch {loss1:.7f} (tol 1e-5 "
             f"relative), gradients norm-relative {rel:.3e} (tol 1e-4; largest per tensor "
             f"{wrel:.3e} at {wname}); parameters bit-identical over the ranks; launches a "
@@ -3373,7 +3421,8 @@ def _dp_rank(root):
 
     # (a3) the DP sampler at global B16 (row 1): each rank B8 with its
     # rank folded into the generator, gathered on rank 0
-    performer, ordering = _performer(True, seed=0, device=dev, **PAPER)
+    performer, ordering = _performer(True, seed=0, device=dev,
+                                     **dict(PAPER, depth=DP_CHECK_LAYERS))
     local = DP_SAMPLE_BATCH // world
     sampler = make_dp_sampler(performer, ordering, global_batch=DP_SAMPLE_BATCH,
                               process_group=group, ring_quant=True, top_k=50)
@@ -3394,7 +3443,8 @@ def _dp_rank(root):
         _require(tuple(grids.shape) == (DP_SAMPLE_BATCH,) + GRID and agree >= 0.99,
                  f"DP sampler grids {tuple(grids.shape)}, agreement {agree} with one process")
         rec["sampler_agree"] = agree
-        say(f"[dp] DP sampler, paper prior, global B{DP_SAMPLE_BATCH} (B{local} a rank, int8 "
+        say(f"[dp] DP sampler, paper widths at {DP_CHECK_LAYERS} of 24 layers, global "
+            f"B{DP_SAMPLE_BATCH} (B{local} a rank, int8 "
             f"weights and rings, top-k 50): grids {tuple(grids.shape)} gathered on rank 0, "
             f"{agree:.4f} of the codes equal to one process running each rank's B{local} with "
             f"its folded generator (tol 0.99); {rec['launches']['1']} row 1 launches a rank; "
@@ -3470,7 +3520,7 @@ def _check_dp(dev, smi, root):
     rec["two_ranks_s"] = time.perf_counter() - t0
 
     # (b) the CLIs under torchrun, one rank over NCCL, ZeRO-1, paper width;
-    # cuDNN's heuristics pick the engines (autotuning is phase 18's)
+    # cuDNN's heuristics pick the engines, as in phase 18
     t0 = time.perf_counter()
     sample_dir = os.path.join(root, "dp_sample")
     os.makedirs(sample_dir)
@@ -3478,12 +3528,16 @@ def _check_dp(dev, smi, root):
         os.link(os.path.join(root, "prior_sample", name), os.path.join(sample_dir, name))
     proj = os.path.join(root, "dp_experiments")
     common = dict(project_directory=proj, experiment_name="dp", cuda_benchmark=False)
+    # checkpoint_every past the epochs: each call writes its epoch checkpoint
+    # once, at its end (the periodic save would write the same file again)
     vq = dict(CLI_FLAGS, **common, training_subjects=os.path.join(root, "train"),
               validation_subjects=os.path.join(root, "val"), eval_every=1,
-              use_adversarial_adaptive_weight=True)
+              use_adversarial_adaptive_weight=True, checkpoint_every=100,
+              no_res_layers=DP_CLI_RES_LAYERS)
     prior = dict(PRIOR_FLAGS, **common, training_subjects=os.path.join(root, "prior_train"),
                  validation_subjects=os.path.join(root, "prior_train"), batch_size=TRAIN_BATCH,
-                 eval_batch_size=TRAIN_BATCH, eval_every=1, checkpoint_every=1, num_workers=4)
+                 eval_batch_size=TRAIN_BATCH, eval_every=1, checkpoint_every=100, num_workers=4,
+                 n_layers=DP_CLI_LAYERS)
     dp = dict(mesh_shape="(1,)", zero1=True)
     calls = [("run_vqvae", _argv(epochs=1, **vq, **dp)),
              ("run_transformer", _argv(epochs=1, **prior, **dp)),
@@ -3537,7 +3591,9 @@ def _check_dp(dev, smi, root):
     rec["torchrun_launches"] = launched
     print(f"[dp] torchrun --nproc_per_node=1 (NCCL, --mesh_shape='(1,)' --zero1=True), paper "
           f"width on phase 18's volumes and phase 19's grids: run_vqvae (B3, jukebox + "
-          f"perceptual, D, adaptive weight) and run_transformer (24L/d512, B6) each trained an "
+          f"perceptual, D, adaptive weight, {DP_CLI_RES_LAYERS} residual layer a level) and "
+          f"run_transformer ({DP_CLI_LAYERS}L/d512, B6) each "
+          f"trained an "
           f"epoch of 2 steps with evaluation, rank 0 wrote checkpoint_epoch=1 with all "
           f"{ckpt['run_vqvae']['n_params']} and {ckpt['run_transformer']['n_params']} Adam "
           f"states gathered, and run_transformer --mode=inference sampled {len(samples)} grids "
@@ -3549,14 +3605,296 @@ def _check_dp(dev, smi, root):
     return rec
 
 
+# phase 22: sequence and tensor parallelism.  Two ranks share card 0 over
+# gloo, as in phase 21, with the prior at paper width in f32 (ReZero gains
+# 0.1, B6): the SP step at seq_len 1400 (l_pad 1680, 840 tokens a rank) and
+# the TP step at (1, 2) with rows 5 and 6 on (4 FAVOR and 4 local heads a
+# rank), each against one process; then run_transformer under both layouts.
+SPTP_RANKS = 2
+SPTP_LOSS, SPTP_GRAD = 1e-5, 1e-4  # relative loss, gradients in norm
+
+
+def _sptp_rank(root):
+    """One rank of phase 22 (``chip_smoke.py --sptp-rank ROOT``, started by
+    ``parallel.distributed.launch``; gloo, both ranks on card 0): (a) the
+    prior's SP step and TP step at paper width, each held on rank 0 against
+    one process on the same batch (SP: the plain attention it runs, as
+    JAX's SP step does; TP: rows 5 and 6, as the TP step), rank 0 writing
+    its record to ``ROOT/sptp.json``; then (b) ``_sptp_cli``, the CLI calls
+    in the same group."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+    from synthanatomy_tpu_torch.parallel import distributed as D
+    from synthanatomy_tpu_torch.parallel import tensor_parallel as TP
+    from synthanatomy_tpu_torch.parallel.mesh import build_groups, rank_layout
+    from synthanatomy_tpu_torch.parallel.sequence_parallel import (
+        make_sp_train_step,
+        sp_padded_length,
+    )
+    from synthanatomy_tpu_torch.runners.transformer import prepare_batch
+    from synthanatomy_tpu_torch.train.transformer_steps import (
+        create_transformer_train_state,
+        make_transformer_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.maybe_initialize_distributed(backend="gloo")
+    group = D.default_group()
+    rank, world = D.group_info(group)
+    dev = torch.device("cuda", 0)
+    note = f"{world} ranks sharing one card, gloo; {_smi()}"
+    rec = {}
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    def wall_ms(fn, reps):
+        """ms per call of ``fn`` on every rank at once (barriers around)."""
+        torch.cuda.synchronize()
+        D.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        D.barrier(group)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def one_process(kernels):
+        """Rank 0's one-process step from the initial weights: loss,
+        gradients, ms a step (the attention through rows 5 and 6, or
+        through the plain paths)."""
+        model.load_state_dict(init)
+        for blk in model.blocks:
+            blk.attn.use_pallas_local = blk.attn.use_pallas_favor = kernels
+        state = create_transformer_train_state(model, seed=0)
+        step = make_transformer_train_step(model)
+        _, m = step(state, inputs, targets, None, sched)
+        grads = _grads(model)
+        ms = _time_ms(lambda: step(state, inputs, targets, None, sched), 1)
+        for blk in model.blocks:
+            blk.attn.use_pallas_local = blk.attn.use_pallas_favor = True
+        model.load_state_dict(init)
+        return float(m["Loss"]), grads, ms
+
+    def held(label, loss, grads, ref):
+        loss1, g1, one_ms = ref
+        rel, (wname, wrel) = _rel(grads, g1), _worst(grads, g1)
+        loss_rel = abs(loss - loss1) / abs(loss1)
+        _require(loss_rel <= SPTP_LOSS and rel <= SPTP_GRAD,
+                 f"{label} vs one process: loss {loss} vs {loss1}, gradients {rel}")
+        return {"loss_rel": loss_rel, "grad_rel": rel, "worst": [wname, wrel],
+                "one_ms": one_ms}
+
+    model, ordering = _train_prior(dev, torch.float32)
+    b = TRAIN_BATCH
+    latents = np.random.default_rng(22).integers(0, 2048, size=(b,) + GRID)
+    inputs, targets = (torch.as_tensor(x, device=dev)
+                       for x in prepare_batch(latents, ordering, 2048))
+    sched = {"lr": 1e-4}
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    # (a1) the SP step: the sequence over both ranks, the plain attention
+    sp = build_groups(rank_layout(None, world, rank, sp_shards=world))
+    l_pad = sp_padded_length(model, SEQ, world)
+    state = create_transformer_train_state(model, seed=0)
+    step = make_sp_train_step(model, sp.inner_group, SEQ, data_group=sp.data_group)
+    _, m = step(state, inputs, targets, None, sched)
+    g_sp, loss_sp = _grads(model), float(m["Loss"])
+    # every rank holds the same summed gradients: each tensor's sum and norm
+    prints = torch.stack([torch.stack([g.sum(), torch.linalg.norm(g)]) for g in g_sp.values()])
+    _require(D.ranks_agree([prints], group), "SP: the ranks' summed gradients differ")
+    rec["sp_ms"] = wall_ms(lambda: step(state, inputs, targets, None, sched), 1)
+    del state, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        rec["sp"] = held("SP step", loss_sp, g_sp, one_process(kernels=False))
+        say(f"[sp] SP step, paper prior f32 (ReZero gains 0.1), B{b}, seq_len {SEQ} padded to "
+            f"{l_pad}, {l_pad // world} tokens a rank over {world} ranks (FAVOR+ prefix state "
+            f"and local halo across the ranks; the plain attention, as JAX's SP step): loss "
+            f"{loss_sp:.7f}, {rec['sp']['loss_rel']:.3e} relative to one process on the "
+            f"whole sequence (tol {SPTP_LOSS:g}), gradients norm-relative "
+            f"{rec['sp']['grad_rel']:.3e} (tol {SPTP_GRAD:g}; largest per tensor "
+            f"{rec['sp']['worst'][1]:.3e} at {rec['sp']['worst'][0]}); the ranks' summed "
+            f"gradients alike (each tensor's sum and norm); {rec['sp_ms']:.1f} ms an SP step "
+            f"against "
+            f"{rec['sp']['one_ms']:.1f} ms for one process (plain attention)  [{note}]")
+    del g_sp
+    D.barrier(group)
+
+    # (a2) the TP step at (1, world): each rank's heads through rows 5 and 6
+    tp = build_groups(rank_layout((1, world), world, rank))
+    model.load_state_dict(init)
+    state = create_transformer_train_state(model, seed=0)
+    tp_state = TP.shard_tp_state(model, state, tp.inner_group)
+    step = TP.make_tp_train_step(model, tp.inner_group, use_pallas_local=True,
+                                 use_pallas_favor=True)
+    attn = tp_state.model.blocks[0].attn
+    heads = (attn.heads - attn.local_heads, attn.local_heads)
+    fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+    tp_state, m = step(tp_state, inputs, targets, None, sched)
+    torch.cuda.synchronize()
+    counts = torch.zeros(world, 2)
+    counts[rank] = torch.tensor([float(fa.favor_attention_fused.launches),
+                                 float(lf.local_attention_flash.launches)])
+    torch.distributed.all_reduce(counts, group=group)
+    rec["tp_launches"] = counts.int().tolist()
+    _require(bool((counts > 0).all()), f"TP step launches (row 5, row 6) by rank {counts}")
+    g_tp, loss_tp = TP.gather_tp_grads(model, tp_state, tp.inner_group), float(m["Loss"])
+    rec["tp_ms"] = wall_ms(lambda: step(tp_state, inputs, targets, None, sched), 1)
+    del tp_state, step, state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        rec["tp"] = held("TP step", loss_tp, g_tp, one_process(kernels=True))
+        per_rank = ", ".join(f"rank {r}: row 5 {c[0]}, row 6 {c[1]}"
+                             for r, c in enumerate(rec["tp_launches"]))
+        say(f"[tp] TP step at (1, {world}), paper prior f32 (ReZero gains 0.1), B{b}, "
+            f"{heads[0]} FAVOR + {heads[1]} local heads a rank through rows 5 and 6: loss "
+            f"{loss_tp:.7f}, {rec['tp']['loss_rel']:.3e} relative to one process with the "
+            f"same kernels (tol {SPTP_LOSS:g}), gradients gathered over the ranks and "
+            f"unpacked norm-relative {rec['tp']['grad_rel']:.3e} (tol {SPTP_GRAD:g}; largest "
+            f"per tensor {rec['tp']['worst'][1]:.3e} at {rec['tp']['worst'][0]}); launches a "
+            f"TP step by rank ({per_rank}); {rec['tp_ms']:.1f} ms a TP step against "
+            f"{rec['tp']['one_ms']:.1f} ms for one process  [{note}]")
+        with open(os.path.join(root, "sptp.json"), "w") as f:
+            json.dump(rec, f)
+    del model, init, g_tp, inputs, targets
+    torch.cuda.empty_cache()
+    D.barrier(group)
+    _sptp_cli(root, rank)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _sptp_cli(root, rank):
+    """Phase 22(b) on a rank of ``_sptp_rank``, whose gloo group is set up
+    before the CLI's ``run()`` (both ranks on card 0: NCCL refuses that):
+    the calls of ``ROOT/sptp_cli.json`` through ``cli.dispatch``; each
+    call's history and launches go to ``ROOT/sptp_cli_rank{r}.json``."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    from synthanatomy_tpu_torch.cli import dispatch
+    from synthanatomy_tpu_torch.ops import favor_attention as fa
+    from synthanatomy_tpu_torch.ops import local_attention_flash as lf
+
+    with open(os.path.join(root, "sptp_cli.json")) as f:
+        calls = json.load(f)
+    out = []
+    for module, argv in calls:
+        fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+        mod = importlib.import_module(f"synthanatomy_tpu_torch.{module}")
+        t0 = time.perf_counter()
+        res = dispatch({"run": mod.run}, argv)
+        torch.cuda.synchronize()
+        st = res["state"]  # the canonical state that rank 0 wrote
+        out.append({"history": res["history"], "s": time.perf_counter() - t0,
+                    "launches": [fa.favor_attention_fused.launches,
+                                 lf.local_attention_flash.launches],
+                    "finite": bool(all(np.isfinite(h["Loss"]) for h in res["history"])),
+                    "adam_states": sum("exp_avg" in v for v in st.optimizer.state.values()),
+                    "params": len(list(st.model.parameters())), "step": int(st.step)})
+        del res
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"sptp_cli_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _check_sptp(dev, smi, root):
+    """Phase 22: two ranks over gloo on card 0 (``_sptp_rank``): (a) the SP
+    and TP steps; (b) ``run_transformer`` at paper width on phase 19's
+    grids in ``root`` (``_sptp_cli``): an epoch of 2 steps under
+    ``--sp_shards=2`` and one under ``--mesh_shape='(1,2)'``; then a
+    one-device resume of the TP checkpoint to epoch 2 (this process).
+    Runs in a process of its own."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from synthanatomy_tpu_torch.cli import dispatch
+    from synthanatomy_tpu_torch.parallel.distributed import launch
+
+    # the CLI's calls for (b), in the ranks' process after (a)
+    proj = os.path.join(root, "sptp_experiments")
+    # checkpoint_every past the epochs: each call writes its checkpoint once,
+    # at its end (an epoch's periodic save would write the same file again)
+    prior = dict(PRIOR_FLAGS, project_directory=proj, cuda_benchmark=False,
+                 training_subjects=os.path.join(root, "prior_train"), batch_size=TRAIN_BATCH,
+                 checkpoint_every=100, num_workers=4)
+    calls = [("run_transformer", _argv(epochs=1, experiment_name="sp", sp_shards=SPTP_RANKS,
+                                       **prior)),
+             ("run_transformer", _argv(epochs=1, experiment_name="tp",
+                                       mesh_shape=f"(1,{SPTP_RANKS})", **prior))]
+    with open(os.path.join(root, "sptp_cli.json"), "w") as f:
+        json.dump(calls, f)
+    t0 = time.perf_counter()
+    launch([sys.executable, "-u", os.path.abspath(__file__), "--sptp-rank", root], SPTP_RANKS,
+           timeout=240)
+    with open(os.path.join(root, "sptp.json")) as f:
+        rec = json.load(f)
+    rec["ranks_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(SPTP_RANKS):
+        with open(os.path.join(root, f"sptp_cli_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, runs in enumerate(ranks):
+        for (name, run) in zip(("sp", "tp"), runs):
+            _require(len(run["history"]) == 1 and run["finite"],
+                     f"rank {r} {name} run: {run['history']}")
+        _require(runs[0]["launches"] == [0, 0], f"rank {r}: the SP run launched {runs[0]}")
+        _require(min(runs[1]["launches"]) > 0, f"rank {r}: the TP run launched {runs[1]}")
+    ck = {}
+    for name, run in zip(("sp", "tp"), ranks[0]):
+        ckdir = os.path.join(proj, name, "performer", "checkpoints")
+        _require("checkpoint_epoch=1" in os.listdir(ckdir), f"{name}: no rank-0 checkpoint")
+        _require(run["adam_states"] == run["params"] and run["step"] == 2,
+                 f"{name}: rank 0 wrote {run['adam_states']} of {run['params']} Adam states "
+                 f"at step {run['step']}")
+        ck[name] = run["params"]
+    t0 = time.perf_counter()
+    mod = importlib.import_module("synthanatomy_tpu_torch.run_transformer")
+    res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name="tp", **prior))
+    hist = res["history"]
+    _require(len(hist) == 1 and np.isfinite(hist[0]["Loss"]) and int(res["state"].step) == 4,
+             f"one-device resume of the TP checkpoint: {hist}, step {res['state'].step}")
+    _require("checkpoint_epoch=2" in os.listdir(os.path.join(proj, "tp", "performer",
+                                                             "checkpoints")),
+             "the one-device resume wrote no epoch 2")
+    rec["resume_s"] = time.perf_counter() - t0
+    del res
+    torch.cuda.empty_cache()
+    sp_run, tp_run = ranks[0]
+    print(f"[sptp] run_transformer at paper width (24L/d512, bf16, B{TRAIN_BATCH}) on phase "
+          f"19's grids over {SPTP_RANKS} gloo ranks on card 0: --sp_shards={SPTP_RANKS} "
+          f"trained an epoch of 2 steps (CE {sp_run['history'][0]['Loss']:.4f}, no row 5 or 6 "
+          f"launch: the plain attention, as JAX's SP step), --mesh_shape='(1,{SPTP_RANKS})' "
+          f"one of 2 steps (CE {tp_run['history'][0]['Loss']:.4f}; launches by rank " + ", ".join(
+              f"{r}: row 5 {runs[1]['launches'][0]}, row 6 {runs[1]['launches'][1]}"
+              for r, runs in enumerate(ranks)) + f"); rank 0 wrote canonical checkpoints with "
+          f"all {ck['sp']} and {ck['tp']} Adam states, and one device resumed the TP "
+          f"checkpoint to epoch 2 (step 4, CE {hist[0]['Loss']:.4f}); the ranks' process "
+          f"{rec['ranks_s']:.1f} s ((b): SP run {sp_run['s']:.1f} s, TP run "
+          f"{tp_run['s']:.1f} s), resume {rec['resume_s']:.1f} s  [{smi}]")
+    return rec
+
+
 # phase number and seconds before its child is killed (phase 20 took 44-62 s on
 # an H100 80GB HBM3 at 700 W; the rest leaves room for 80 + 40 epochs)
 PHASES = {"--cli-phase": (18, 600), "--prior-phase": (19, 600), "--quality-phase": (20, 300),
-          "--dp-phase": (21, 240)}
+          "--dp-phase": (21, 240), "--sptp-phase": (22, 330)}
 
 
 def _run_phase(flag, root):
-    """Runs phase 18, 19, 20 or 21 in a child process (this script with
+    """Runs phase 18, 19, 20, 21 or 22 in a child process (this script with
     ``flag`` and ``root``, the directory the phases share), its output on
     this one's; returns what the child wrote.  The child is killed if it
     outlives its phase's seconds in ``PHASES``."""
@@ -3567,24 +3905,27 @@ def _run_phase(flag, root):
         sys.stdout.flush()
         sys.stderr.flush()
         number, timeout = PHASES[flag]
+        t0 = time.perf_counter()
         try:
             rc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), flag, root,
                                  result], timeout=timeout).returncode
         except subprocess.TimeoutExpired:
             raise RuntimeError(f"phase {number} outlived {timeout} s") from None
         _require(rc == 0, f"phase {number} exited with code {rc}")
+        _mark(f"phase {number} ({time.perf_counter() - t0:.1f} s in its own process)")
         with open(result) as f:
             return json.load(f)
 
 
 def _child_phase(flag, root, result):
-    """The child's side of ``_run_phase``: phase 18, 19, 20 or 21 on card
-    0, in ``root``; what it returns written to ``result``."""
+    """The child's side of ``_run_phase``: phase 18, 19, 20, 21 or 22 on
+    card 0, in ``root``; what it returns written to ``result``."""
     import torch
 
     sys.path.insert(0, REPO)
     check = {"--cli-phase": _check_cli, "--prior-phase": _check_prior_cli,
-             "--quality-phase": _check_quality, "--dp-phase": _check_dp}[flag]
+             "--quality-phase": _check_quality, "--dp-phase": _check_dp,
+             "--sptp-phase": _check_sptp}[flag]
     with open(result, "w") as f:
         json.dump(check(torch.device("cuda", 0), _smi(), root), f)
     return 0
@@ -3616,23 +3957,26 @@ def main() -> int:
     # paper decode runs its convolutions in bf16, where TF32 does not apply
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # cuDNN picks each convolution's engine by its heuristics in this
-    # process (phase 18, which autotunes under the CLI's flags, has its own)
+    # cuDNN picks each convolution's engine by its heuristics, here as in
+    # the phases' own processes
     torch.backends.cudnn.benchmark = False
 
     # 1. the card
     smi = _smi()
     print(smi)
 
-    # 2. build
+    # 2. build: the libraries of phases 18-22 first, then the others while
+    # those phases run (one nvcc per source, each group started together)
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"[build] {len(_build.sources())} kernel libraries ready in "
+    _build.build_all(list(PHASE_LIBS))
+    print(f"[build] the {len(PHASE_LIBS)} kernel libraries of phases 18-22 ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
-    for line in _build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
-    _check_sass()
+    _mark("build of phases 18-22's libraries")
+    later = [n for n in _build.sources() if n not in PHASE_LIBS]
+    nvcc_pool = ThreadPoolExecutor(1)
+    built = nvcc_pool.submit(_build.build_all, later)
 
     # 18-19. the stage-1 CLI and tools/bench, then the prior's CLI and the
     # synthesis tool on phase 18's experiments, each in a process of its own
@@ -3648,6 +3992,17 @@ def main() -> int:
         # CLIs under torchrun on phase 18's and 19's data, in a process of
         # its own
         _run_phase("--dp-phase", cli_root)
+        # 22. sequence and tensor parallelism: two ranks on the card over
+        # gloo, then the prior's CLI under both layouts on phase 19's grids
+        _run_phase("--sptp-phase", cli_root)
+
+    built.result()  # raises with nvcc's output if a build failed
+    nvcc_pool.shutdown()
+    print(f"[build] the other {len(later)} libraries built while phases 18-22 ran")
+    for line in _build.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
+    _check_sass()
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),
@@ -3828,6 +4183,8 @@ def main() -> int:
     print(f"[time] VQ-VAE decode (bf16, sub-batches of 8): {dec_ms:.2f} ms per "
           f"volume  [{smi}]")
 
+    _mark("phases 3-5 (row 1, the synthesis, their times)")
+
     # 6. the training kernels against their plain versions
     del samplers, synth, vqvae, performer, small_model, small_cpu
     torch.cuda.empty_cache()
@@ -3980,6 +4337,7 @@ def main() -> int:
           f"{local_bound[0]:.4f} ms ({local_bound[1]})  [{smi}]")
     del state, model, train_step, q, k, v, g, prof
     torch.cuda.empty_cache()
+    _mark("phases 6-8 (rows 5 and 6, the training path, their times)")
 
     # 9. the stage-1 kernels against their plain versions
     verr = _check_vq_kernels(dev)
@@ -3988,25 +4346,29 @@ def main() -> int:
     # 10-11. the paper stage 1, then the kernels' timings
     print(f"[mem] before phase 10: {_free_gib()}")
     s1 = _check_stage1(dev, smi)
-    print(f"[cli] the CLI's step (phase 18, its own process, cuDNN autotuned) {cli_step_ms:.1f} "
-          f"ms against phase 11's bare step (cuDNN heuristics) {s1['step'][0]:.1f} ms in this "
-          f"run  [{smi}]")
+    print(f"[cli] the CLI's step (phase 18, its own process) {cli_step_ms:.1f} ms against "
+          f"phase 11's bare step {s1['step'][0]:.1f} ms in this run (both on cuDNN's "
+          f"heuristics)  [{smi}]")
     t1 = _time_stage1_kernels(dev, smi)
     torch.cuda.empty_cache()
+    _mark("phases 9-11 (rows 3, 4 and 7, stage 1, their times)")
     # 12-13. the splash kernels, then the bench entry point through them
     serr = _check_splash(dev)
     sb = _check_bench(dev, smi)
     torch.cuda.empty_cache()
+    _mark("phases 12-13 (row 8, tools/bench)")
     # 14-15. the exact decode path, then row 2 and the probes
     _check_exact_decode(dev, smi, fused_s)
     torch.cuda.empty_cache()
     ds = _check_decode_side(dev, smi)
     torch.cuda.empty_cache()
+    _mark("phases 14-15 (the exact decode, row 2 and the probes)")
     # 16-17. row 9d through the kernel-body probe; the fused step validated
     # on a trained prior
     ds.update(_check_kernel_body(dev, smi))
     torch.cuda.empty_cache()
     _check_validation(dev, smi)
+    _mark("phases 16-17 (row 9d, the fused step on a trained prior)")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               dev_ms=None):
@@ -4065,4 +4427,6 @@ if __name__ == "__main__":
         sys.exit(_dp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-cli"]:
         sys.exit(_dp_cli(sys.argv[2]))
+    if sys.argv[1:2] == ["--sptp-rank"]:
+        sys.exit(_sptp_rank(sys.argv[2]))
     sys.exit(main())

@@ -52,18 +52,21 @@ from synthanatomy_tpu_torch.models.ordering import Ordering
 from synthanatomy_tpu_torch.ops.favor import (
     default_nb_features,
     favor_attention,
+    favor_attention_sequence_parallel,
     favor_attention_step,
     gaussian_orthogonal_random_matrix,
 )
 from synthanatomy_tpu_torch.ops.local_attention import (
     apply_rotary,
     local_attention,
+    local_attention_sequence_parallel,
     local_attention_step,
     rotary_sin_cos,
 )
 from synthanatomy_tpu_torch.ops.local_attention_flash import local_attention_flash
 
-__all__ = ["Performer", "redraw_projections", "spatial_coordinate_sequences"]
+__all__ = ["Performer", "redraw_projections", "spatial_coordinate_sequences",
+           "spatial_lookup_layout"]
 
 
 def spatial_coordinate_sequences(
@@ -73,6 +76,26 @@ def spatial_coordinate_sequences(
     sequence order (same as the reference's helper)."""
     coords = np.meshgrid(*[np.arange(s) for s in spatial_shape], indexing="ij")
     return [np.asarray(ordering(c.reshape(-1))) for c in coords]
+
+
+def spatial_lookup_layout(
+    seqs: Sequence[np.ndarray], n: int, k_pre: int = 0, total: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The BOS-right-shifted lookup of the 'absolute' spatial tables over
+    ``total`` positions (default ``n``), as ``_spatial_pos_sum`` embeds
+    it: position k_pre is the BOS zero row, position k_pre + q (q ≥ 1)
+    takes grid cell q − 1's coordinates, at most L_grid − 1 rows carry
+    one.  Returns ``(idx (total, n_axes) int32, mask (total, 1) f32)``:
+    the sum at position p is ``Σᵢ tableᵢ[idx[p, i]] · mask[p]``.  The SP
+    and TP train steps share it."""
+    total = n if total is None else total
+    idx = np.zeros((total, len(seqs)), np.int32)
+    mask = np.zeros((total, 1), np.float32)
+    m_rows = min(n - 1, len(seqs[0]) - 1, total - k_pre - 1)
+    for i, s in enumerate(seqs):
+        idx[k_pre + 1: k_pre + 1 + m_rows, i] = s[:m_rows]
+    mask[k_pre + 1: k_pre + 1 + m_rows] = 1.0
+    return idx, mask
 
 
 def _sinusoidal_table(length: int, dim: int) -> np.ndarray:
@@ -194,7 +217,13 @@ class ScaleNorm(nn.Module):
 
 class PerformerAttention(nn.Module):
     """Hybrid FAVOR+/local multi-head self-attention: FAVOR heads
-    ``[:gh]``, local heads ``[gh:]``, outputs concatenated in that order."""
+    ``[:gh]``, local heads ``[gh:]``, outputs concatenated in that order.
+
+    With ``sp_group`` set (JAX's ``sp_axis``; the SP train step sets it)
+    the input is this rank's shard of the sequence and the heads take the
+    sequence-parallel forms over that group (FAVOR's prefix state across
+    ranks, the local heads' halo exchange); the kernel flags do not apply
+    there, as in JAX."""
 
     def __init__(self, dim, heads, dim_head, local_heads, nb_features, gen, device, *,
                  local_window=256, causal=True, generalized=False, no_projection=False,
@@ -203,6 +232,7 @@ class PerformerAttention(nn.Module):
                  attn_compute_dtype=torch.float32, favor_cache_dtype=torch.float32,
                  dtype=torch.bfloat16):
         super().__init__()
+        self.sp_group = None
         inner = heads * dim_head
         self.heads, self.dim_head, self.local_heads = heads, dim_head, local_heads
         self.nb_features, self.favor_cache_dtype = nb_features, favor_cache_dtype
@@ -240,13 +270,26 @@ class PerformerAttention(nn.Module):
         gh = self.heads - self.local_heads
         cd = self.attn_compute_dtype
         outs = []
-        if gh > 0:
+        if self.sp_group is not None:
+            if not self.causal or layer_rotary is not None:
+                raise NotImplementedError("sequence parallelism supports causal attention "
+                                          "without per-layer rotary")
+            if gh > 0:
+                outs.append(favor_attention_sequence_parallel(
+                    q[:, :gh], k[:, :gh], v[:, :gh],
+                    None if self.no_projection else self.projection, group=self.sp_group,
+                    generalized=self.generalized, chunk=self.scan_chunk, compute_dtype=cd))
+            if self.local_heads > 0:
+                outs.append(local_attention_sequence_parallel(
+                    q[:, gh:], k[:, gh:], v[:, gh:], window=self.local_window,
+                    group=self.sp_group, compute_dtype=cd))
+        elif gh > 0:
             outs.append(favor_attention(
                 q[:, :gh], k[:, :gh], v[:, :gh],
                 None if self.no_projection else self.projection,
                 causal=self.causal, generalized=self.generalized, chunk=self.scan_chunk,
                 compute_dtype=cd, use_pallas_scan=self.use_pallas_favor))
-        if self.local_heads > 0:
+        if self.local_heads > 0 and self.sp_group is None:
             local = local_attention_flash if self.use_pallas_local else local_attention
             outs.append(local(q[:, gh:], k[:, gh:], v[:, gh:], window=self.local_window,
                               causal=self.causal, compute_dtype=cd))
@@ -327,6 +370,9 @@ class FeedForward(nn.Module):
 
 
 class PerformerBlock(nn.Module):
+    """ReZero or pre-norm block; ``sp_group`` (JAX's ``sp_axis``) is the
+    attention's sequence-parallel group."""
+
     def __init__(self, dim, heads, dim_head, local_heads, nb_features, ff_mult,
                  use_rezero, gen, device, *, ff_dropout=0.0, ff_glu=False, use_scalenorm=False,
                  remat_attention=False, dtype=torch.bfloat16, **attn_kw):
@@ -350,6 +396,14 @@ class PerformerBlock(nn.Module):
         else:
             self.norm_attn = nn.LayerNorm(dim, eps=1e-6, device=device)
             self.norm_ff = nn.LayerNorm(dim, eps=1e-6, device=device)
+
+    @property
+    def sp_group(self):
+        return self.attn.sp_group
+
+    @sp_group.setter
+    def sp_group(self, group):
+        self.attn.sp_group = group
 
     def _norm(self, x, norm):
         if norm is None:  # ReZero

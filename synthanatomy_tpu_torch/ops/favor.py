@@ -3,13 +3,16 @@
 Port of ``synthanatomy_tpu/ops/favor.py``: ``default_nb_features``,
 ``gaussian_orthogonal_random_matrix``, the softmax-kernel and
 generalized feature maps, the chunked causal prefix scan (and the
-non-causal form), and ``favor_attention`` with JAX's routing: causal
+non-causal form), ``favor_attention`` with JAX's routing: causal
 softmax-kernel attention with a projection and the zero key stabilizer
 goes to the fused kernel (``ops/favor_attention.py``) when
 ``use_pallas_scan`` is set; generalized features, ``no_projection``,
 non-causal attention and ``stabilize_keys=True`` always take the plain
 path here, as they take XLA's in JAX.  ``favor_attention_step`` is the
-single-token incremental form of the exact decode path.
+single-token incremental form of the exact decode path, and
+``favor_attention_sequence_parallel`` the form for a shard of the
+sequence: each rank's (S, z) totals pass to the later ranks as the
+prefix state its scan starts from.
 
 Random draws come from a ``torch.Generator`` and do not reproduce
 JAX's bits; weights that must match are carried across by
@@ -23,6 +26,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from synthanatomy_tpu_torch.ops import favor_attention as _fused
 from synthanatomy_tpu_torch.ops.local_attention import rounded
@@ -34,6 +38,7 @@ __all__ = [
     "generalized_kernel_features",
     "causal_linear_attention_chunked",
     "favor_attention",
+    "favor_attention_sequence_parallel",
     "favor_attention_step",
 ]
 
@@ -131,19 +136,25 @@ def causal_linear_attention_chunked(
     v: torch.Tensor,
     chunk: int,
     compute_dtype: torch.dtype = torch.float32,
+    init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """q_p/k_p: (B, H, L, m), v: (B, H, L, d) → (B, H, L, d) f32.
 
     A scan over chunks of ``chunk`` rows carrying S (B, H, m, d) and z
-    (B, H, m) in f32; within a chunk, the lower-triangular score block.
+    (B, H, m) in f32, from zeros or from ``init_state`` = (S0, z0) (a
+    sequence shard's prefix from the shards before it); within a chunk,
+    the lower-triangular score block.
     S and z are rounded to ``compute_dtype`` only where they enter a
     product.  The denominator is clamped at 1e-12, as in JAX.  Rows past
     the last full chunk form a shorter last chunk: JAX pads them with
     zeros, and zero rows after every real row change no real output."""
     cd = compute_dtype
     b, h, n, m = q_p.shape
-    S = q_p.new_zeros(b, h, m, v.shape[-1], dtype=torch.float32)
-    z = q_p.new_zeros(b, h, m, dtype=torch.float32)
+    if init_state is None:
+        S = q_p.new_zeros(b, h, m, v.shape[-1], dtype=torch.float32)
+        z = q_p.new_zeros(b, h, m, dtype=torch.float32)
+    else:
+        S, z = (t.to(torch.float32) for t in init_state)
     outs = []
     for c0 in range(0, n, chunk):
         qi = rounded(q_p[:, :, c0:c0 + chunk], cd)
@@ -203,6 +214,76 @@ def favor_attention(
         out = causal_linear_attention_chunked(q_p, k_p, v32, chunk, compute_dtype)
     else:
         out = _noncausal_linear_attention(q_p, k_p, v32, compute_dtype)
+    return out.to(in_dtype)
+
+
+class _StackOverRanks(torch.autograd.Function):
+    """(P, *x.shape): every rank's ``x`` in rank order, by one all-reduce
+    of a zero stack holding this rank's ``x`` at its slot (a sum
+    all-reduce carries CUDA tensors over gloo too; adding zeros is
+    exact).  Backward: each slot's cotangent summed over the ranks, the
+    own slot returned (JAX transposes ``all_gather`` to a reduce-scatter;
+    gloo has none)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.rank = dist.get_rank(group)
+        stack = x.new_zeros((dist.get_world_size(group),) + tuple(x.shape))
+        stack[ctx.rank] = x
+        dist.all_reduce(stack, group=group)
+        return stack
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[ctx.rank], None
+
+
+def favor_attention_sequence_parallel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    projection: Optional[torch.Tensor],
+    *,
+    group,
+    generalized: bool = False,
+    kernel_fn: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+    chunk: int = 128,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Causal FAVOR+ on this rank's shard of the sequence: q, k, v (B, H,
+    L/P, d), the ranks of ``group`` holding consecutive shards in rank
+    order (None: one shard) → (B, H, L/P, d) in v's dtype.
+
+    The prefix state is associative: each rank reduces its totals S_tot
+    (B, H, m, d) and z_tot (B, H, m), one exchange gives every rank all of
+    them, the sum over the lower ranks seeds the local chunked scan.  The
+    feature maps are :func:`favor_attention`'s causal ones with the key
+    stabilizer 0 (a per-shard maximum would differ between shards).
+    Equals :func:`favor_attention` on the whole sequence up to rounding."""
+    in_dtype = v.dtype
+    if generalized:
+        q_p = generalized_kernel_features(q, projection, kernel_fn=kernel_fn)
+        k_p = generalized_kernel_features(k, projection, kernel_fn=kernel_fn)
+    elif projection is None:
+        q_p = torch.softmax(q.to(torch.float32), dim=-1)
+        k_p = torch.exp(k.to(torch.float32))
+    else:
+        q_p = softmax_kernel_features(q, projection, is_query=True)
+        k_p = softmax_kernel_features(k, projection, is_query=False,
+                                      stabilizer=torch.zeros((), device=k.device))
+    v32 = v.to(torch.float32)
+    init = None
+    if group is not None and dist.get_world_size(group) > 1:
+        S_tot = torch.einsum("bhjm,bhjd->bhmd", k_p, v32)
+        z_tot = k_p.sum(-2)
+        rank = dist.get_rank(group)
+        all_S = _StackOverRanks.apply(S_tot, group)
+        all_z = _StackOverRanks.apply(z_tot, group)
+        init = (all_S[:rank].sum(0), all_z[:rank].sum(0))
+    out = causal_linear_attention_chunked(q_p, k_p, v32, chunk, compute_dtype, init_state=init)
     return out.to(in_dtype)
 
 

@@ -10,19 +10,23 @@ f32, so a f32 product of bf16-rounded operands is the TPU's bf16
 matmul with f32 accumulation).
 
 ``local_attention_step`` is the ring-buffer form of the exact decode
-path.  The sequence-parallel variant is not ported yet (ROADMAP §1).
-The banded kernel for the training path is
-``ops/local_attention_flash.py``.
+path.  ``local_attention_sequence_parallel`` runs on a shard of the
+sequence: each rank's last ``window`` keys and values go to the next
+rank as the halo its first bucket attends to.  The banded kernel for the
+training path is ``ops/local_attention_flash.py``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["rotary_sin_cos", "apply_rotary", "local_attention", "local_attention_step",
-           "rounded"]
+from synthanatomy_tpu_torch.parallel.distributed import backend_is_nccl
+
+__all__ = ["rotary_sin_cos", "apply_rotary", "local_attention",
+           "local_attention_sequence_parallel", "local_attention_step", "rounded"]
 
 
 def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -59,17 +63,25 @@ def local_attention(
     window: int,
     causal: bool = True,
     use_rotary: bool = True,
+    position_offset: int = 0,
+    halo_k: Optional[torch.Tensor] = None,
+    halo_v: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """q, k, v: (B, H, L, d) → (B, H, L, d) in v's dtype.
 
     Buckets of ``window`` rows, each attending to itself and the
-    previous bucket, as the JAX function lays it out."""
+    previous bucket, as the JAX function lays it out.
+    ``position_offset`` shifts the positions (rotary phases and masks) of
+    a sequence shard; ``halo_k``/``halo_v`` (B, H, window, d), the
+    previous shard's last keys (already rotated at their positions) and
+    values, take the place of the first bucket's previous bucket.  At
+    offset 0 the mask rejects them, as it does the rolled-in last bucket."""
     b, h, n, d = q.shape
     in_dtype = v.dtype
     scale = d ** -0.5
     if use_rotary:
-        sin, cos = rotary_sin_cos(d, torch.arange(n, device=q.device))
+        sin, cos = rotary_sin_cos(d, torch.arange(n, device=q.device) + position_offset)
         q = apply_rotary(q.to(torch.float32), sin, cos)
         k = apply_rotary(k.to(torch.float32), sin, cos)
     cd = compute_dtype
@@ -81,11 +93,15 @@ def local_attention(
     qb = q.reshape(b, h, nb, window, d)
     kb = k.reshape(b, h, nb, window, d)
     vb = v.reshape(b, h, nb, window, d)
-    k2 = torch.cat([torch.roll(kb, 1, dims=2), kb], dim=3)  # (b, h, nb, 2w, d)
-    v2 = torch.cat([torch.roll(vb, 1, dims=2), vb], dim=3)
+    k_prev, v_prev = torch.roll(kb, 1, dims=2), torch.roll(vb, 1, dims=2)
+    if halo_k is not None:
+        k_prev = torch.cat([rounded(halo_k, cd)[:, :, None], k_prev[:, :, 1:]], dim=2)
+        v_prev = torch.cat([rounded(halo_v, cd)[:, :, None], v_prev[:, :, 1:]], dim=2)
+    k2 = torch.cat([k_prev, kb], dim=3)  # (b, h, nb, 2w, d)
+    v2 = torch.cat([v_prev, vb], dim=3)
     scores = torch.einsum("bhnid,bhnjd->bhnij", qb, k2) * scale
 
-    q_pos = torch.arange(n + pad, device=q.device).reshape(nb, window)
+    q_pos = torch.arange(n + pad, device=q.device).reshape(nb, window) + position_offset
     k_pos = torch.cat([q_pos - window, q_pos], dim=-1)
     valid = k_pos >= 0
     if causal:
@@ -98,6 +114,79 @@ def local_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhnij,bhnjd->bhnid", rounded(probs, cd), v2)
     return out.reshape(b, h, n + pad, d)[:, :, :n].to(in_dtype)
+
+
+class _ShiftRight(torch.autograd.Function):
+    """Each rank of ``group`` sends ``x`` to the next rank (the last to
+    rank 0) and returns what the previous one sent; backward sends the
+    cotangent back the other way.  One ``batch_isend_irecv`` a direction
+    (a send and a receive posted together: no ordering can deadlock).
+    Over gloo the tensors go through the host: its point-to-point
+    transport reads host memory."""
+
+    @staticmethod
+    def _shift(x, group, step):
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        host = not backend_is_nccl(group)
+        send = (x.cpu() if host else x).contiguous()
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (rank + step) % world),
+                          group),
+               dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (rank - step) % world),
+                          group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(x.device)
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _ShiftRight._shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ShiftRight._shift(grad, ctx.group, -1), None
+
+
+def local_attention_sequence_parallel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int,
+    group,
+    use_rotary: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Causal local attention on this rank's shard of the sequence: q, k,
+    v (B, H, L/P, d), the ranks of ``group`` holding consecutive shards in
+    rank order (None: one shard) → (B, H, L/P, d) in v's dtype.
+
+    Rotary at the global positions, then the halo exchange: the rank's
+    last ``window`` rotated keys and its values go to the next rank.  The
+    shard length must be a multiple of ``window``.  Equals
+    :func:`local_attention` on the whole sequence up to rounding."""
+    b, h, n_local, d = q.shape
+    if n_local % window != 0:
+        raise ValueError(f"sequence-parallel local attention needs shard length ({n_local}) "
+                         f"divisible by window ({window})")
+    rank, world = (0, 1) if group is None else (dist.get_rank(group),
+                                                  dist.get_world_size(group))
+    offset = rank * n_local
+    if use_rotary:
+        sin, cos = rotary_sin_cos(d, torch.arange(n_local, device=q.device) + offset)
+        q = apply_rotary(q.to(torch.float32), sin, cos)
+        k = apply_rotary(k.to(torch.float32), sin, cos)
+    # keys and values in one exchange (f32 holds a bf16 value exactly)
+    halo = torch.stack([k[:, :, -window:].to(torch.float32),
+                        v[:, :, -window:].to(torch.float32)])
+    if world > 1:
+        halo = _ShiftRight.apply(halo, group)
+    halo_k, halo_v = halo.unbind(0)
+    # rank 0's halo wraps around from the last rank: its k_pos < 0 mask rejects it
+    return local_attention(q, k, v, window=window, causal=True, use_rotary=False,
+                           position_offset=offset, halo_k=halo_k, halo_v=halo_v,
+                           compute_dtype=compute_dtype)
 
 
 def local_attention_step(

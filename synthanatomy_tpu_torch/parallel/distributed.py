@@ -40,6 +40,7 @@ __all__ = [
     "average_",
     "average_gradients",
     "average_metrics",
+    "backend_is_nccl",
     "barrier",
     "default_group",
     "fold_in",
@@ -51,6 +52,7 @@ __all__ = [
     "maybe_initialize_distributed",
     "ranks_agree",
     "sample_weighted_means",
+    "sum_",
 ]
 
 _log = logging.getLogger(__name__)
@@ -149,12 +151,23 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 def average_(tensors: Sequence[torch.Tensor], group) -> None:
     """Replace each tensor by its mean over the ranks, in place: one
     all-reduce of the tensors flattened in f32."""
+    _reduce_(tensors, group, mean=True)
+
+
+def sum_(tensors: Sequence[torch.Tensor], group) -> None:
+    """Replace each tensor by its sum over the ranks, in place (JAX's
+    ``psum``): one all-reduce of the tensors flattened in f32."""
+    _reduce_(tensors, group, mean=False)
+
+
+def _reduce_(tensors: Sequence[torch.Tensor], group, *, mean: bool) -> None:
     tensors = list(tensors)
     if group is None or not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
+    if mean:
+        flat /= dist.get_world_size(group)
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -187,7 +200,7 @@ def any_rank(flag: bool, group, device) -> bool:
     checkpoint, agree on it first."""
     if group is None:
         return flag
-    t = torch.tensor([float(flag)], device=device)
+    t = _host_if_gloo(torch.tensor([float(flag)], device=device), group)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return bool(t.item())
 
@@ -206,9 +219,13 @@ def sample_weighted_means(batch_means: Dict[str, Sequence[torch.Tensor]],
     return {k: float(sums[i] / sums[-1]) for i, k in enumerate(keys)}
 
 
+def backend_is_nccl(group=None) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
 def _host_if_gloo(t: torch.Tensor, group) -> torch.Tensor:
     """gloo's gather and min/max reductions take host tensors."""
-    return t if dist.get_backend(group) == "nccl" else t.cpu()
+    return t if backend_is_nccl(group) else t.cpu()
 
 
 def ranks_agree(tensors: Sequence[torch.Tensor], group) -> bool:

@@ -1,22 +1,51 @@
-"""ZeRO-1: the Adam moments sharded over the data ranks.
+"""Which dimension of each Performer parameter tensor parallelism
+splits, and ZeRO-1: the Adam moments sharded over the data ranks.
 
-Port of the ZeRO-1 half of ``synthanatomy_tpu/parallel/sharding_rules.py``
-(:129-153), where the moments are a placement annotation under GSPMD:
-here ``torch.distributed.optim.ZeroRedundancyOptimizer`` around the
-port's Adam (β 0.9/0.999, eps 1e-8, as ``optax.adam``), which keeps each
-parameter's moments on one rank, updates it there and broadcasts it.  Its
-parameter groups carry Adam's own defaults, so a consolidated state dict
-is a one-device Adam state dict and the reverse.  The tensor-parallel
-specs (:50-126) wait for tensor parallelism (ROADMAP.md §1).
+Port of ``synthanatomy_tpu/parallel/sharding_rules.py``.  The tensor-
+parallel half (:50-126): :func:`performer_split_dim` names, for a
+parameter of the port's Performer (torch layout, weight (out, in)), the
+dimension split over the model group, by JAX's Megatron rules (the
+attention's q/k/v and FF w1 column-parallel into the heads and the
+hidden width, ``to_out`` and w2 row-parallel back; biases of the
+row-parallel layers, norms, embeddings and the output head replicated);
+``parallel/tensor_parallel.tp_param_specs`` is built from it.
+
+The ZeRO-1 half (:129-153), where the moments are a placement annotation
+under GSPMD: here ``torch.distributed.optim.ZeroRedundancyOptimizer``
+around the port's Adam (β 0.9/0.999, eps 1e-8, as ``optax.adam``), which
+keeps each parameter's moments on one rank, updates it there and
+broadcasts it.  Its parameter groups carry Adam's own defaults, so a
+consolidated state dict is a one-device Adam state dict and the reverse.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["adam", "full_state_dict", "is_zero1"]
+__all__ = ["adam", "full_state_dict", "is_zero1", "performer_split_dim"]
+
+# (name pattern, split dimension of the torch tensor) — first match wins;
+# JAX's P(None, "model") on a (in, out) kernel is the out dimension, 0.
+# Anchored to the blocks: the output head (``to_out.*``) is replicated
+_PERFORMER_RULES = (
+    (re.compile(r"^blocks\.\d+\.attn\.(to_q|to_k|to_v)\.(weight|bias)$"), 0),
+    (re.compile(r"^blocks\.\d+\.attn\.to_out\.weight$"), 1),
+    (re.compile(r"^blocks\.\d+\.ff\.w1\.(weight|bias)$"), 0),
+    (re.compile(r"^blocks\.\d+\.ff\.w2\.weight$"), 1),
+)
+
+
+def performer_split_dim(name: str) -> Optional[int]:
+    """The dimension of parameter ``name`` split over the model group, or
+    None (replicated)."""
+    for rx, dim in _PERFORMER_RULES:
+        if rx.match(name):
+            return dim
+    return None
+
 
 BETAS, EPS = (0.9, 0.999), 1e-8
 

@@ -10,7 +10,9 @@ the host (the tests do).  Without a card and without ``--device=cpu``
 the run raises.  Several cards, one process each:
 ``torchrun --nproc_per_node=N -m synthanatomy_tpu_torch.run_transformer run
 --mesh_shape='(N,)' [--zero1=True] ...`` (rank r on ``cuda:LOCAL_RANK``
-over NCCL; with ``--device=cpu`` the ranks run on the CPU over gloo).
+over NCCL; with ``--device=cpu`` the ranks run on the CPU over gloo);
+``--sp_shards=s`` trains sequence-parallel, ``--mesh_shape='(d,m)'``
+tensor-parallel (``runners/transformer.py``).
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ def run(
     position_emb: str = "absolute",
     spatial_position_emb: Optional[str] = None,
     evaluation_checkpoint: str = "recent",
-    # additions of the JAX package (the data mesh: one rank per card under
-    # torchrun; sp_shards, pp_stages and a model axis raise in training)
+    # additions of the JAX package (the rank layout: one rank per card
+    # under torchrun, (data, model) for a model axis, (data, seq) for
+    # sp_shards; pp_stages raises in training)
     mesh_shape: Optional[Tuple[int, ...]] = None,
     compute_dtype: str = "bfloat16",
     attn_compute_dtype: str = "bfloat16",

@@ -9,23 +9,36 @@ reference's checkpoint / eval / logging cadences, and batch sampling
 written as ``*_sample.npy`` uint16 (run_transformer.py:390-398).
 
 One device: ``config.device`` is a CUDA ordinal, or ``"cpu"`` (the
-tests' way to ask for the host).  Several devices (JAX :238-242,
-341-360, 749-790): one process per card under torchrun,
-``--mesh_shape=(N,)`` naming its N ranks.  Training runs the DP step
-(``make_transformer_train_step_dp``: gradients, loss and summaries
-averaged over the ranks, dropout from each rank's generator, the
-projection redraw equal on all) on each rank's shard of the latents,
-``--zero1`` sharding Adam's state; rank 0 writes checkpoints and logs,
-and the evaluation weights each rank's CE by its real samples.
-Inference takes the DP sampler (``models/sampling.make_dp_sampler``)
-when the job has several ranks and ``--eval_batch_size`` divides over
-them: each rank samples its rows of every global batch and rank 0
-writes the grids.  When it does not divide, rank 0 samples every batch
-on its own card, as JAX runs the one-device sampler then.  Sequence and
-pipeline parallelism and a model axis are not ported yet (ROADMAP.md
-§1): training raises
-``NotImplementedError`` for them; inference ignores
-``--sp_shards``/``--pp_stages`` with a warning, as JAX does.  The
+tests' way to ask for the host).  Several devices (JAX :210-391,
+430-520, 749-790): one process per card under torchrun, laid out by
+``parallel/mesh.rank_layout`` and trained by the layout's step:
+
+- ``--mesh_shape=(N,)``: the DP step (``make_transformer_train_step_dp``:
+  gradients, loss and summaries averaged over the ranks, dropout from
+  each rank's generator), ``--zero1`` sharding Adam's state;
+- ``--sp_shards=s``: the (data, seq) layout and the SP step
+  (``parallel/sequence_parallel.py``; the plain attention forms, as in
+  JAX), the model and Adam replicated;
+- ``--mesh_shape=(d, m)``: the (data, model) layout and the Megatron TP
+  step (``parallel/tensor_parallel.py``; rows 5 and 6 on each rank's
+  heads), the model and Adam split over the model ranks.  Checkpoints
+  stay canonical: every rank gathers the shares and unpacks them before
+  rank 0 writes, and a resume packs and splits what it reads, so a TP
+  checkpoint resumes on one device and the other way round.  A model
+  that step does not train raises ``NotImplementedError`` (JAX trains it
+  through GSPMD; ROADMAP.md §1).
+
+Each rank loads its data group's shard of the latents; rank 0 writes
+checkpoints and logs, and the evaluation weights each rank's CE by its
+real samples.  The projection redraw is equal on every rank.  Inference
+ignores the layout flags, as JAX does: it takes the DP sampler
+(``models/sampling.make_dp_sampler``) when the job has several ranks and
+``--eval_batch_size`` divides over them (each rank samples its rows of
+every global batch and rank 0 writes the grids), else rank 0 samples
+every batch on its own card.  Pipeline parallelism is not ported yet
+(ROADMAP.md §1, item 1): ``--pp_stages`` above 1 raises
+``NotImplementedError`` in training and is ignored with a warning in
+inference.  The
 attention takes rows 5 and 6's kernels on the card under
 ``--use_pallas_favor_attn`` / ``--use_pallas_local_attn``; sampling
 takes the fused decode step (row 1) wherever it covers the prior.
@@ -52,25 +65,27 @@ from synthanatomy_tpu_torch.parallel.distributed import (
     fold_in,
     sample_weighted_means,
 )
-from synthanatomy_tpu_torch.parallel.mesh import check_data_mesh
+from synthanatomy_tpu_torch.parallel.mesh import build_groups, rank_layout
 from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
 from synthanatomy_tpu_torch.utils.general import run_device
 
 __all__ = ["build_ordering", "build_performer", "prepare_batch", "training", "inference"]
 
 _NOT_PORTED = {
-    "sp_shards": "ROADMAP.md §1, item 1 (Multi-GPU: sequence parallelism)",
     "pp_stages": "ROADMAP.md §1, item 1 (Multi-GPU: pipeline parallelism)",
 }
 
 
-def _check_supported(config: TransformerConfig) -> None:
+def _check_supported(config: TransformerConfig):
+    """The training run's rank layout (no groups yet); raises for what the
+    port does not train and for a layout the job cannot hold."""
     for flag, item in _NOT_PORTED.items():
         if getattr(config, flag) > 1:
             raise NotImplementedError(
                 f"--{flag}={getattr(config, flag)} shards the prior's training over "
                 f"devices; not ported yet ({item})")
-    check_data_mesh(config.mesh_shape, config.world_size)
+    return rank_layout(config.mesh_shape, config.world_size, config.rank,
+                       sp_shards=config.sp_shards)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -186,9 +201,9 @@ def _make_datasets(config: TransformerConfig, logger):
 
 
 def _loader(config: TransformerConfig, dataset, batch_size: int, train: bool,
-            sharded: bool = True):
-    """This rank's shard of ``dataset`` (equal shards in training, each
-    file once otherwise); ``sharded=False``: all of it."""
+            shard=(0, 1)):
+    """Shard ``shard`` = (index, count) of ``dataset`` (equal shards in
+    training, each file once otherwise); (0, 1): all of it."""
     from synthanatomy_tpu_torch.data.datasets import PrefetchLoader
 
     # batches loaded ahead of the step: DataLoader's prefetch_factor is per worker
@@ -196,8 +211,7 @@ def _loader(config: TransformerConfig, dataset, batch_size: int, train: bool,
         dataset, batch_size, shuffle=train, drop_last=train,
         num_workers=config.num_workers, prefetch=config.num_workers * config.prefetch_factor,
         seed=config.seed, collate_keys=("latents",),
-        shard_id=config.rank if sharded else 0,
-        num_shards=config.world_size if sharded else 1,
+        shard_id=shard[0], num_shards=shard[1],
     )
 
 
@@ -231,15 +245,22 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     )
     from synthanatomy_tpu_torch.utils.profiling import StepProfiler
 
-    _check_supported(config)
+    layout = _check_supported(config)
     device = run_device(config)
-    group = default_group()
     logger, dirs, ckpt_path, starting_epoch, seed = basic_initialization(
         config, "transformer-training"
     )
+    layout = build_groups(layout)
+    group = layout.group
+    sp_mode, tp_mode = layout.inner == "seq", layout.inner == "model"
+    # the ranks of an inner (seq or model) group share their data group's
+    # rows; the evaluation reduces over the data group (all ranks under DP)
+    shard = (layout.data_index, layout.shape[0])
+    eval_group = layout.data_group
     train_ds, val_ds = _make_datasets(config, logger)
-    train_loader = _loader(config, train_ds, config.batch_size, True)
-    val_loader = _loader(config, val_ds, config.eval_batch_size, False) if val_ds else None
+    train_loader = _loader(config, train_ds, config.batch_size, True, shard)
+    val_loader = (_loader(config, val_ds, config.eval_batch_size, False, shard)
+                  if val_ds else None)
     epoch_length = len(train_loader)
 
     latent_shape = _latent_shape(train_ds)
@@ -250,7 +271,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     # the same weights and projections on every rank; dropout from seed + rank
     model = build_performer(config, ordering, latent_shape, device=device,
                             generator=torch.Generator().manual_seed(config.seed))
-    zero1 = config.zero1 and group is not None
+    zero1 = config.zero1 and group is not None and not tp_mode
     state = create_transformer_train_state(model, config.seed, rank=config.rank,
                                            learning_rate=config.learning_rate, zero1=zero1,
                                            process_group=group)
@@ -263,11 +284,52 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
             state.generator.set_state(fold_in(state.generator, config.rank).get_state())
         logger.info(f"Restored checkpoint from {ckpt_path}")
 
-    step_fn = (make_transformer_train_step(state.model) if group is None
-               else make_transformer_train_step_dp(state.model, group))
+    want_pallas = config.use_pallas_local_attn or config.use_pallas_favor_attn
+    train_state = state
+    if sp_mode:
+        from synthanatomy_tpu_torch.parallel.sequence_parallel import make_sp_train_step
+
+        if want_pallas:
+            logger.info("SP training uses the plain attention paths (the kernel flags apply "
+                        "to non-SP training and sampling)")
+        step_fn = make_sp_train_step(model, layout.inner_group,
+                                     int(np.prod(latent_shape)), data_group=layout.data_group)
+        logger.info(f"sequence-parallel step: {layout.shape[1]} seq shards"
+                    + (f" x {layout.shape[0]} data shards" if layout.shape[0] > 1 else ""))
+    elif tp_mode:
+        from synthanatomy_tpu_torch.parallel import tensor_parallel as TP
+
+        ok, why = TP.tp_step_compatible(model, layout.shape[1])
+        if not ok:
+            raise NotImplementedError(
+                f"TP step: {why} (JAX trains this configuration through GSPMD; ROADMAP.md §1, "
+                f"item 1)")
+        if config.zero1:
+            logger.info("--zero1 has no effect under tensor parallelism: Adam is split like "
+                        "the parameters over the model ranks")
+        train_state = TP.shard_tp_state(model, state, layout.inner_group)
+        step_fn = TP.make_tp_train_step(
+            model, layout.inner_group, data_group=layout.data_group,
+            use_pallas_local=config.use_pallas_local_attn,
+            use_pallas_favor=config.use_pallas_favor_attn)
+        logger.info(f"Megatron TP step over {layout.shape[1]} model shards"
+                    + (f" x {layout.shape[0]} data shards" if layout.shape[0] > 1 else ""))
+    else:
+        step_fn = (make_transformer_train_step(state.model) if group is None
+                   else make_transformer_train_step_dp(state.model, group))
     eval_fn = make_transformer_eval_step(state.model)
     tb_train = TBLogger(f"{dirs['logs_directory']}/train", enabled=config.rank == 0)
     tb_val = TBLogger(f"{dirs['logs_directory']}/val_eval", enabled=config.rank == 0)
+
+    gathered_at = [None]  # the TP step count the canonical state was gathered at
+
+    def canonical():
+        """The canonical state (TP: gathered from the model ranks and
+        unpacked, on every rank, a collective, once per step count)."""
+        if tp_mode and gathered_at[0] != train_state.step:
+            TP.gather_tp_state(model, train_state, state, layout.inner_group)
+            gathered_at[0] = train_state.step
+        return state
 
     gamma = config.gamma
     if gamma == "auto":
@@ -286,7 +348,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
         for batch in train_loader.epoch(epoch):
             inputs, targets, conds = _tensors(batch, ordering, config.vocab_size, device)
             with profiler.step(global_step):
-                state, metrics = step_fn(state, inputs, targets, conds, {"lr": lr})
+                train_state, metrics = step_fn(train_state, inputs, targets, conds, {"lr": lr})
             global_step += 1
             # accumulate on the device: a float() here would sync the host
             # to every step
@@ -305,22 +367,23 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
         # a signal may reach the ranks at different steps: all stop, or none
         guard.should_stop = any_rank(guard.should_stop, group, device)
         if (epoch + 1) % config.checkpoint_every == 0 or guard.should_stop:
-            C.save_checkpoint(dirs["checkpoint_directory"], state, epoch + 1)
+            C.save_checkpoint(dirs["checkpoint_directory"], canonical(), epoch + 1)
         if guard.should_stop:
             logger.warning(f"preempted: checkpointed at epoch {epoch + 1}")
             break
 
         if val_loader and (epoch + 1) % config.eval_every == 0:
+            canonical()
             vlosses, sizes = [], []
             for batch in val_loader.epoch(epoch):
                 inputs, targets, conds = _tensors(batch, ordering, config.vocab_size, device)
                 vlosses.append(eval_fn(state, inputs, targets, conds)[1]["Loss"])
                 sizes.append(inputs.shape[0])
             # one host read per evaluation
-            if group is None:
+            if eval_group is None:
                 val_ce = float(torch.stack(vlosses).mean())
-            else:  # over the ranks: each batch's CE weighted by its real samples
-                val_ce = sample_weighted_means({"CE": vlosses}, sizes, group, device)["CE"]
+            else:  # over the data ranks: each batch's CE weighted by its real samples
+                val_ce = sample_weighted_means({"CE": vlosses}, sizes, eval_group, device)["CE"]
             # the eval CE reaches callers through the history
             if history:
                 history[-1]["val_Loss"] = val_ce
@@ -329,13 +392,14 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
                 logger.info(f"eval @ {epoch + 1}: CE={val_ce:.4f}")
             if val_ce < best_metric:
                 best_metric = val_ce
-                C.save_best_checkpoint(dirs["checkpoint_directory"], state, -val_ce)
+                C.save_best_checkpoint(dirs["checkpoint_directory"], canonical(), -val_ce)
 
     profiler.close()
     guard.restore()
     # after a preemption the loop broke at some epoch E < config.epochs;
     # the final checkpoint_epoch=config.epochs name would make auto-resume
     # treat training as complete
+    state = canonical()
     if not guard.should_stop:
         C.save_checkpoint(dirs["checkpoint_directory"], state, config.epochs)
         if config.rank == 0:
@@ -371,13 +435,13 @@ def inference(config: TransformerConfig) -> Dict[str, Any]:
             "--sp_shards/--pp_stages are training-only flags; inference ignores them "
             "(sampling scales out data-parallel)"
         )
-    check_data_mesh(config.mesh_shape, config.world_size)
+    # the layout flags are training's: the sampler runs over every rank
     group = default_group()
     # several ranks: the DP sampler on every global batch when the batch
     # divides over them, else rank 0 alone (JAX's one-device sampler)
     dp = config.world_size > 1 and config.eval_batch_size % config.world_size == 0
     train_ds, _ = _make_datasets(config, logger)
-    loader = _loader(config, train_ds, config.eval_batch_size, False, sharded=False)
+    loader = _loader(config, train_ds, config.eval_batch_size, False)
     latent_shape = _latent_shape(train_ds)
     ordering = build_ordering(config, latent_shape)
     model = build_performer(config, ordering, latent_shape, device=device,

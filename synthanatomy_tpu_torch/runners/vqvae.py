@@ -19,7 +19,7 @@ One device: ``config.device`` is a CUDA ordinal, or ``"cpu"`` (the
 tests' way to ask for the host).  Volumes go to the models as NCDHW.
 Several devices (JAX :221-245, 277, 380-410, 470-480, 629-790): one
 process per card under torchrun, ``--mesh_shape=(N,)`` naming its N
-ranks (``parallel/mesh.check_data_mesh``).  Every rank builds the same
+ranks (``parallel/mesh.rank_layout``).  Every rank builds the same
 networks from ``--seed``, loads its shard of the subject list
 (``--batch_size`` samples a step, the training tail dropped) and runs the
 DP step (``train/vqvae_steps.py``: EMA statistics, D's batch-norm
@@ -56,13 +56,13 @@ from synthanatomy_tpu_torch.parallel.distributed import (
     fold_in,
     sample_weighted_means,
 )
-from synthanatomy_tpu_torch.parallel.mesh import check_data_mesh
+from synthanatomy_tpu_torch.parallel.mesh import rank_layout
 from synthanatomy_tpu_torch.train.vqvae_steps import create_vqvae_train_state
 from synthanatomy_tpu_torch.utils.general import run_device
 
 
 def _check_supported(config: VQVAEConfig) -> None:
-    check_data_mesh(config.mesh_shape, config.world_size)
+    rank_layout(config.mesh_shape, config.world_size)
 
 
 def _dtype(config: VQVAEConfig) -> torch.dtype:

@@ -235,7 +235,7 @@ def teacher_forced(model, latents, weight_quant):
     }
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=400)
     p.add_argument("--batch", type=int, default=8)
@@ -247,10 +247,12 @@ def main(argv=None) -> dict:
                    help="ReZero blocks + learned 'absolute' spatial tables (the bench.py "
                    "headline block/embedding form)")
     p.add_argument("--cpu", action="store_true", help="run the plain versions on the host")
-    args = p.parse_args(argv)
-    dev = probe_device(args.cpu)
-    print(f"device: {device_name(dev)}", file=sys.stderr)
+    return p.parse_args(argv)
 
+
+def train_prior(args: argparse.Namespace, dev) -> dict:
+    """The validation prior trained on structured latents: its model,
+    ordering, latents and losses."""
     ordering = Ordering("raster_scan", 3, GRID)
     rng = np.random.default_rng(0)
     latents = structured_latents(rng)
@@ -258,14 +260,20 @@ def main(argv=None) -> dict:
     if not supports_fused_decode(model):
         raise RuntimeError("the validation prior is not one the fused step covers")
     losses = train(model, ordering, latents, rng, args.steps, args.batch, args.lr)
+    return {"model": model, "ordering": ordering, "latents": latents, "losses": losses}
 
-    grids = greedy_grids(model, ordering, args.weight_quant)
+
+def validate(trained: dict, weight_quant: str, args: argparse.Namespace, dev) -> dict:
+    """The fused step against the exact path on the trained prior, with
+    ``weight_quant`` weights: the record ``main`` prints."""
+    model, ordering, latents = trained["model"], trained["ordering"], trained["latents"]
+    grids = greedy_grids(model, ordering, weight_quant)
     agree = {k: float((grids["exact"] == g).float().mean()) for k, g in grids.items()}
-    tf = teacher_forced(model, latents, args.weight_quant)
-    record = {
+    tf = teacher_forced(model, latents, weight_quant)
+    return {
         "block_form": "rezero+spatial" if args.paper_form else "preln",
-        "weight_quant": args.weight_quant,
-        "trained_ce": round(losses[-1], 4),
+        "weight_quant": weight_quant,
+        "trained_ce": round(trained["losses"][-1], 4),
         "greedy_agreement_fused_bf16_rings": round(agree["fused_bf16_rings"], 4),
         "greedy_agreement_fused_int8_rings": round(agree["fused_int8_rings"], 4),
         "teacher_forced_max_rel_logit_perturbation": round(tf["max_rel"], 4),
@@ -276,9 +284,15 @@ def main(argv=None) -> dict:
         "fused_step_kernel_vs_plain_max_rel_err": tf["step_err"],
         "device": device_name(dev),
     }
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    dev = probe_device(args.cpu)
+    print(f"device: {device_name(dev)}", file=sys.stderr)
+    record = validate(train_prior(args, dev), args.weight_quant, args, dev)
     print(json.dumps(record))
     return record
-
 
 if __name__ == "__main__":
     main()

@@ -53,7 +53,7 @@ from synthanatomy_tpu_torch.interop import (  # noqa: E402
     vqvae_from_jax,
 )
 from synthanatomy_tpu_torch.parallel import distributed as D  # noqa: E402
-from synthanatomy_tpu_torch.parallel.mesh import check_data_mesh  # noqa: E402
+from synthanatomy_tpu_torch.parallel.mesh import rank_layout  # noqa: E402
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -312,17 +312,22 @@ def test_dp_sampler_needs_a_batch_that_divides(monkeypatch):
                                  process_group=object())
 
 
-@pytest.mark.parametrize("mesh,world,error", [
-    (None, 3, None), ((2,), 2, None), ((1,), 1, None), ((2, 1), 2, None),
-    ((2,), 1, ValueError), ((4,), 2, ValueError), ((1, 2), 1, NotImplementedError),
-    ((2, 2), 4, NotImplementedError),
+@pytest.mark.parametrize("mesh,world,layout", [
+    (None, 3, ((3, 1), None)), ((2,), 2, ((2, 1), None)), ((1,), 1, ((1, 1), None)),
+    ((2, 1), 2, ((2, 1), None)), ((2,), 1, None), ((4,), 2, None), ((1, 2), 1, None),
+    ((2, 2), 4, ((2, 2), "model")),
 ])
-def test_check_data_mesh(mesh, world, error):
-    if error is None:
-        check_data_mesh(mesh, world)
+def test_check_data_mesh(mesh, world, layout):
+    """``--mesh_shape`` must name the job's ranks: (N,) and (N, 1) are
+    data parallelism, (d, m) the (data, model) layout of tensor
+    parallelism (``parallel/mesh.rank_layout``, which took over the
+    data-mesh check when TP was ported)."""
+    if layout is None:
+        with pytest.raises(ValueError, match="WORLD_SIZE"):
+            rank_layout(mesh, world)
     else:
-        with pytest.raises(error, match="WORLD_SIZE" if error is ValueError else "ROADMAP"):
-            check_data_mesh(mesh, world)
+        got = rank_layout(mesh, world)
+        assert (got.shape, got.inner) == layout
 
 
 def test_fold_in_gives_each_rank_its_own_stream():

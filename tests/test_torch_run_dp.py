@@ -19,8 +19,8 @@ one-process runs of the same flags on what the ranks wrote:
   ranks, rank 0 alone samples (JAX's one-device sampler) and writes
   what one process writes.
 
-Also ``tools/dryrun_multigpu --cpu`` over two ranks.  What still raises
-(SP, PP, a model axis) is in
+Also ``tools/dryrun_multigpu --cpu`` over two and four ranks.  What still
+raises (PP, a layout the job cannot hold) is in
 ``test_torch_run_transformer.py::test_unported_options_raise``.
 """
 
@@ -226,11 +226,16 @@ def test_stage2_inference_batch_not_dividing_runs_on_rank0(dp):
         np.testing.assert_array_equal(got[n], np.load(p), err_msg=n)
 
 
-def test_dryrun_multigpu_ranks_agree_on_the_cpu(capfd):
+@pytest.mark.parametrize("nprocs", [2, 4])
+def test_dryrun_multigpu_ranks_agree_on_the_cpu(capfd, nprocs):
     """``tools/dryrun_multigpu --cpu``: the adversarial stage-1 and the
-    prior DP steps over two gloo ranks, which it checks agree."""
+    prior DP steps, then the prior's DP×TP step on the (N/2, 2) layout
+    and both sequence-parallel attention ops over N gloo ranks, which it
+    checks agree (and the attention against the one-device ops)."""
     from synthanatomy_tpu_torch.tools import dryrun_multigpu
 
-    assert dryrun_multigpu.main(["--cpu", "--nprocs", "2"]) == 0
+    assert dryrun_multigpu.main(["--cpu", "--nprocs", str(nprocs)]) == 0
     out = capfd.readouterr().out
-    assert "[dryrun] 2 ranks (cpu)" in out and "2 ranks agreed" in out
+    assert f"[dryrun] {nprocs} ranks (cpu)" in out and f"{nprocs} ranks agreed" in out
+    assert f"DP x TP ({nprocs // 2}, 2) prior CE" in out
+    assert f"sequence-parallel attention over {nprocs} ranks" in out

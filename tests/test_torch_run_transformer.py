@@ -308,15 +308,17 @@ def test_resume_continues_the_uninterrupted_run(runs, monkeypatch):
 
 @pytest.mark.parametrize("flags,error,match", [
     (dict(mesh_shape=(2,)), ValueError, "WORLD_SIZE"),
-    (dict(mesh_shape=(2, 2)), NotImplementedError, "ROADMAP.md"),
+    (dict(mesh_shape=(2, 2)), ValueError, "WORLD_SIZE"),
     (dict(zero1=True, mesh_shape=(2,)), ValueError, "WORLD_SIZE"),
-    (dict(sp_shards=2), NotImplementedError, "ROADMAP.md"),
+    (dict(sp_shards=2), ValueError, "must divide the device count"),
     (dict(pp_stages=2), NotImplementedError, "ROADMAP.md"),
 ], ids=["mesh", "mesh-tp", "zero1", "sp", "pp"])
 def test_unported_options_raise(tmp_path, flags, error, match):
-    """Sequence, pipeline and tensor parallelism raise, naming their
-    ROADMAP item; a data mesh wider than the job's ranks (one process
-    here) raises before any work.  The DP runs: test_torch_run_dp.py."""
+    """Pipeline parallelism raises, naming its ROADMAP item; a layout
+    the job's ranks (one process here) cannot hold raises before any
+    work: a data or (data, model) mesh of more ranks, sequence shards
+    that do not divide them (JAX's rule).  The DP runs:
+    test_torch_run_dp.py; SP and TP: test_torch_run_sp_tp.py."""
     from synthanatomy_tpu_torch.run_transformer import run
 
     with pytest.raises(error, match=match):

@@ -1,0 +1,320 @@
+"""The port's tensor parallelism on the CPU: four gloo ranks in a (2, 2)
+layout (``tests/torch_sp_tp_worker.py tp``, started once for the module
+by ``parallel.distributed.launch``) against the JAX package.
+
+- ``make_tp_train_step`` at (1, 2) (each model group {0, 1} and {2, 3}
+  trains the whole batch, rows 5 and 6 on, their plain versions on the
+  CPU) against JAX's ``make_tp_train_step`` on a 2-device model mesh:
+  plain and the paper form with 'bos_replacement' conditioning (ReZero at
+  gains 0.7/0.5, learned spatial tables; ``tests/test_parallel.py:904,
+  971``).  The loss within 1e-5 relative; the gradients, gathered over
+  the model group and unpacked (JAX's captured and unpacked), within
+  1e-4 of each tensor's largest value; the canonical parameters after one
+  Adam step within 1e-4 in norm of the one-device port step's.
+- The DP×TP step over 2×2 ranks (``:74``) against the one-device port
+  step on the whole batch, at the same bounds.
+- Each rank holds gh/P FAVOR and lh/P local heads, and every rank ends
+  with the same canonical parameters.
+- ``pack_tp_params`` equals JAX's packing; ``pack_tp_state`` and
+  ``unpack_tp_state`` (parameters and Adam's moments) are exact inverses
+  (``:1059``).
+- ``tp_step_compatible`` refuses what JAX's refuses, with its reasons, and
+  ``make_tp_train_step`` raises ``NotImplementedError("TP step: …")``.
+"""
+
+import copy
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, NamedTuple
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, NamedSharding
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from synthanatomy_tpu.models.ordering import Ordering as JOrdering  # noqa: E402
+from synthanatomy_tpu.models.performer import Performer as JPerformer  # noqa: E402
+from synthanatomy_tpu.parallel import tensor_parallel as JTP  # noqa: E402
+from synthanatomy_tpu.train.transformer_steps import create_transformer_train_state  # noqa: E402
+from synthanatomy_tpu_torch.interop import (  # noqa: E402
+    performer_from_jax,
+    performer_state_dict_from_jax,
+)
+from synthanatomy_tpu_torch.models.ordering import Ordering  # noqa: E402
+from synthanatomy_tpu_torch.models.performer import Performer  # noqa: E402
+from synthanatomy_tpu_torch.parallel import tensor_parallel as TP  # noqa: E402
+from synthanatomy_tpu_torch.parallel.distributed import launch  # noqa: E402
+from synthanatomy_tpu_torch.train.transformer_steps import (  # noqa: E402
+    create_transformer_train_state as create_state,
+    make_transformer_train_step,
+)
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_sp_tp_worker.py")
+WORLD = 4
+LR = 1e-3
+NET = dict(num_tokens=17, dim=32, depth=2, heads=4, dim_head=8, local_attn_heads=2,
+           local_window_size=8, nb_features=8, scan_chunk=8)
+GRID = (2, 3, 4)
+# name: (Performer options beyond NET, batch, conds, DP×TP)
+CASES = {
+    "plain": (dict(max_seq_len=24), 2, None, False),
+    "paper_bos": (dict(max_seq_len=25, use_rezero=True, spatial_position_emb="absolute",
+                       spatial_shape=GRID, conditioning_num_tokens=(5,),
+                       conditioning_type="bos_replacement"), 2, [[1, 3]], False),
+    "dp_x_tp": (dict(max_seq_len=24, use_rezero=True), 4, None, True),
+}
+
+
+def _close(got, want, tol, name=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want).max()
+    assert err <= tol * max(np.abs(want).max(), 1e-6), (name, err, np.abs(want).max())
+
+
+def _close_norm(got, want, tol, name=""):
+    """‖got − want‖ ≤ tol · ‖want‖: parameters after Adam's first step,
+    which moves an element by ~lr whatever its gradient's size, so a
+    near-zero gradient's rounding can flip one element's step."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.linalg.norm(got - want)
+    assert err <= tol * max(np.linalg.norm(want), 1e-6), (name, err, np.linalg.norm(want))
+
+
+class _Capture(NamedTuple):
+    hyperparams: dict
+    g: Any
+
+
+def _capture_tx():
+    """An optax transformation that changes nothing and keeps the last
+    gradients in its state, so the JAX step hands them back."""
+    import optax
+
+    def init(p):
+        return _Capture({"learning_rate": jnp.zeros(())}, jax.tree.map(jnp.zeros_like, p))
+
+    def update(g, s, p=None):
+        return jax.tree.map(jnp.zeros_like, g), _Capture(s.hyperparams, g)
+
+    return optax.GradientTransformation(init, update)
+
+
+def _jax_model(opts):
+    opts = dict(opts)
+    if "spatial_shape" in opts:
+        opts["ordering"] = JOrdering("raster_scan", 3, opts["spatial_shape"])
+    return JPerformer(**NET, **opts, dtype=jnp.float32)
+
+
+def _port_kwargs(opts):
+    kw = {k: v for k, v in dict(NET, **opts).items() if k not in ("num_tokens", "dim", "depth")}
+    if "spatial_shape" in kw:
+        kw["ordering"] = Ordering("raster_scan", 3, kw["spatial_shape"])
+    return dict(kw, dtype=torch.float32, attn_compute_dtype=torch.float32, device="cpu")
+
+
+def _with_gains(params):
+    """ReZero gains 0.7/0.5: gradients reach every block weight."""
+    return {k: (dict(v, g_attn=np.full((1,), 0.7, np.float32),
+                     g_ff=np.full((1,), 0.5, np.float32)) if k.startswith("block_") else v)
+            for k, v in params.items()}
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """JAX's weights and batch of each case."""
+    out = {}
+    for name, (opts, batch, conds, dp) in CASES.items():
+        jm = _jax_model(opts)
+        jc = None if conds is None else [jnp.asarray(c, jnp.int32)[:1] for c in conds]
+        state, _ = create_transformer_train_state(jm, jax.random.key(0), opts["max_seq_len"],
+                                                  learning_rate=LR, conditionings=jc)
+        params = jax.device_get(state.params)
+        if opts.get("use_rezero"):
+            params = _with_gains(params)
+        n_tok = opts["max_seq_len"] - 1
+        r = np.random.default_rng(17)
+        x, y = (r.integers(0, 16, (batch, n_tok)).astype(np.int32) for _ in range(2))
+        out[name] = dict(opts=opts, jm=jm, state=state, params=params,
+                         favor=jax.device_get(state.favor), x=x, y=y, conds=conds, dp=dp)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_tp(cases):
+    """JAX's TP step on a 2-device model mesh for the (1, 2) cases: loss,
+    gradients (captured, unpacked) and JAX's packing of the weights."""
+    cap = _capture_tx()
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("model",))
+    out = {}
+    for name, case in cases.items():
+        if case["dp"]:
+            continue
+        jm = case["jm"]
+        jc = None if case["conds"] is None else [jnp.asarray(c, jnp.int32)
+                                                 for c in case["conds"]]
+        packed = JTP.pack_tp_params(jm, case["params"], 2)
+        shard = jax.tree.map(lambda s: NamedSharding(mesh, s), JTP.tp_param_specs(packed))
+        packed = jax.device_put(packed, shard)
+        tp_state = case["state"].replace(params=packed, opt_state=cap.init(packed))
+        step = JTP.make_tp_train_step(jm, cap, mesh)
+        new, met = jax.jit(step)(tp_state, jnp.asarray(case["x"]), jnp.asarray(case["y"]),
+                                 {"lr": LR}, jc)
+        out[name] = dict(loss=float(met["Loss"]),
+                         packed=JTP.pack_tp_params(jm, case["params"], 2),
+                         grads=JTP.unpack_tp_params(jm, jax.device_get(new.opt_state.g), 2))
+    return out
+
+
+def _port(case, tree=None):
+    return performer_from_jax(case["params"] if tree is None else tree, case["favor"],
+                              NET["depth"], **_port_kwargs(case["opts"]))
+
+
+def _inputs(case):
+    conds = None if case["conds"] is None else [torch.tensor(c) for c in case["conds"]]
+    return torch.from_numpy(case["x"]).long(), torch.from_numpy(case["y"]).long(), conds
+
+
+@pytest.fixture(scope="module")
+def one_device(cases):
+    """The one-device port step on each case's whole batch: loss,
+    gradients and the parameters after Adam's step."""
+    out = {}
+    for name, case in cases.items():
+        model = _port(case)
+        state = create_state(model, 0, learning_rate=LR)
+        _, met = make_transformer_train_step(model)(state, *_inputs(case), {"lr": LR})
+        out[name] = {"loss": float(met["Loss"]),
+                     "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+                     "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(cases, tmp_path_factory):
+    """The four ranks' results, as a future: the ranks run while this
+    process computes JAX's and the one-device side (ask for this fixture
+    first)."""
+    spec = {"tp": []}
+    for name, case in cases.items():
+        x, y, conds = _inputs(case)
+        spec["tp"].append(dict(name=name, model=_port(case), inputs=x, targets=y, conds=conds,
+                               dp=case["dp"]))
+    out = tmp_path_factory.mktemp("tp")
+    torch.save(spec, out / "spec.pt")
+
+    def run():
+        launch([sys.executable, WORKER, "tp", str(out / "spec.pt"), str(out)], WORLD,
+               timeout=300)
+        return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(run)
+
+
+@pytest.mark.parametrize("name", ["plain", "paper_bos"])
+def test_tp_step_matches_jax(ranks, cases, jax_tp, name):
+    case, ref = cases[name], jax_tp[name]
+    want = dict(_port(case, ref["grads"]).named_parameters())
+    outs = ranks.result()
+    for r in (0, 2):  # the first rank of each model group
+        got = outs[r][name]
+        np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
+        assert set(got["grads"]) == set(want)
+        for n, p in want.items():
+            _close(got["grads"][n].numpy(), p.detach().numpy(), 1e-4, n)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tp_step_matches_the_one_device_step(ranks, one_device, name):
+    """(1, 2) and the DP×TP (2, 2) step: loss, gradients and the canonical
+    parameters after Adam's step against one process on the whole batch;
+    every rank holds the same canonical parameters, and gh/P + lh/P heads."""
+    want = one_device[name]
+    outs = ranks.result()
+    got = outs[0][name]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    for key, close in (("grads", _close), ("params", _close_norm)):
+        assert set(got[key]) == set(want[key])
+        for n, t in want[key].items():
+            close(got[key][n].numpy(), t.numpy(), 1e-4, f"{key} {n}")
+    assert all(out[name]["agree"] for out in outs)
+    assert all(out[name]["heads"] == (2, 1) for out in outs)
+
+
+def test_pack_matches_jax_and_state_round_trip_is_exact(cases, jax_tp):
+    case = cases["paper_bos"]
+    model = _port(case)
+    want = performer_state_dict_from_jax(jax_tp["paper_bos"]["packed"], case["favor"],
+                                         NET["depth"])
+    packed = TP.pack_tp_params(model, model.state_dict(), 2)
+    assert set(packed) == set(want)
+    for n, t in want.items():
+        assert torch.equal(packed[n], t), n
+    back = TP.unpack_tp_params(model, packed, 2)
+    assert all(torch.equal(back[n], t) for n, t in model.state_dict().items())
+
+    # the state: parameters and Adam's moments after a step, out and back
+    x, y, conds = _inputs(case)
+    state = create_state(model, 0, learning_rate=LR)
+    make_transformer_train_step(model)(state, x, y, conds, {"lr": LR})
+    before = copy.deepcopy((model.state_dict(), state.optimizer.state_dict()))
+    TP.pack_tp_state(model, state, 2)
+    q = model.blocks[0].attn.to_q.weight
+    assert not torch.equal(q, before[0]["blocks.0.attn.to_q.weight"])
+    TP.unpack_tp_state(model, state, 2)
+    assert all(torch.equal(model.state_dict()[n], t) for n, t in before[0].items())
+    after = state.optimizer.state_dict()["state"]
+    for i, st in before[1]["state"].items():
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(after[i][key], st[key]), (i, key)
+
+
+REFUSED = {
+    "heads": dict(heads=3, local_attn_heads=1),
+    "scalenorm": dict(use_scalenorm=True),
+    "rotary": dict(rotary_position_emb=True),
+    "fixed": dict(fixed_position_emb=True),
+    "axial": dict(axial_position_emb=True),
+    "fixed_spatial": dict(spatial_position_emb="fixed", spatial_shape=GRID),
+    "prepending": dict(conditioning_num_tokens=(5,), conditioning_type="prepending"),
+    "attn_out_bias": dict(attn_out_bias=True),
+    "dropout": dict(ff_dropout=0.1),
+    "ff_glu": dict(ff_glu=True),
+    "reversible": dict(reversible=True),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_tp_step_compatible_refuses_as_jax(name):
+    opts = dict(NET, max_seq_len=24, **REFUSED[name])
+    jopts, popts = dict(opts), {k: v for k, v in opts.items()
+                                if k not in ("num_tokens", "max_seq_len", "dim", "depth")}
+    if "spatial_shape" in opts:
+        jopts["ordering"] = JOrdering("raster_scan", 3, GRID)
+        popts["ordering"] = Ordering("raster_scan", 3, GRID)
+    want = JTP.tp_step_compatible(JPerformer(**jopts), 2)
+    model = Performer(17, 24, 32, 2, **popts, device="cpu")
+    assert TP.tp_step_compatible(model, 2) == want and not want[0]
+    if name != "heads":  # over one rank (no group here) the heads divide
+        with pytest.raises(NotImplementedError, match=f"TP step: {want[1]}"):
+            TP.make_tp_train_step(model, None)
+
+
+def test_tp_step_needs_the_conditioning_values():
+    model = Performer(17, 24, 32, 1, heads=2, dim_head=8, nb_features=8, scan_chunk=8,
+                      conditioning_num_tokens=(5,), conditioning_type="bos_replacement",
+                      dtype=torch.float32, device="cpu")
+    state = TP.shard_tp_state(model, create_state(model, 0), None)
+    x = torch.zeros(2, 24, dtype=torch.long)
+    with pytest.raises(ValueError, match="conditioning"):
+        TP.make_tp_train_step(model, None)(state, x, x, None, {"lr": LR})

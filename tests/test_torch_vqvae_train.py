@@ -314,10 +314,11 @@ def test_entry_points_default_to_the_card():
     "tools/probe_int4_unpack.py", "tools/probe_pallas_overhead.py",
     "tools/bench_decode_quant.py", "parallel/__init__.py", "parallel/distributed.py",
     "parallel/mesh.py", "parallel/sharding_rules.py", "tools/dryrun_multigpu.py",
+    "parallel/sequence_parallel.py", "parallel/tensor_parallel.py",
 ])
 def test_new_port_modules_import_no_jax(module):
-    """The modules of the splash, exact-decode and data-parallel slices
-    exist and import neither JAX nor the JAX package (the whole-package
+    """The modules of the splash, exact-decode, data-, sequence- and
+    tensor-parallel slices exist and import neither JAX nor the JAX package (the whole-package
     walk above covers them too)."""
     path = Path(__file__).resolve().parents[1] / "synthanatomy_tpu_torch" / module
     banned = {"jax", "flax", "optax", "synthanatomy_tpu"}
