@@ -264,8 +264,8 @@ result, without them.  Phases, each fatal on failure:
    5 and 6), rank 0's checkpoint with every Adam state, a one-device
    resume of it to epoch 2, and one sampling call of 16 grids (1400 row 1
    launches).
-22. (in a process of its own) sequence and tensor parallelism: (a) two
-   ranks over gloo sharing card 0 (``--sptp-rank``), each held on rank 0
+22. (in a process of its own) sequence, tensor and pipeline parallelism:
+   (a) two ranks over gloo sharing card 0 (``--sptp-rank``), each held on rank 0
    against one process on the same B6 batch, the paper prior in f32 with
    ReZero gains 0.1: the SP step (seq_len 1400 padded to 1680, 840 tokens a
    rank; the plain attention, as JAX's SP step; loss within 1e-5 relative,
@@ -281,7 +281,16 @@ result, without them.  Phases, each fatal on failure:
    under ``--sp_shards=2`` (no row 5 or 6 launch) and one under
    ``--mesh_shape='(1,2)'`` (rows 5 and 6 on both ranks), rank 0's
    canonical checkpoints with every Adam state, and a one-device resume of
-   the TP checkpoint to epoch 2.
+   the TP checkpoint to epoch 2; (c) in the same rank processes, (c1) the
+   PP step at (1, 2) (12 layers a rank through rows 5 and 6, 3
+   microbatches of 2 rows, stage remat; loss and the gradients gathered
+   into the canonical layout at (a)'s bounds against one process with the
+   same kernels; each rank's row 5 and row 6 launches, all > 0, beside the
+   count predicted from the layers, microbatches and recompute; its time
+   beside one process's), (c2) ``run_transformer --pp_stages=2`` at paper
+   width on phase 19's grids: an epoch of 2 steps with rows 5 and 6 on
+   both ranks, rank 0's canonical checkpoint with every Adam state, and a
+   one-device resume of it to epoch 2.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -387,6 +396,8 @@ def _check_sass():
     kernels), row 7's f32 instantiations and partial sums, splash's dq
     reduction and the stream's layer sum (no product) are listed without
     the requirement."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from synthanatomy_tpu_torch import _build
     from synthanatomy_tpu_torch.ops import favor_attention as fa
     from synthanatomy_tpu_torch.ops import local_attention_flash as lf
@@ -395,10 +406,13 @@ def _check_sass():
     from synthanatomy_tpu_torch.ops import res_stack as rs
     from synthanatomy_tpu_torch.ops import vq
 
+    # one cuobjdump a library, all started together
+    with ThreadPoolExecutor(len(TENSOR_CORE_KERNELS)) as pool:
+        dumps = dict(zip(TENSOR_CORE_KERNELS, pool.map(_build.sass, TENSOR_CORE_KERNELS)))
     for lib, kernels in TENSOR_CORE_KERNELS.items():
         regs = _build.ptxas_kernels(lib)
         held = 0
-        for mangled, (label, body) in sorted(_build.sass(lib).items(), key=lambda kv: kv[1][0]):
+        for mangled, (label, body) in sorted(dumps[lib].items(), key=lambda kv: kv[1][0]):
             hmma, hgmma = body.count("HMMA"), body.count("HGMMA")
             base = label.split("<")[0].split("::")[-1]
             must = base in kernels and (lib in ALL_INSTANTIATIONS or "__nv_bfloat16" in label
@@ -412,7 +426,7 @@ def _check_sass():
                   f"{r.get('spill_loads')} bytes, stack {r.get('stack')} bytes")
         _require(held > 0, f"{lib}: no bf16 kernel found in the SASS")
         if lib == "vq_argmin":
-            spills = [(lbl, r) for m, (lbl, _) in _build.sass(lib).items()
+            spills = [(lbl, r) for m, (lbl, _) in dumps[lib].items()
                       for r in [regs.get(m, {})] if lbl.startswith("vq_argmin_kernel")]
             _require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                          for _, r in spills), f"vq_argmin: ptxas spills {spills}")
@@ -1747,20 +1761,19 @@ def _check_bench(dev, smi):
     print(f"[bench] paper form through splash, f32 attention: losses {run32['losses']}, "
           f"{ls.local_attention_splash.launches} splash launches in {len(run32['losses'])} steps")
 
-    # 13d. timings: the bench step, splash and row 6 in turns
+    # 13d. timings: the bench step, splash and row 6 in turns (splash, row 6,
+    # splash)
     lf.local_attention_flash.launches = 0
     run_b1 = bench.main(BENCH_BANDED + BENCH_STEPS)
-    run_b2 = bench.main(BENCH_BANDED + BENCH_STEPS)
     _require(lf.local_attention_flash.launches > 0, "the row-6 bench did not reach row 6")
     run_s2 = bench.main(BENCH_SPLASH + BENCH_STEPS)
     step_s = (run_s1["ms_per_step"] + run_s2["ms_per_step"]) / 2
-    step_b = (run_b1["ms_per_step"] + run_b2["ms_per_step"]) / 2
+    step_b = run_b1["ms_per_step"]
     tokens = TRAIN_BATCH * (SEQ + 1)
     rec["step"] = (step_s, step_b)
     print(f"[time] bench step B{TRAIN_BATCH} x {SEQ + 1} (bf16, remat, FAVOR through row 5): "
           f"splash {step_s:.1f} ms ({run_s1['ms_per_step']:.1f}, {run_s2['ms_per_step']:.1f}), "
-          f"{tokens / (step_s / 1e3):.0f} tok/s; row 6 {step_b:.1f} ms "
-          f"({run_b1['ms_per_step']:.1f}, {run_b2['ms_per_step']:.1f}), "
+          f"{tokens / (step_s / 1e3):.0f} tok/s; row 6 {step_b:.1f} ms, "
           f"{tokens / (step_b / 1e3):.0f} tok/s  [{smi}]")
 
     # 13e. one layer's local attention, fwd+bwd, at the paper shape
@@ -3605,13 +3618,20 @@ def _check_dp(dev, smi, root):
     return rec
 
 
-# phase 22: sequence and tensor parallelism.  Two ranks share card 0 over
-# gloo, as in phase 21, with the prior at paper width in f32 (ReZero gains
-# 0.1, B6): the SP step at seq_len 1400 (l_pad 1680, 840 tokens a rank) and
-# the TP step at (1, 2) with rows 5 and 6 on (4 FAVOR and 4 local heads a
-# rank), each against one process; then run_transformer under both layouts.
+# phase 22: sequence, tensor and pipeline parallelism.  Two ranks share card
+# 0 over gloo, as in phase 21, with the prior at paper width in f32 (ReZero
+# gains 0.1, B6): the SP step at seq_len 1400 (l_pad 1680, 840 tokens a
+# rank), the TP step at (1, 2) with rows 5 and 6 on (4 FAVOR and 4 local
+# heads a rank) and the PP step at (1, 2) (12 layers a rank, 3 microbatches
+# of 2 rows), each against one process; then run_transformer under the three
+# layouts.
 SPTP_RANKS = 2
 SPTP_LOSS, SPTP_GRAD = 1e-5, 1e-4  # relative loss, gradients in norm
+PP_MICROBATCHES = 3  # the CLI's rule at B6 over 2 stages: the most up to 4 dividing 6
+# a PP step's launches on a rank, a layer of its stage and a microbatch: the
+# forward, its recompute in the backward (stage remat) and the backward:
+# row 5 3 + 3 + 4, row 6 1 + 1 + 2
+PP_FAVOR_PER_LAYER_MB, PP_LOCAL_PER_LAYER_MB = 10, 4
 
 
 def _sptp_rank(root):
@@ -3619,9 +3639,10 @@ def _sptp_rank(root):
     ``parallel.distributed.launch``; gloo, both ranks on card 0): (a) the
     prior's SP step and TP step at paper width, each held on rank 0 against
     one process on the same batch (SP: the plain attention it runs, as
-    JAX's SP step does; TP: rows 5 and 6, as the TP step), rank 0 writing
-    its record to ``ROOT/sptp.json``; then (b) ``_sptp_cli``, the CLI calls
-    in the same group."""
+    JAX's SP step does; TP: rows 5 and 6, as the TP step), and (c1) the PP
+    step, held against the TP step's one process (the same kernels, weights
+    and batch), rank 0 writing the record to ``ROOT/sptp.json``; then (b,
+    c2) ``_sptp_cli``, the CLI calls in the same group."""
     import numpy as np
     import torch
 
@@ -3629,6 +3650,7 @@ def _sptp_rank(root):
     from synthanatomy_tpu_torch.ops import favor_attention as fa
     from synthanatomy_tpu_torch.ops import local_attention_flash as lf
     from synthanatomy_tpu_torch.parallel import distributed as D
+    from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
     from synthanatomy_tpu_torch.parallel import tensor_parallel as TP
     from synthanatomy_tpu_torch.parallel.mesh import build_groups, rank_layout
     from synthanatomy_tpu_torch.parallel.sequence_parallel import (
@@ -3736,21 +3758,27 @@ def _sptp_rank(root):
                                  use_pallas_favor=True)
     attn = tp_state.model.blocks[0].attn
     heads = (attn.heads - attn.local_heads, attn.local_heads)
-    fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
-    tp_state, m = step(tp_state, inputs, targets, None, sched)
-    torch.cuda.synchronize()
-    counts = torch.zeros(world, 2)
-    counts[rank] = torch.tensor([float(fa.favor_attention_fused.launches),
-                                 float(lf.local_attention_flash.launches)])
-    torch.distributed.all_reduce(counts, group=group)
-    rec["tp_launches"] = counts.int().tolist()
-    _require(bool((counts > 0).all()), f"TP step launches (row 5, row 6) by rank {counts}")
+    def launched(label, run):
+        """Each rank's row 5 and row 6 launches in ``run()``, all > 0."""
+        fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = torch.zeros(world, 2)
+        counts[rank] = torch.tensor([float(fa.favor_attention_fused.launches),
+                                     float(lf.local_attention_flash.launches)])
+        torch.distributed.all_reduce(counts, group=group)
+        _require(bool((counts > 0).all()), f"{label} launches (row 5, row 6) by rank {counts}")
+        return out, counts.int().tolist()
+
+    (tp_state, m), rec["tp_launches"] = launched(
+        "TP step", lambda: step(tp_state, inputs, targets, None, sched))
     g_tp, loss_tp = TP.gather_tp_grads(model, tp_state, tp.inner_group), float(m["Loss"])
     rec["tp_ms"] = wall_ms(lambda: step(tp_state, inputs, targets, None, sched), 1)
     del tp_state, step, state
     torch.cuda.empty_cache()
+    ref_kernels = one_process(kernels=True) if rank == 0 else None
     if rank == 0:
-        rec["tp"] = held("TP step", loss_tp, g_tp, one_process(kernels=True))
+        rec["tp"] = held("TP step", loss_tp, g_tp, ref_kernels)
         per_rank = ", ".join(f"rank {r}: row 5 {c[0]}, row 6 {c[1]}"
                              for r, c in enumerate(rec["tp_launches"]))
         say(f"[tp] TP step at (1, {world}), paper prior f32 (ReZero gains 0.1), B{b}, "
@@ -3761,9 +3789,47 @@ def _sptp_rank(root):
             f"per tensor {rec['tp']['worst'][1]:.3e} at {rec['tp']['worst'][0]}); launches a "
             f"TP step by rank ({per_rank}); {rec['tp_ms']:.1f} ms a TP step against "
             f"{rec['tp']['one_ms']:.1f} ms for one process  [{note}]")
+    del g_tp
+    D.barrier(group)
+
+    # (c1) the PP step at (1, world): the rank's stage of 24 / world layers,
+    # rows 5 and 6 in them, PP_MICROBATCHES microbatches
+    pp = build_groups(rank_layout(None, world, rank, pp_stages=world))
+    model.load_state_dict(init)
+    state = create_transformer_train_state(model, seed=0)
+    packed = PP.pack_pp_state(model, state, pp.inner_group)
+    step = PP.make_pp_train_step(model, pp.inner_group, n_microbatches=PP_MICROBATCHES)
+    (packed, m), rec["pp_launches"] = launched(
+        "PP step", lambda: step(packed, inputs, targets, None, sched))
+    per_stage = model.depth // world * PP_MICROBATCHES
+    rec["pp_predicted"] = [per_stage * PP_FAVOR_PER_LAYER_MB, per_stage * PP_LOCAL_PER_LAYER_MB]
+    _require(all(c == rec["pp_predicted"] for c in rec["pp_launches"]),
+             f"PP step launches (row 5, row 6) by rank {rec['pp_launches']}, predicted "
+             f"{rec['pp_predicted']} on each")
+    g_pp = PP.unpack_pp_tree(model, {n: p.grad for n, p in model.named_parameters()},
+                             pp.inner_group)
+    loss_pp = float(m["Loss"])
+    rec["pp_ms"] = wall_ms(lambda: step(packed, inputs, targets, None, sched), 1)
+    del packed, step, state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        rec["pp"] = held("PP step", loss_pp, g_pp, ref_kernels)
+        per_rank = ", ".join(f"rank {r}: row 5 {c[0]}, row 6 {c[1]}"
+                             for r, c in enumerate(rec["pp_launches"]))
+        say(f"[pp] PP step at (1, {world}), paper prior f32 (ReZero gains 0.1), B{b} in "
+            f"{PP_MICROBATCHES} microbatches, {model.depth // world} layers a rank with rows 5 "
+            f"and 6, stage remat: loss {loss_pp:.7f}, {rec['pp']['loss_rel']:.3e} relative to "
+            f"one process with the same kernels (tol {SPTP_LOSS:g}), gradients gathered into "
+            f"the canonical layout norm-relative {rec['pp']['grad_rel']:.3e} (tol "
+            f"{SPTP_GRAD:g}; largest per tensor {rec['pp']['worst'][1]:.3e} at "
+            f"{rec['pp']['worst'][0]}); launches a PP step by rank ({per_rank}; predicted "
+            f"row 5 {rec['pp_predicted'][0]}, row 6 {rec['pp_predicted'][1]} a rank: "
+            f"{model.depth // world} layers x {PP_MICROBATCHES} microbatches x (forward, "
+            f"recompute, backward)); {rec['pp_ms']:.1f} ms a PP step against "
+            f"{rec['tp']['one_ms']:.1f} ms for one process  [{note}]")
         with open(os.path.join(root, "sptp.json"), "w") as f:
             json.dump(rec, f)
-    del model, init, g_tp, inputs, targets
+    del model, init, g_pp, inputs, targets, ref_kernels
     torch.cuda.empty_cache()
     D.barrier(group)
     _sptp_cli(root, rank)
@@ -3810,11 +3876,12 @@ def _sptp_cli(root, rank):
 
 def _check_sptp(dev, smi, root):
     """Phase 22: two ranks over gloo on card 0 (``_sptp_rank``): (a) the SP
-    and TP steps; (b) ``run_transformer`` at paper width on phase 19's
-    grids in ``root`` (``_sptp_cli``): an epoch of 2 steps under
-    ``--sp_shards=2`` and one under ``--mesh_shape='(1,2)'``; then a
-    one-device resume of the TP checkpoint to epoch 2 (this process).
-    Runs in a process of its own."""
+    and TP steps, (c1) the PP step; (b, c2) ``run_transformer`` at paper
+    width on phase 19's grids in ``root`` (``_sptp_cli``): an epoch of 2
+    steps under ``--sp_shards=2``, one under ``--mesh_shape='(1,2)'`` and
+    one under ``--pp_stages=2``; then one-device resumes of the TP and the
+    PP checkpoints to epoch 2 (this process).  Runs in a process of its
+    own."""
     import importlib
 
     import numpy as np
@@ -3833,12 +3900,14 @@ def _check_sptp(dev, smi, root):
     calls = [("run_transformer", _argv(epochs=1, experiment_name="sp", sp_shards=SPTP_RANKS,
                                        **prior)),
              ("run_transformer", _argv(epochs=1, experiment_name="tp",
-                                       mesh_shape=f"(1,{SPTP_RANKS})", **prior))]
+                                       mesh_shape=f"(1,{SPTP_RANKS})", **prior)),
+             ("run_transformer", _argv(epochs=1, experiment_name="pp", pp_stages=SPTP_RANKS,
+                                       **prior))]
     with open(os.path.join(root, "sptp_cli.json"), "w") as f:
         json.dump(calls, f)
     t0 = time.perf_counter()
     launch([sys.executable, "-u", os.path.abspath(__file__), "--sptp-rank", root], SPTP_RANKS,
-           timeout=240)
+           timeout=330)
     with open(os.path.join(root, "sptp.json")) as f:
         rec = json.load(f)
     rec["ranks_s"] = time.perf_counter() - t0
@@ -3846,33 +3915,38 @@ def _check_sptp(dev, smi, root):
     for r in range(SPTP_RANKS):
         with open(os.path.join(root, f"sptp_cli_rank{r}.json")) as f:
             ranks.append(json.load(f))
+    names = ("sp", "tp", "pp")
     for r, runs in enumerate(ranks):
-        for (name, run) in zip(("sp", "tp"), runs):
+        for (name, run) in zip(names, runs):
             _require(len(run["history"]) == 1 and run["finite"],
                      f"rank {r} {name} run: {run['history']}")
         _require(runs[0]["launches"] == [0, 0], f"rank {r}: the SP run launched {runs[0]}")
-        _require(min(runs[1]["launches"]) > 0, f"rank {r}: the TP run launched {runs[1]}")
+        for name, run in zip(names[1:], runs[1:]):
+            _require(min(run["launches"]) > 0, f"rank {r}: the {name} run launched {run}")
     ck = {}
-    for name, run in zip(("sp", "tp"), ranks[0]):
+    for name, run in zip(names, ranks[0]):
         ckdir = os.path.join(proj, name, "performer", "checkpoints")
         _require("checkpoint_epoch=1" in os.listdir(ckdir), f"{name}: no rank-0 checkpoint")
         _require(run["adam_states"] == run["params"] and run["step"] == 2,
                  f"{name}: rank 0 wrote {run['adam_states']} of {run['params']} Adam states "
                  f"at step {run['step']}")
         ck[name] = run["params"]
-    t0 = time.perf_counter()
     mod = importlib.import_module("synthanatomy_tpu_torch.run_transformer")
-    res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name="tp", **prior))
-    hist = res["history"]
-    _require(len(hist) == 1 and np.isfinite(hist[0]["Loss"]) and int(res["state"].step) == 4,
-             f"one-device resume of the TP checkpoint: {hist}, step {res['state'].step}")
-    _require("checkpoint_epoch=2" in os.listdir(os.path.join(proj, "tp", "performer",
-                                                             "checkpoints")),
-             "the one-device resume wrote no epoch 2")
-    rec["resume_s"] = time.perf_counter() - t0
-    del res
-    torch.cuda.empty_cache()
-    sp_run, tp_run = ranks[0]
+    resumed = {}
+    for name in ("tp", "pp"):
+        t0 = time.perf_counter()
+        res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name=name, **prior))
+        hist = res["history"]
+        _require(len(hist) == 1 and np.isfinite(hist[0]["Loss"]) and int(res["state"].step) == 4,
+                 f"one-device resume of the {name} checkpoint: {hist}, step {res['state'].step}")
+        _require("checkpoint_epoch=2" in os.listdir(os.path.join(proj, name, "performer",
+                                                                 "checkpoints")),
+                 f"the one-device resume of {name} wrote no epoch 2")
+        resumed[name] = (hist[0]["Loss"], time.perf_counter() - t0)
+        del res
+        torch.cuda.empty_cache()
+    rec["resume_s"], rec["pp_resume_s"] = resumed["tp"][1], resumed["pp"][1]
+    sp_run, tp_run, pp_run = ranks[0]
     print(f"[sptp] run_transformer at paper width (24L/d512, bf16, B{TRAIN_BATCH}) on phase "
           f"19's grids over {SPTP_RANKS} gloo ranks on card 0: --sp_shards={SPTP_RANKS} "
           f"trained an epoch of 2 steps (CE {sp_run['history'][0]['Loss']:.4f}, no row 5 or 6 "
@@ -3881,16 +3955,26 @@ def _check_sptp(dev, smi, root):
               f"{r}: row 5 {runs[1]['launches'][0]}, row 6 {runs[1]['launches'][1]}"
               for r, runs in enumerate(ranks)) + f"); rank 0 wrote canonical checkpoints with "
           f"all {ck['sp']} and {ck['tp']} Adam states, and one device resumed the TP "
-          f"checkpoint to epoch 2 (step 4, CE {hist[0]['Loss']:.4f}); the ranks' process "
+          f"checkpoint to epoch 2 (step 4, CE {resumed['tp'][0]:.4f}); the ranks' process "
           f"{rec['ranks_s']:.1f} s ((b): SP run {sp_run['s']:.1f} s, TP run "
           f"{tp_run['s']:.1f} s), resume {rec['resume_s']:.1f} s  [{smi}]")
+    print(f"[pp] run_transformer --pp_stages={SPTP_RANKS} at paper width (24L/d512, bf16, "
+          f"B{TRAIN_BATCH}: {PP_MICROBATCHES} microbatches, "
+          f"{PRIOR_FLAGS['n_layers'] // SPTP_RANKS} layers a rank) on phase 19's "
+          f"grids over {SPTP_RANKS} gloo ranks on card 0: an epoch of 2 steps (CE "
+          f"{pp_run['history'][0]['Loss']:.4f}; launches by rank " + ", ".join(
+              f"{r}: row 5 {runs[2]['launches'][0]}, row 6 {runs[2]['launches'][1]}"
+              for r, runs in enumerate(ranks)) + f"); rank 0 wrote a canonical checkpoint "
+          f"with all {ck['pp']} Adam states, "
+          f"and one device resumed it to epoch 2 (step 4, CE {resumed['pp'][0]:.4f}); PP run "
+          f"{pp_run['s']:.1f} s, resume {rec['pp_resume_s']:.1f} s  [{smi}]")
     return rec
 
 
 # phase number and seconds before its child is killed (phase 20 took 44-62 s on
 # an H100 80GB HBM3 at 700 W; the rest leaves room for 80 + 40 epochs)
 PHASES = {"--cli-phase": (18, 600), "--prior-phase": (19, 600), "--quality-phase": (20, 300),
-          "--dp-phase": (21, 240), "--sptp-phase": (22, 330)}
+          "--dp-phase": (21, 240), "--sptp-phase": (22, 450)}
 
 
 def _run_phase(flag, root):
@@ -4003,6 +4087,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
     _check_sass()
+    _mark("phase 2b (the SASS)")
 
     # 3. kernel against plain
     variants = [("int8", False, False), ("int8", False, True),
@@ -4032,6 +4117,7 @@ def main() -> int:
             if shape_name == "paper":
                 max_err = max(max_err, out_err)
     del models
+    _mark("phase 3 (row 1 against its plain version)")
 
     # 4. the paper synthesis through make_synthesizer's defaults
     performer, ordering = _performer(True, seed=0, device=dev, **PAPER)
@@ -4082,6 +4168,8 @@ def main() -> int:
     _require(agree >= 0.9, f"small greedy grids: kernel vs plain agreement {agree}")
     print(f"[check] small prior greedy grids, kernel (card) vs plain (CPU): "
           f"agreement {agree:.4f} over {g_cpu.numel()} codes")
+
+    _mark("phase 4 (the paper synthesis)")
 
     # 5. timings: row 1 at t 700, t on the card as the sampler's graph holds
     # it; elapsed (host-paced where its launches are slower to issue than
@@ -4189,6 +4277,7 @@ def main() -> int:
     del samplers, synth, vqvae, performer, small_model, small_cpu
     torch.cuda.empty_cache()
     kerr = _check_training_kernels(dev)
+    _mark("phase 6 (rows 5 and 6 against their plain versions)")
 
     # 7. the paper training path
     import numpy as np
@@ -4259,6 +4348,7 @@ def main() -> int:
           f"launches per step favor {train_launches['favor'] // TRAIN_STEPS} (24 layers x 3 "
           f"fwd + 4 bwd), local {train_launches['local'] // TRAIN_STEPS} (24 layers x fwd + 2 "
           f"bwd)")
+    _mark("phase 7 (the paper training path)")
 
     # 8. timings
     tokens = TRAIN_BATCH * SEQ
@@ -4273,14 +4363,14 @@ def main() -> int:
         return (time.perf_counter() - t0) / reps
 
     with _plain_kernels():
-        p1 = step_s(2)
+        p1 = step_s(1)
     torch.cuda.reset_peak_memory_stats()
     k1 = step_s(3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     k2 = step_s(3)
     with _plain_kernels():
         torch.cuda.reset_peak_memory_stats()
-        p2 = step_s(2)
+        p2 = step_s(1)
         peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
     step_k, step_p = (k1 + k2) / 2 * 1e3, (p1 + p2) / 2 * 1e3
     print(f"[time] paper train step B{TRAIN_BATCH}: kernels {step_k:.1f} ms ({k1 * 1e3:.1f}, "
@@ -4343,23 +4433,27 @@ def main() -> int:
     verr = _check_vq_kernels(dev)
     rerr = _check_res_kernels(dev)
     torch.cuda.empty_cache()
+    _mark("phase 9 (rows 3, 4 and 7 against their plain versions)")
     # 10-11. the paper stage 1, then the kernels' timings
     print(f"[mem] before phase 10: {_free_gib()}")
     s1 = _check_stage1(dev, smi)
     print(f"[cli] the CLI's step (phase 18, its own process) {cli_step_ms:.1f} ms against "
           f"phase 11's bare step {s1['step'][0]:.1f} ms in this run (both on cuDNN's "
           f"heuristics)  [{smi}]")
+    _mark("phase 10 and the stage-1 step's times")
     t1 = _time_stage1_kernels(dev, smi)
     torch.cuda.empty_cache()
     _mark("phases 9-11 (rows 3, 4 and 7, stage 1, their times)")
     # 12-13. the splash kernels, then the bench entry point through them
     serr = _check_splash(dev)
+    _mark("phase 12 (row 8 against its plain version)")
     sb = _check_bench(dev, smi)
     torch.cuda.empty_cache()
     _mark("phases 12-13 (row 8, tools/bench)")
     # 14-15. the exact decode path, then row 2 and the probes
     _check_exact_decode(dev, smi, fused_s)
     torch.cuda.empty_cache()
+    _mark("phase 14 (the exact decode)")
     ds = _check_decode_side(dev, smi)
     torch.cuda.empty_cache()
     _mark("phases 14-15 (the exact decode, row 2 and the probes)")
@@ -4367,6 +4461,7 @@ def main() -> int:
     # on a trained prior
     ds.update(_check_kernel_body(dev, smi))
     torch.cuda.empty_cache()
+    _mark("phase 16 (row 9d)")
     _check_validation(dev, smi)
     _mark("phases 16-17 (row 9d, the fused step on a trained prior)")
 

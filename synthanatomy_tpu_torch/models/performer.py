@@ -653,25 +653,41 @@ class Performer(nn.Module):
         """x: (B, L) int tokens → (B, L, num_tokens) logits in ``dtype``
         (conditioning positions stripped in 'prepending' mode).  Dropout
         is on in ``train()`` mode."""
+        h = self.emb_drop(self.embed(x, conditionings))
+        h = self.apply_blocks(h, self.blocks)
+        h = self.encode(h, conditionings)
+        if return_encodings:
+            return h
+        return self._head(h)
+
+    def embed(self, x: torch.Tensor,
+              conditionings: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The residual stream before the first block, without dropout:
+        token, spatial and conditioning embeddings plus the positional rows
+        (JAX's ``_embed_prefix`` + ``_pos_emb``)."""
         if x.shape[1] > self.max_seq_len:
             raise ValueError(f"sequence length {x.shape[1]} must be ≤ max_seq_len "
                              f"{self.max_seq_len}")
         h = self._embed_prefix(x, conditionings)
-        n = h.shape[1]
-        h = self.emb_drop(h + self._pos_emb(n)[None].to(h.dtype))
-        rotary = (rotary_sin_cos(self.dim_head, torch.arange(n, device=h.device))
+        return h + self._pos_emb(h.shape[1])[None].to(h.dtype)
+
+    def apply_blocks(self, h: torch.Tensor, blocks: Sequence[PerformerBlock]) -> torch.Tensor:
+        """``blocks`` (this model's, or a contiguous run of them) on the
+        stream ``h``, with the rotary table and the reversible remat."""
+        rotary = (rotary_sin_cos(self.dim_head, torch.arange(h.shape[1], device=h.device))
                   if self.rotary_position_emb else None)
-        for blk in self.blocks:
-            if self.reversible:
-                h = _remat(blk, h, rotary)
-            else:
-                h = blk(h, rotary)
+        for blk in blocks:
+            h = _remat(blk, h, rotary) if self.reversible else blk(h, rotary)
+        return h
+
+    def encode(self, h: torch.Tensor,
+               conditionings: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The final norm of the last block's stream, 'prepending'
+        positions stripped: the encodings ``_head`` maps to logits."""
         h = _layer_norm(h, self.final_norm, self.dtype)
         if conditionings is not None and self.conditioning_type == "prepending":
             h = h[:, len(self.conditioning_embs):]
-        if return_encodings:
-            return h
-        return self._head(h)
+        return h
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         if self.tie_embed:

@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from synthanatomy_tpu_torch.ops import favor_attention as _fused
 from synthanatomy_tpu_torch.ops.local_attention import rounded
+from synthanatomy_tpu_torch.parallel.distributed import stack_over_ranks
 
 __all__ = [
     "default_nb_features",
@@ -218,21 +219,16 @@ def favor_attention(
 
 
 class _StackOverRanks(torch.autograd.Function):
-    """(P, *x.shape): every rank's ``x`` in rank order, by one all-reduce
-    of a zero stack holding this rank's ``x`` at its slot (a sum
-    all-reduce carries CUDA tensors over gloo too; adding zeros is
-    exact).  Backward: each slot's cotangent summed over the ranks, the
-    own slot returned (JAX transposes ``all_gather`` to a reduce-scatter;
-    gloo has none)."""
+    """(P, *x.shape): every rank's ``x`` in rank order
+    (``distributed.stack_over_ranks``).  Backward: each slot's cotangent
+    summed over the ranks, the own slot returned (JAX transposes
+    ``all_gather`` to a reduce-scatter; gloo has none)."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
         ctx.rank = dist.get_rank(group)
-        stack = x.new_zeros((dist.get_world_size(group),) + tuple(x.shape))
-        stack[ctx.rank] = x
-        dist.all_reduce(stack, group=group)
-        return stack
+        return stack_over_ranks([x], group)[0]
 
     @staticmethod
     def backward(ctx, grad):

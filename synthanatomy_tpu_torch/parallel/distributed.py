@@ -16,8 +16,12 @@ of the step's metrics (:func:`average_metrics`), one of an evaluation's
 (:func:`sample_weighted_means`) and, where statistics
 over the global batch enter the forward (the EMA codebook counts,
 batch-norm moments), :func:`all_reduce_sum`, which autograd
-differentiates.  :func:`fold_in` is JAX's ``fold_in(key, axis_index)``
-for a ``torch.Generator``.  :func:`launch` starts N rank processes with
+differentiates.  :func:`stack_over_ranks` gathers the ranks' tensors
+exactly (the TP and PP states, SP's prefix states).
+:func:`pipe_send_recv` moves a pipeline stage's activations to the next
+rank and their cotangents back (JAX's ``ppermute`` over the pipe axis).
+:func:`fold_in` is JAX's ``fold_in(key, axis_index)`` for a
+``torch.Generator``.  :func:`launch` starts N rank processes with
 torchrun's environment on this host (the tests, ``chip_smoke.py`` and
 ``tools/dryrun_multigpu.py`` use it where torchrun is not at hand).
 """
@@ -29,7 +33,7 @@ import os
 import socket
 import subprocess
 import time
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,8 +54,10 @@ __all__ = [
     "launched",
     "local_rank",
     "maybe_initialize_distributed",
+    "pipe_send_recv",
     "ranks_agree",
     "sample_weighted_means",
+    "stack_over_ranks",
     "sum_",
 ]
 
@@ -251,6 +257,79 @@ def gather_to_rank0(t: torch.Tensor, group) -> Optional[torch.Tensor]:
     parts = [torch.empty_like(local) for _ in range(world)] if rank == 0 else None
     dist.gather(local, parts, dst=dist.get_global_rank(group, 0), group=group)
     return torch.cat(parts).to(t.device) if rank == 0 else None
+
+
+def stack_over_ranks(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each of ``tensors`` (alike in number, shapes and dtypes on the
+    ranks) stacked over ``group``'s ranks in rank order, ``(n, *shape)``,
+    on every rank: one sum all-reduce of a zero buffer in which each rank
+    writes its tensors at its slot (f32 for the floats of 32 bits or
+    fewer, else one a dtype).  Adding zeros is exact, and a sum
+    all-reduce carries CUDA tensors over gloo too (its gather takes host
+    tensors); under NCCL the buffer is on the rank's card."""
+    rank, n = group_info(group)
+    if group is None:
+        return [t.unsqueeze(0) for t in tensors]
+
+    def wire(t):
+        return torch.float32 if t.is_floating_point() and t.element_size() <= 4 else t.dtype
+
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for dtype in dict.fromkeys(wire(t) for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if wire(t) == dtype]
+        dev = (torch.device("cuda", torch.cuda.current_device()) if backend_is_nccl(group)
+               else tensors[idx[0]].device)
+        size = sum(tensors[i].numel() for i in idx)
+        flat = torch.zeros(n, size, dtype=dtype, device=dev)
+        off = 0
+        for i in idx:
+            t = tensors[i]
+            flat[rank, off:off + t.numel()].copy_(t.detach().reshape(-1))
+            off += t.numel()
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for i in idx:
+            t = tensors[i]
+            out[i] = flat[:, off:off + t.numel()].reshape((n,) + tuple(t.shape)).to(
+                t.device, t.dtype)
+            off += t.numel()
+    return out
+
+
+def pipe_send_recv(send: Optional[torch.Tensor], recv: Optional[torch.Tensor], group, *,
+                   backward: bool = False) -> None:
+    """One boundary of a pipeline over ``group``'s ranks in rank order:
+    ``send`` goes to the next rank, and ``recv`` (a contiguous tensor the
+    caller allocates) is filled from the previous one; ``backward``: a
+    cotangent, to the previous rank and from the next.  Either may be
+    None: the pipe is no ring, so its first rank receives nothing forward
+    and its last sends nothing.  The send and the receive are posted
+    together in one ``batch_isend_irecv`` (no order of the ranks can
+    deadlock), as ``ops.local_attention._ShiftRight`` does; over gloo the
+    tensors go through the host, whose memory its point-to-point
+    transport reads."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    step = -1 if backward else 1
+    host = not backend_is_nccl(group)
+
+    def peer(offset):
+        if not 0 <= rank + offset < world:
+            raise ValueError(f"rank {rank} of a {world}-stage pipe has no rank {rank + offset}")
+        return dist.get_global_rank(group, rank + offset)
+
+    ops, landing = [], recv
+    if send is not None:
+        buf = (send.detach().cpu() if host else send.detach()).contiguous()
+        ops.append(dist.P2POp(dist.isend, buf, peer(step), group))
+    if recv is not None:
+        if host:
+            landing = torch.empty(recv.shape, dtype=recv.dtype)
+        ops.append(dist.P2POp(dist.irecv, landing, peer(-step), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if landing is not recv:
+        recv.copy_(landing)
 
 
 def fold_in(generator: Optional[torch.Generator], rank: int) -> Optional[torch.Generator]:

@@ -2,10 +2,10 @@
 rank's shard of the data.
 
 Port of ``synthanatomy_tpu/parallel/mesh.py``'s mesh rules (and of the
-runner's SP mesh, ``runners/transformer.py:210-236``) for one process per
-card: the ranks form a 2-D layout (data, inner), laid out as JAX's
-row-major ``make_mesh`` lays out devices, the second axis the fast one
-(rank = data_index · n_inner + inner_index):
+runner's SP and PP meshes, ``runners/transformer.py:210-236``) for one
+process per card: the ranks form a 2-D layout (data, inner), laid out as
+JAX's row-major ``make_mesh`` lays out devices, the second axis the fast
+one (rank = data_index · n_inner + inner_index):
 
 - ``--mesh_shape=(N,)`` or ``(N, 1)``: pure data parallelism over N ranks;
 - ``--mesh_shape=(d, m)``: (data, model), tensor parallelism over m;
@@ -13,7 +13,9 @@ row-major ``make_mesh`` lays out devices, the second axis the fast one
   divide by s.  ``--batch_size`` counts one data group's rows (as it
   counts one rank's under DP), so every data size holds it and every
   rank has a place: JAX's rule that shrinks the data size until it
-  divides a global batch has nothing to do here.
+  divides a global batch has nothing to do here;
+- ``--pp_stages=P``: (data, pipe), data = world / P, under the same
+  rules; the ranks of a pipe group hold the prior's P stages in order.
 
 :func:`build_groups` makes the ``torch.distributed`` groups of both axes
 (every rank calls it).  The ranks of one data group hold the same
@@ -41,9 +43,9 @@ def host_shard_info() -> Tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
     """A (data, inner) layout of the job's ranks.  ``inner`` names the
-    second axis ("seq", "model", or None for pure DP).  The groups are
-    set by :func:`build_groups`; a group of one rank is None (nothing to
-    reduce), ``group`` holds every rank."""
+    second axis ("seq", "model", "pipe", or None for pure DP).  The groups
+    are set by :func:`build_groups`; a group of one rank is None (nothing
+    to reduce), ``group`` holds every rank."""
 
     shape: Tuple[int, int]
     inner: Optional[str]
@@ -63,14 +65,15 @@ class RankLayout:
 
 
 def rank_layout(mesh_shape: Optional[Sequence[int]], world: int, rank: int = 0, *,
-                sp_shards: int = 0) -> RankLayout:
+                sp_shards: int = 0, pp_stages: int = 0) -> RankLayout:
     """The layout the flags ask for over ``world`` ranks; raises
     ``ValueError`` for one the job cannot hold."""
-    if sp_shards > 1:
-        if world % sp_shards:
-            raise ValueError(f"sp_shards={sp_shards} must divide the device count: the job has "
-                             f"WORLD_SIZE {world}")
-        return RankLayout((world // sp_shards, sp_shards), "seq", rank, world)
+    for flag, n, inner in (("sp_shards", sp_shards, "seq"), ("pp_stages", pp_stages, "pipe")):
+        if n > 1:
+            if world % n:
+                raise ValueError(f"{flag}={n} must divide the device count: the job has "
+                                 f"WORLD_SIZE {world}")
+            return RankLayout((world // n, n), inner, rank, world)
     if mesh_shape is None:
         return RankLayout((world, 1), None, rank, world)
     shape = tuple(int(s) for s in mesh_shape)

@@ -242,24 +242,11 @@ def _owner(module: torch.nn.Module, name: str):
 
 def _gather(tensors: Sequence[Tuple[torch.Tensor, Optional[int]]], group):
     """Each (share, dim) concatenated over the ranks of ``group`` along
-    ``dim`` (a replicated entry as it is), on every rank: one all-reduce
-    of a zero buffer in which each rank writes its shares (exact)."""
-    rank, n = D.group_info(group)
-    split = [(t, d) for t, d in tensors if d is not None]
-    if not split:
-        return [t for t, _ in tensors]
-    flat = torch.zeros(sum(t.numel() for t, _ in split) * n, device=split[0][0].device)
-    views, off = [], 0
-    for t, d in split:
-        shape = list(t.shape)
-        shape[d] *= n
-        v = flat[off:off + t.numel() * n].view(shape)
-        v.narrow(d, rank * t.shape[d], t.shape[d]).copy_(t)
-        views.append(v)
-        off += t.numel() * n
-    dist.all_reduce(flat, group=group)
-    it = iter(views)
-    return [t if d is None else next(it).to(t.dtype) for t, d in tensors]
+    ``dim`` (a replicated entry as it is), on every rank, exactly
+    (``distributed.stack_over_ranks``)."""
+    split = [t for t, d in tensors if d is not None]
+    it = iter(D.stack_over_ranks(split, group))
+    return [t if d is None else next(it).movedim(0, d).flatten(d, d + 1) for t, d in tensors]
 
 
 @torch.no_grad()

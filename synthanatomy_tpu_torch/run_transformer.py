@@ -91,7 +91,7 @@ def run(
     evaluation_checkpoint: str = "recent",
     # additions of the JAX package (the rank layout: one rank per card
     # under torchrun, (data, model) for a model axis, (data, seq) for
-    # sp_shards; pp_stages raises in training)
+    # sp_shards, (data, pipe) for pp_stages)
     mesh_shape: Optional[Tuple[int, ...]] = None,
     compute_dtype: str = "bfloat16",
     attn_compute_dtype: str = "bfloat16",

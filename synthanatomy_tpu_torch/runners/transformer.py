@@ -26,7 +26,13 @@ tests' way to ask for the host).  Several devices (JAX :210-391,
   rank 0 writes, and a resume packs and splits what it reads, so a TP
   checkpoint resumes on one device and the other way round.  A model
   that step does not train raises ``NotImplementedError`` (JAX trains it
-  through GSPMD; ROADMAP.md §1).
+  through GSPMD; ROADMAP.md §1);
+- ``--pp_stages=P``: the (data, pipe) layout and the GPipe step
+  (``parallel/pipeline_parallel.py``; the depth in P contiguous stages,
+  one a rank, rows 5 and 6 in each stage's layers; the most microbatches
+  up to 2P that divide ``--batch_size``, JAX's rule), each rank's Adam
+  over its stage.  Checkpoints stay canonical: the ranks gather the
+  stages before rank 0 writes, and a resume packs what it reads.
 
 Each rank loads its data group's shard of the latents; rank 0 writes
 checkpoints and logs, and the evaluation weights each rank's CE by its
@@ -35,13 +41,11 @@ ignores the layout flags, as JAX does: it takes the DP sampler
 (``models/sampling.make_dp_sampler``) when the job has several ranks and
 ``--eval_batch_size`` divides over them (each rank samples its rows of
 every global batch and rank 0 writes the grids), else rank 0 samples
-every batch on its own card.  Pipeline parallelism is not ported yet
-(ROADMAP.md §1, item 1): ``--pp_stages`` above 1 raises
-``NotImplementedError`` in training and is ignored with a warning in
-inference.  The
-attention takes rows 5 and 6's kernels on the card under
-``--use_pallas_favor_attn`` / ``--use_pallas_local_attn``; sampling
-takes the fused decode step (row 1) wherever it covers the prior.
+every batch on its own card; it ignores ``--sp_shards`` and
+``--pp_stages`` with a warning.  The attention takes rows 5 and 6's
+kernels on the card under ``--use_pallas_favor_attn`` /
+``--use_pallas_local_attn``; sampling takes the fused decode step (row
+1) wherever it covers the prior.
 
 The FAVOR projections are redrawn inside the train step
 (``train/transformer_steps.py``), not in this loop as JAX does, and
@@ -71,21 +75,16 @@ from synthanatomy_tpu_torch.utils.general import run_device
 
 __all__ = ["build_ordering", "build_performer", "prepare_batch", "training", "inference"]
 
-_NOT_PORTED = {
-    "pp_stages": "ROADMAP.md §1, item 1 (Multi-GPU: pipeline parallelism)",
-}
-
 
 def _check_supported(config: TransformerConfig):
-    """The training run's rank layout (no groups yet); raises for what the
-    port does not train and for a layout the job cannot hold."""
-    for flag, item in _NOT_PORTED.items():
-        if getattr(config, flag) > 1:
-            raise NotImplementedError(
-                f"--{flag}={getattr(config, flag)} shards the prior's training over "
-                f"devices; not ported yet ({item})")
-    return rank_layout(config.mesh_shape, config.world_size, config.rank,
-                       sp_shards=config.sp_shards)
+    """The training run's rank layout (no groups yet); raises for a layout
+    the job cannot hold."""
+    layout = rank_layout(config.mesh_shape, config.world_size, config.rank,
+                         sp_shards=config.sp_shards, pp_stages=config.pp_stages)
+    if layout.inner == "pipe" and config.n_layers % config.pp_stages:
+        raise ValueError(f"pp_stages={config.pp_stages} must divide n_layers="
+                         f"{config.n_layers} (contiguous equal stages)")
+    return layout
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -252,8 +251,8 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     )
     layout = build_groups(layout)
     group = layout.group
-    sp_mode, tp_mode = layout.inner == "seq", layout.inner == "model"
-    # the ranks of an inner (seq or model) group share their data group's
+    sp_mode, tp_mode, pp_mode = (layout.inner == k for k in ("seq", "model", "pipe"))
+    # the ranks of an inner (seq, model or pipe) group share their data group's
     # rows; the evaluation reduces over the data group (all ranks under DP)
     shard = (layout.data_index, layout.shape[0])
     eval_group = layout.data_group
@@ -314,6 +313,20 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
             use_pallas_favor=config.use_pallas_favor_attn)
         logger.info(f"Megatron TP step over {layout.shape[1]} model shards"
                     + (f" x {layout.shape[0]} data shards" if layout.shape[0] > 1 else ""))
+    elif pp_mode:
+        from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
+
+        # the most microbatches that divide the batch, at most 2 × stages
+        # (the bubble (P-1)/(M+P-1) shrinks with M; smaller microbatches
+        # stop paying for their launches): JAX's rule
+        n_stages = layout.shape[1]
+        n_mb = next(m for m in range(min(config.batch_size, 2 * n_stages), 0, -1)
+                    if config.batch_size % m == 0)
+        step_fn = PP.make_pp_train_step(model, layout.inner_group, data_group=layout.data_group,
+                                        n_microbatches=n_mb)
+        train_state = PP.pack_pp_state(model, state, layout.inner_group)
+        logger.info(f"pipeline-parallel step: {n_stages} stages × {n_mb} microbatches"
+                    + (f" × {layout.shape[0]} data shards" if layout.shape[0] > 1 else ""))
     else:
         step_fn = (make_transformer_train_step(state.model) if group is None
                    else make_transformer_train_step_dp(state.model, group))
@@ -321,13 +334,17 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     tb_train = TBLogger(f"{dirs['logs_directory']}/train", enabled=config.rank == 0)
     tb_val = TBLogger(f"{dirs['logs_directory']}/val_eval", enabled=config.rank == 0)
 
-    gathered_at = [None]  # the TP step count the canonical state was gathered at
+    gathered_at = [None]  # the TP or PP step count the canonical state was gathered at
 
     def canonical():
         """The canonical state (TP: gathered from the model ranks and
-        unpacked, on every rank, a collective, once per step count)."""
-        if tp_mode and gathered_at[0] != train_state.step:
-            TP.gather_tp_state(model, train_state, state, layout.inner_group)
+        unpacked; PP: the stages gathered from the pipe ranks; on every
+        rank, a collective, once per step count)."""
+        if (tp_mode or pp_mode) and gathered_at[0] != train_state.step:
+            if tp_mode:
+                TP.gather_tp_state(model, train_state, state, layout.inner_group)
+            else:
+                PP.unpack_pp_state(model, train_state, state, layout.inner_group)
             gathered_at[0] = train_state.step
         return state
 

@@ -1,5 +1,5 @@
 """Multi-rank dry run of the training steps: the JAX package's
-``__graft_entry__.dryrun_multichip`` (:59-205) up to its pipeline half.
+``__graft_entry__.dryrun_multichip`` (:59-226) through its pipeline half.
 
 Over N ranks, one process each, at the JAX dry run's small sizes: the
 adversarial stage-1 DP step (VQ-VAE 2 levels, 16 channels, codebook 64 ×
@@ -11,11 +11,16 @@ rank).  With an even rank count the prior then takes one step on the
 ``favor_attention_sequence_parallel`` and
 ``local_attention_sequence_parallel`` run over all N ranks (B1 × 2 heads
 × 8N tokens, d 8, m 16, window 4), each against the one-device op on
-the whole sequence (1e-4 of its largest value).  After each step it
+the whole sequence (1e-4 of its largest value).  Last, the pipeline
+half (JAX's :205-226): a prior at 33 tokens, d 32, 4 heads of 8, 2 local
+of window 8, m 16, as deep as the job has ranks, pipelined one layer a
+rank (``parallel/pipeline_parallel.py``): its forward on N 12-token
+sequences against the one-device forward (1e-4 of the largest logit in
+f32, 2e-2 in bf16), then one GPipe train step.  After each step it
 asserts that every rank holds the same parameters, buffers (the EMA
 codebook, D's running statistics, the FAVOR projections; the TP step's
-shares gathered into the canonical model) and metrics.  Pipeline
-parallelism is not ported yet (ROADMAP.md §1).
+shares and the PP step's stages gathered into the canonical model) and
+metrics.
 
     python -m synthanatomy_tpu_torch.tools.dryrun_multigpu [--nprocs 2] [--cpu]
 
@@ -166,6 +171,38 @@ def sp_attention(device, rank: int, world: int) -> float:
     return worst
 
 
+def pp_half(device, rank: int, world: int) -> Dict[str, float]:
+    """The pipeline half: the pipelined forward against the one-device
+    forward on every rank, then one PP train step over all ranks, one
+    layer a stage; asserts the ranks agree."""
+    from synthanatomy_tpu_torch.models.performer import Performer
+    from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
+    from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
+
+    group = D.default_group()
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    model = Performer(num_tokens=33, max_seq_len=28, dim=32, depth=world, heads=4, dim_head=8,
+                      local_attn_heads=2, local_window_size=8, nb_features=16, scan_chunk=8,
+                      dtype=dtype, attn_compute_dtype=dtype,
+                      generator=torch.Generator().manual_seed(4), device=device)
+    state = create_transformer_train_state(model, 4, learning_rate=1e-4)
+    packed = PP.pack_pp_state(model, state, group)
+    tokens = torch.randint(0, 32, (world, 13), generator=torch.Generator().manual_seed(5))
+    tokens = tokens.to(device)
+    got = PP.make_pipelined_apply(model, group)(tokens[:, :-1]).float()
+    with torch.no_grad():
+        want = model(tokens[:, :-1]).float()
+    err = float((got - want).abs().max())
+    if err > (1e-4 if dtype == torch.float32 else 2e-2) * float(want.abs().max()):
+        raise RuntimeError(f"pipelined forward on rank {rank}: max abs error {err} against the "
+                           f"one-device forward")
+    packed, metrics = PP.make_pp_train_step(model, group)(
+        packed, tokens[:, :-1], tokens[:, 1:], None, {"lr": 1e-4})
+    PP.unpack_pp_state(model, packed, state, group)
+    _check("PP prior", _state_tensors(model), metrics, group)
+    return {"fwd_err": err, **{k: float(v) for k, v in metrics.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nprocs", type=int, default=2, help="ranks to start (without torchrun)")
@@ -174,8 +211,8 @@ def main(argv=None) -> int:
     if not D.launched():
         D.launch([sys.executable, "-m", "synthanatomy_tpu_torch.tools.dryrun_multigpu",
                   *(["--cpu"] if args.cpu else [])], args.nprocs, timeout=600)
-        steps = ("stage-1, prior and DP x TP prior" if args.nprocs % 2 == 0
-                 else "stage-1 and prior")
+        steps = ("stage-1, prior, DP x TP prior and PP prior" if args.nprocs % 2 == 0
+                 else "stage-1, prior and PP prior")
         print(f"dryrun_multigpu: {args.nprocs} ranks agreed after the {steps} steps")
         return 0
     if args.cpu:
@@ -191,6 +228,7 @@ def main(argv=None) -> int:
                           device=device if D.backend_is_nccl(group) else "cpu")
     torch.distributed.all_reduce(sp_err, op=torch.distributed.ReduceOp.MAX, group=group)
     sp_err = float(sp_err)
+    pp = pp_half(device, rank, world)
     if rank == 0:
         tp_line = (f"DP x TP ({world // 2}, 2) prior CE {tp['Loss']:.6f}" if tp is not None
                    else "no DP x TP step (an odd rank count)")
@@ -199,7 +237,9 @@ def main(argv=None) -> int:
               f"{s1['Loss-Discriminator-Total']:.6f}, adaptive weight "
               f"{s1['Adversarial-Weight']:.4f}; prior CE {pr['Loss']:.6f}; {tp_line}; "
               f"sequence-parallel attention over {world} ranks within {sp_err:.2e} of one "
-              f"device; every rank holds the same parameters, buffers and metrics")
+              f"device; pipeline-parallel ({world} stages) prior forward within "
+              f"{pp['fwd_err']:.2e} of one device, CE {pp['Loss']:.6f}; every rank holds the "
+              f"same parameters, buffers and metrics")
     torch.distributed.destroy_process_group()
     return 0
 

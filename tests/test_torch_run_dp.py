@@ -19,8 +19,8 @@ one-process runs of the same flags on what the ranks wrote:
   ranks, rank 0 alone samples (JAX's one-device sampler) and writes
   what one process writes.
 
-Also ``tools/dryrun_multigpu --cpu`` over two and four ranks.  What still
-raises (PP, a layout the job cannot hold) is in
+Also ``tools/dryrun_multigpu --cpu`` over two and four ranks, its
+pipeline half included.  A layout the job cannot hold raises in
 ``test_torch_run_transformer.py::test_unported_options_raise``.
 """
 
@@ -229,9 +229,11 @@ def test_stage2_inference_batch_not_dividing_runs_on_rank0(dp):
 @pytest.mark.parametrize("nprocs", [2, 4])
 def test_dryrun_multigpu_ranks_agree_on_the_cpu(capfd, nprocs):
     """``tools/dryrun_multigpu --cpu``: the adversarial stage-1 and the
-    prior DP steps, then the prior's DP×TP step on the (N/2, 2) layout
-    and both sequence-parallel attention ops over N gloo ranks, which it
-    checks agree (and the attention against the one-device ops)."""
+    prior DP steps, then the prior's DP×TP step on the (N/2, 2) layout,
+    both sequence-parallel attention ops over N gloo ranks and the
+    pipeline half (an N-layer prior over N stages: the pipelined forward
+    and one PP step), which it checks agree (the attention and the
+    pipelined forward against the one-device ops)."""
     from synthanatomy_tpu_torch.tools import dryrun_multigpu
 
     assert dryrun_multigpu.main(["--cpu", "--nprocs", str(nprocs)]) == 0
@@ -239,3 +241,5 @@ def test_dryrun_multigpu_ranks_agree_on_the_cpu(capfd, nprocs):
     assert f"[dryrun] {nprocs} ranks (cpu)" in out and f"{nprocs} ranks agreed" in out
     assert f"DP x TP ({nprocs // 2}, 2) prior CE" in out
     assert f"sequence-parallel attention over {nprocs} ranks" in out
+    assert f"pipeline-parallel ({nprocs} stages) prior forward within" in out
+    assert "DP x TP prior and PP prior steps" in out

@@ -27,8 +27,10 @@ evaluation).
 - Inference with a model axis ignores it, as JAX does: the DP sampler over
   both ranks writes what one process writes (greedy).
 - A configuration the TP step does not train raises ``NotImplementedError
-  ("TP step: …")`` on the ranks; ``--pp_stages=2`` still raises; the
-  flag rules of JAX's config hold (``tests/test_sp_runner.py:136``,
+  ("TP step: …")`` on the ranks; ``--pp_stages=2`` raises "must divide
+  the device count" in one process and "must divide n_layers" over 2 ranks
+  at depth 3 (PP trains in ``tests/test_torch_run_pp.py``); the flag
+  rules of JAX's config hold (``tests/test_sp_runner.py:136``,
   ``tests/test_pp_runner.py:113``).
 """
 
@@ -99,6 +101,7 @@ def cli(tmp_path_factory):
         "tp12_infer": dict(base, experiment_name="tp12", mode="inference", mesh_shape=(1, 2),
                            eval_batch_size=4, sample=False),
         "tp12_refused": dict(base, experiment_name="glu", mesh_shape=(1, 2), ff_glu=True),
+        "pp2_deep": dict(base, experiment_name="pp2_deep", pp_stages=2, n_layers=3),
     }
     four = {
         "tp22": dict(base, experiment_name="tp22", mesh_shape=(2, 2)),
@@ -200,5 +203,8 @@ def test_flag_validation(cli, tmp_path):
         TransformerConfig(**names, sp_shards=2, zero1=True)
     with pytest.raises(ValueError, match="mutually exclusive"):
         TransformerConfig(**names, sp_shards=2, pp_stages=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1, item 1 \(Multi-GPU: pipe"):
+    with pytest.raises(ValueError, match="must divide the device count"):
         run(**dict(cli["base"], project_directory=str(tmp_path), pp_stages=2))
+    for out in cli["two"]:  # over 2 ranks: the depth must divide into the stages
+        assert out["pp2_deep"]["error"] == ("ValueError: pp_stages=2 must divide n_layers=3 "
+                                            "(contiguous equal stages)")

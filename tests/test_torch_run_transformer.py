@@ -20,7 +20,7 @@ and no redraw inside the compared steps:
 - ``tools/smoke_pipeline`` runs its five stages on the CPU.
 
 The JAX runner runs once for the module.  Also: the flag surface, resume,
-the options not ported yet, and the card as the default."""
+the layouts one process cannot hold, and the card as the default."""
 
 import inspect
 import os
@@ -311,14 +311,14 @@ def test_resume_continues_the_uninterrupted_run(runs, monkeypatch):
     (dict(mesh_shape=(2, 2)), ValueError, "WORLD_SIZE"),
     (dict(zero1=True, mesh_shape=(2,)), ValueError, "WORLD_SIZE"),
     (dict(sp_shards=2), ValueError, "must divide the device count"),
-    (dict(pp_stages=2), NotImplementedError, "ROADMAP.md"),
+    (dict(pp_stages=2), ValueError, "must divide the device count"),
 ], ids=["mesh", "mesh-tp", "zero1", "sp", "pp"])
 def test_unported_options_raise(tmp_path, flags, error, match):
-    """Pipeline parallelism raises, naming its ROADMAP item; a layout
-    the job's ranks (one process here) cannot hold raises before any
-    work: a data or (data, model) mesh of more ranks, sequence shards
-    that do not divide them (JAX's rule).  The DP runs:
-    test_torch_run_dp.py; SP and TP: test_torch_run_sp_tp.py."""
+    """A layout the job's ranks (one process here) cannot hold raises
+    before any work: a data or (data, model) mesh of more ranks, sequence
+    shards or pipeline stages that do not divide them (JAX's rule).  The
+    DP runs: test_torch_run_dp.py; SP and TP: test_torch_run_sp_tp.py; PP:
+    test_torch_run_pp.py."""
     from synthanatomy_tpu_torch.run_transformer import run
 
     with pytest.raises(error, match=match):

@@ -1,10 +1,11 @@
-"""One rank of the port's sequence- and tensor-parallel tests on the CPU
-(gloo).
+"""One rank of the port's sequence-, tensor- and pipeline-parallel tests
+on the CPU (gloo).
 
-Run by ``tests/test_torch_sp.py``, ``tests/test_torch_tp.py`` and
-``tests/test_torch_run_sp_tp.py`` through
+Run by ``tests/test_torch_sp.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_pp.py``, ``tests/test_torch_run_sp_tp.py`` and
+``tests/test_torch_run_pp.py`` through
 ``synthanatomy_tpu_torch.parallel.distributed.launch`` (4 ranks, or 2
-for the CLI's (1, 2) runs):
+for the CLI's two-rank runs):
 
     python tests/torch_sp_tp_worker.py CASE IN.pt OUT_DIR
 
@@ -124,6 +125,90 @@ def _case_tp(spec, rank, world, outdir):
     return out
 
 
+def _case_pp(spec, rank, world, outdir):
+    """The pipeline cases over 4 ranks: the (1, 4) pipe of all ranks and
+    the (2, 2) PP×DP layout.  Each rank keeps every pipelined forward's
+    logits; each step's loss, gradients (the stages' gathered into the
+    canonical names) and canonical state after Adam's step, whether every
+    rank holds that state; the pack/unpack round trip; the errors of bad
+    shapes."""
+    from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
+    from synthanatomy_tpu_torch.train.transformer_steps import (
+        create_transformer_train_state,
+        make_transformer_train_step,
+    )
+
+    layouts = {p: build_groups(rank_layout(None, world, rank, pp_stages=p)) for p in (2, 4)}
+    out = {"fwd": {}, "steps": {}, "errors": {}}
+    for case in spec["fwd"]:
+        lay = layouts[case["stages"]]
+        apply = PP.make_pipelined_apply(copy.deepcopy(case["model"]), lay.inner_group,
+                                        n_microbatches=case["n_mb"],
+                                        data_group=lay.data_group if case["dp"] else None)
+        out["fwd"][case["name"]] = apply(case["inputs"], case["conds"])
+    for case in spec["steps"]:
+        lay = layouts[case["stages"]]
+        model = copy.deepcopy(case["model"])
+        state = create_transformer_train_state(model, 0, learning_rate=LR)
+        packed = PP.pack_pp_state(model, state, lay.inner_group)
+        data_group = lay.data_group if case["dp"] else None
+        step = PP.make_pp_train_step(model, lay.inner_group, data_group=data_group,
+                                     n_microbatches=case["n_mb"])
+        x, y, conds = case["inputs"], case["targets"], case["conds"]
+        if case["dp"]:
+            x, y = (t.chunk(lay.shape[0])[lay.data_index] for t in (x, y))
+            conds = conds and [c.chunk(lay.shape[0])[lay.data_index] for c in conds]
+        packed, met = step(packed, x, y, conds, {"lr": LR})
+        grads = PP.unpack_pp_tree(model, {n: p.grad for n, p in model.named_parameters()},
+                                  lay.inner_group)
+        PP.unpack_pp_state(model, packed, state, lay.inner_group)
+        sd = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        out["steps"][case["name"]] = {
+            "loss": float(met["Loss"]), "grads": grads, "state": sd,
+            "adam": sum("exp_avg" in v for v in state.optimizer.state.values()),
+            "agree": D.ranks_agree(list(sd.values()), D.default_group())}
+
+    # the round trip: a canonical state after a one-device step, packed, is
+    # unpacked into a state that still holds the initial weights and no
+    # Adam state, so whatever this rank's stage lacks comes from the others
+    rt = spec["round_trip"]
+    for p, lay in layouts.items():
+        model = copy.deepcopy(rt["model"])
+        state = create_transformer_train_state(model, 0, learning_rate=LR)
+        make_transformer_train_step(model)(state, rt["inputs"], rt["targets"], None, {"lr": LR})
+        want = copy.deepcopy((model.state_dict(), state.optimizer.state_dict()["state"]))
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        tree_ok = all(torch.equal(t, sd[k]) for k, t in PP.unpack_pp_tree(
+            model, PP.pack_pp_tree(model, sd, lay.inner_group), lay.inner_group).items())
+        packed = PP.pack_pp_state(model, state, lay.inner_group)
+        fresh = copy.deepcopy(rt["model"])
+        fresh_state = create_transformer_train_state(fresh, 0, learning_rate=LR)
+        PP.unpack_pp_state(fresh, packed, fresh_state, lay.inner_group)
+        got = fresh_state.optimizer.state_dict()["state"]
+        stepped = {id(q) for q in packed.optimizer.param_groups[0]["params"]}
+        out[f"round_trip_{p}"] = {
+            "tree": tree_ok,
+            "params": all(torch.equal(fresh.state_dict()[k], t) for k, t in want[0].items()),
+            "adam": set(got) == set(want[1]) and all(
+                torch.equal(got[i][k], st[k]) for i, st in want[1].items()
+                for k in ("step", "exp_avg", "exp_avg_sq")),
+            "stage": sum(any(id(q) in stepped for q in blk.parameters()) for blk in model.blocks),
+            "adam_params": len(packed.optimizer.state)}
+
+    bad = spec["bad"]
+    try:
+        PP.make_pipelined_apply(bad["depth5"], layouts[4].inner_group)
+    except ValueError as exc:
+        out["errors"]["stages"] = str(exc)
+    apply = PP.make_pipelined_apply(copy.deepcopy(rt["model"]), layouts[4].inner_group,
+                                    n_microbatches=3)
+    try:
+        apply(rt["inputs"])
+    except ValueError as exc:
+        out["errors"]["microbatches"] = str(exc)
+    return out
+
+
 def _case_cli(spec, rank, world, outdir):
     """The CLI runs of ``spec["runs"]`` over the ranks, each call's
     history and canonical parameters kept (or the ``NotImplementedError``
@@ -134,7 +219,7 @@ def _case_cli(spec, rank, world, outdir):
     for name, flags in spec["runs"].items():
         try:
             res = run(**flags)
-        except NotImplementedError as exc:  # a configuration the step refuses
+        except (NotImplementedError, ValueError) as exc:  # a configuration the run refuses
             out[name] = {"error": f"{type(exc).__name__}: {exc}"}
             continue
         keep = {k: res[k] for k in ("history", "written") if k in res}
@@ -150,7 +235,8 @@ def main(case, spec_path, outdir):
     assert D.maybe_initialize_distributed("cpu"), "expected several ranks"
     rank, world = dist.get_rank(), dist.get_world_size()
     spec = torch.load(spec_path, weights_only=False)
-    out = {"sp": _case_sp, "tp": _case_tp, "cli": _case_cli}[case](spec, rank, world, outdir)
+    out = {"sp": _case_sp, "tp": _case_tp, "pp": _case_pp,
+           "cli": _case_cli}[case](spec, rank, world, outdir)
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
