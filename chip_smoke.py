@@ -274,14 +274,23 @@ result, without them.  Phases, each fatal on failure:
    FAVOR and 4 local heads a rank through rows 5 and 6; the gradients
    gathered and unpacked, at the same bounds against one process with the
    same kernels; each rank's row 5 and row 6 launches, all > 0), each
-   step's time beside one process's; (b) ``run_transformer`` at paper
+   step's time beside one process's; (a3) the TP step at (1, 2) at paper
+   widths in f32 for three forms JAX's manual TP step refuses (F1:
+   ScaleNorm, GLU, rotary, out-bias, dropout 0.1; F2: ReZero, fixed
+   positions and spatial tables, 'prepending' conditioning, reversible
+   blocks; F3: 9 FAVOR + 7 local heads, the attention whole on each rank),
+   each against one process with the same kernels, weights, batch and
+   generator state at (a)'s bounds, each rank's row 5 and row 6 launches
+   equal to the predicted 168/72, 240/96 and 168/72; (b) ``run_transformer`` at paper
    width on phase 19's grids over two gloo ranks on card 0 that set up the
    group before the CLI's ``run()`` (the same rank processes, after (a)):
    an epoch of 2 steps
    under ``--sp_shards=2`` (no row 5 or 6 launch) and one under
    ``--mesh_shape='(1,2)'`` (rows 5 and 6 on both ranks), rank 0's
    canonical checkpoints with every Adam state, and a one-device resume of
-   the TP checkpoint to epoch 2; (c) in the same rank processes, (c1) the
+   the TP checkpoint to epoch 2; then (after (c2)) one under
+   ``--mesh_shape='(1,2)'`` with F1's flags (rows 5 and 6 on both ranks),
+   its checkpoint and one-device resume likewise; (c) in the same rank processes, (c1) the
    PP step at (1, 2) (12 layers a rank through rows 5 and 6, 3
    microbatches of 2 rows, stage remat; loss and the gradients gathered
    into the canonical layout at (a)'s bounds against one process with the
@@ -753,9 +762,10 @@ def _plain_kernels():
         yield
 
 
-def _train_prior(dev, dtype, depth=24):
+def _train_prior(dev, dtype, depth=24, **form):
     """The paper prior for training, both kernels on, compute and
-    attention in ``dtype``.  The ReZero gains are set to 0.1: non-zero
+    attention in ``dtype``; ``form`` overrides its options (another prior
+    form at the same widths).  The ReZero gains are set to 0.1: non-zero
     (at zero every block weight has a zero gradient), and small enough
     that the residual stream stays at the embeddings' scale through 24
     layers.  At gains 0.7/0.5 it grows to std ~15 and a bf16 step becomes
@@ -768,18 +778,20 @@ def _train_prior(dev, dtype, depth=24):
     from synthanatomy_tpu_torch.models.performer import Performer
 
     ordering = Ordering("raster_scan", 3, GRID)
-    model = Performer(
+    opts = dict(
         num_tokens=2049, max_seq_len=SEQ + 1, dim=512, depth=depth, heads=16, dim_head=64,
         local_attn_heads=8, local_window_size=420, use_rezero=True,
         spatial_position_emb="absolute", spatial_shape=GRID, ordering=ordering,
         use_pallas_local=True, use_pallas_favor=True, attn_compute_dtype=dtype,
         dtype=dtype, feature_redraw_interval=2,
         generator=torch.Generator().manual_seed(20), device="cpu",
-    ).to(dev)
-    with torch.no_grad():
-        for blk in model.blocks:
-            blk.g_attn.fill_(0.1)
-            blk.g_ff.fill_(0.1)
+    )
+    model = Performer(**dict(opts, **form)).to(dev)
+    if model.use_rezero:
+        with torch.no_grad():
+            for blk in model.blocks:
+                blk.g_attn.fill_(0.1)
+                blk.g_ff.fill_(0.1)
     return model, ordering
 
 
@@ -3632,6 +3644,28 @@ PP_MICROBATCHES = 3  # the CLI's rule at B6 over 2 stages: the most up to 4 divi
 # forward, its recompute in the backward (stage remat) and the backward:
 # row 5 3 + 3 + 4, row 6 1 + 1 + 2
 PP_FAVOR_PER_LAYER_MB, PP_LOCAL_PER_LAYER_MB = 10, 4
+# (a3): the TP step at (1, 2) for prior forms JAX's manual TP step refuses
+# (its runner trains them through GSPMD), each (label, the form's options
+# over the paper prior's, what it shows, the predicted row 5 and row 6
+# launches a step on each rank): 24 layers x (row 5 3 forward + 4 backward,
+# row 6 1 + 2), and under reversible blocks each layer's forward again in
+# the backward's recompute (row 5 3, row 6 1 more)
+TP_FORMS = (
+    ("F1", dict(use_rezero=False, use_scalenorm=True, ff_glu=True, rotary_position_emb=True,
+                attn_out_bias=True, emb_dropout=0.1, attn_dropout=0.1, ff_dropout=0.1),
+     "ScaleNorm, GLU, rotary, out-bias, dropout 0.1: 4 FAVOR + 4 local heads a rank",
+     (24 * 7, 24 * 3)),
+    ("F2", dict(fixed_position_emb=True, spatial_position_emb="fixed",
+                conditioning_num_tokens=(4,), conditioning_type="prepending", reversible=True),
+     "ReZero at gains 0.1, fixed positions and spatial tables, 'prepending' conditioning, "
+     "reversible blocks: 4 FAVOR + 4 local heads a rank", (24 * 10, 24 * 4)),
+    ("F3", dict(local_attn_heads=7),
+     "9 FAVOR + 7 local heads, which do not divide: the attention whole on each rank, "
+     "the FF split", (24 * 7, 24 * 3)),
+)
+# F1 as run_transformer's flags, for (b)
+TP_FORMS_CLI = dict(use_rezero=False, use_scalenorm=True, ff_glu=True, position_emb="rotary",
+                    attn_out_bias=True, emb_dropout=0.1, attn_dropout=0.1, ff_dropout=0.1)
 
 
 def _sptp_rank(root):
@@ -3754,7 +3788,7 @@ def _sptp_rank(root):
     model.load_state_dict(init)
     state = create_transformer_train_state(model, seed=0)
     tp_state = TP.shard_tp_state(model, state, tp.inner_group)
-    step = TP.make_tp_train_step(model, tp.inner_group, use_pallas_local=True,
+    step = TP.make_tp_train_step(model, use_pallas_local=True,
                                  use_pallas_favor=True)
     attn = tp_state.model.blocks[0].attn
     heads = (attn.heads - attn.local_heads, attn.local_heads)
@@ -3791,6 +3825,51 @@ def _sptp_rank(root):
             f"{rec['tp']['one_ms']:.1f} ms for one process  [{note}]")
     del g_tp
     D.barrier(group)
+
+    # (a3) the TP step at (1, world) for the forms of TP_FORMS, each against
+    # one process with the same kernels, weights, batch and generator state
+    for label, form, what, predicted in TP_FORMS:
+        fmodel, _ = _train_prior(dev, torch.float32, **form)
+        finit = {k: v.detach().clone() for k, v in fmodel.state_dict().items()}
+        conds = ([torch.arange(b, device=dev) % 4] if fmodel.conditioning_num_tokens
+                 else None)
+        state = create_transformer_train_state(fmodel, seed=0)
+        tp_state = TP.shard_tp_state(fmodel, state, tp.inner_group)
+        step = TP.make_tp_train_step(fmodel, use_pallas_local=True, use_pallas_favor=True)
+        (tp_state, m), counts = launched(
+            f"TP step {label}", lambda: step(tp_state, inputs, targets, conds, sched))
+        _require(all(c == list(predicted) for c in counts),
+                 f"TP step {label} launches (row 5, row 6) by rank {counts}, predicted "
+                 f"{list(predicted)} on each")
+        g_f, loss_f = TP.gather_tp_grads(fmodel, tp_state, tp.inner_group), float(m["Loss"])
+        split = TP.tp_split(fmodel, world)
+        tp_ms = wall_ms(lambda: step(tp_state, inputs, targets, conds, sched), 1)
+        del tp_state, step, state
+        torch.cuda.empty_cache()
+        if rank == 0:
+            fmodel.load_state_dict(finit)
+            state = create_transformer_train_state(fmodel, seed=0)
+            one = make_transformer_train_step(fmodel)
+            _, m1 = one(state, inputs, targets, conds, sched)
+            g1 = _grads(fmodel)
+            one_ms = _time_ms(lambda: one(state, inputs, targets, conds, sched), 1)
+            r = rec[f"tp_{label}"] = held(f"TP step {label}", loss_f, g_f,
+                                          (float(m1["Loss"]), g1, one_ms))
+            r.update(launches=counts, predicted=list(predicted), tp_ms=tp_ms, split=split)
+            del state, one, g1
+            say(f"[tp {label}] TP step at (1, {world}), paper widths f32, B{b}, {what} "
+                f"(attention {'split' if split[0] else 'whole'}, FF "
+                f"{'split' if split[1] else 'whole'}), rows 5 and 6: loss {loss_f:.7f}, "
+                f"{r['loss_rel']:.3e} relative to one process with the same kernels, weights, "
+                f"batch and generator state (tol {SPTP_LOSS:g}), gradients gathered and "
+                f"unpacked norm-relative {r['grad_rel']:.3e} (tol {SPTP_GRAD:g}; largest per "
+                f"tensor {r['worst'][1]:.3e} at {r['worst'][0]}); launches by rank "
+                + ", ".join(f"{q}: row 5 {c[0]}, row 6 {c[1]}" for q, c in enumerate(counts))
+                + f" (predicted {predicted[0]} and {predicted[1]} on each); {tp_ms:.1f} ms a "
+                f"TP step against {one_ms:.1f} ms for one process  [{note}]")
+        del fmodel, finit, g_f
+        torch.cuda.empty_cache()
+        D.barrier(group)
 
     # (c1) the PP step at (1, world): the rank's stage of 24 / world layers,
     # rows 5 and 6 in them, PP_MICROBATCHES microbatches
@@ -3902,12 +3981,15 @@ def _check_sptp(dev, smi, root):
              ("run_transformer", _argv(epochs=1, experiment_name="tp",
                                        mesh_shape=f"(1,{SPTP_RANKS})", **prior)),
              ("run_transformer", _argv(epochs=1, experiment_name="pp", pp_stages=SPTP_RANKS,
-                                       **prior))]
+                                       **prior)),
+             ("run_transformer", _argv(epochs=1, experiment_name="tp_forms",
+                                       mesh_shape=f"(1,{SPTP_RANKS})",
+                                       **dict(prior, **TP_FORMS_CLI)))]
     with open(os.path.join(root, "sptp_cli.json"), "w") as f:
         json.dump(calls, f)
     t0 = time.perf_counter()
     launch([sys.executable, "-u", os.path.abspath(__file__), "--sptp-rank", root], SPTP_RANKS,
-           timeout=330)
+           timeout=420)
     with open(os.path.join(root, "sptp.json")) as f:
         rec = json.load(f)
     rec["ranks_s"] = time.perf_counter() - t0
@@ -3915,7 +3997,7 @@ def _check_sptp(dev, smi, root):
     for r in range(SPTP_RANKS):
         with open(os.path.join(root, f"sptp_cli_rank{r}.json")) as f:
             ranks.append(json.load(f))
-    names = ("sp", "tp", "pp")
+    names = ("sp", "tp", "pp", "tp_forms")
     for r, runs in enumerate(ranks):
         for (name, run) in zip(names, runs):
             _require(len(run["history"]) == 1 and run["finite"],
@@ -3933,9 +4015,10 @@ def _check_sptp(dev, smi, root):
         ck[name] = run["params"]
     mod = importlib.import_module("synthanatomy_tpu_torch.run_transformer")
     resumed = {}
-    for name in ("tp", "pp"):
+    for name in ("tp", "pp", "tp_forms"):
         t0 = time.perf_counter()
-        res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name=name, **prior))
+        flags = dict(prior, **TP_FORMS_CLI) if name == "tp_forms" else prior
+        res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name=name, **flags))
         hist = res["history"]
         _require(len(hist) == 1 and np.isfinite(hist[0]["Loss"]) and int(res["state"].step) == 4,
                  f"one-device resume of the {name} checkpoint: {hist}, step {res['state'].step}")
@@ -3946,7 +4029,8 @@ def _check_sptp(dev, smi, root):
         del res
         torch.cuda.empty_cache()
     rec["resume_s"], rec["pp_resume_s"] = resumed["tp"][1], resumed["pp"][1]
-    sp_run, tp_run, pp_run = ranks[0]
+    rec["forms_resume_s"] = resumed["tp_forms"][1]
+    sp_run, tp_run, pp_run, forms_run = ranks[0]
     print(f"[sptp] run_transformer at paper width (24L/d512, bf16, B{TRAIN_BATCH}) on phase "
           f"19's grids over {SPTP_RANKS} gloo ranks on card 0: --sp_shards={SPTP_RANKS} "
           f"trained an epoch of 2 steps (CE {sp_run['history'][0]['Loss']:.4f}, no row 5 or 6 "
@@ -3968,13 +4052,24 @@ def _check_sptp(dev, smi, root):
           f"with all {ck['pp']} Adam states, "
           f"and one device resumed it to epoch 2 (step 4, CE {resumed['pp'][0]:.4f}); PP run "
           f"{pp_run['s']:.1f} s, resume {rec['pp_resume_s']:.1f} s  [{smi}]")
+    print(f"[tp forms] run_transformer --mesh_shape='(1,{SPTP_RANKS})' with F1's flags ("
+          + " ".join(f"--{k}={v}" for k, v in TP_FORMS_CLI.items()) + f") at paper width "
+          f"(24L/d512, bf16, B{TRAIN_BATCH}) on phase 19's grids over {SPTP_RANKS} gloo ranks "
+          f"on card 0: an epoch of 2 steps (CE {forms_run['history'][0]['Loss']:.4f}; launches "
+          f"by rank " + ", ".join(
+              f"{r}: row 5 {runs[3]['launches'][0]}, row 6 {runs[3]['launches'][1]}"
+              for r, runs in enumerate(ranks)) + f", 2 steps x {TP_FORMS[0][3][0]} and "
+          f"{TP_FORMS[0][3][1]} expected); rank 0 wrote a canonical checkpoint with all "
+          f"{ck['tp_forms']} Adam states, and one device resumed it to epoch 2 (step 4, CE "
+          f"{resumed['tp_forms'][0]:.4f}); run {forms_run['s']:.1f} s, resume "
+          f"{rec['forms_resume_s']:.1f} s  [{smi}]")
     return rec
 
 
 # phase number and seconds before its child is killed (phase 20 took 44-62 s on
 # an H100 80GB HBM3 at 700 W; the rest leaves room for 80 + 40 epochs)
 PHASES = {"--cli-phase": (18, 600), "--prior-phase": (19, 600), "--quality-phase": (20, 300),
-          "--dp-phase": (21, 240), "--sptp-phase": (22, 450)}
+          "--dp-phase": (21, 240), "--sptp-phase": (22, 540)}
 
 
 def _run_phase(flag, root):

@@ -29,6 +29,12 @@ take ``attn_compute_dtype`` operands.  With ``use_pallas_favor`` /
 kernels (``ops/favor_attention.py``, ``ops/local_attention_flash.py``)
 for CUDA tensors and their plain versions for CPU tensors.
 
+Parallel training sets a process group on the modules: ``sp_group`` on
+the attention (sequence parallelism), ``tp_group`` on the attention and
+the FF (the Megatron split: each holds the rank's share and places the
+conjugate all-reduces around its products; ``parallel/
+tensor_parallel.py``).  Everything else stays the one-device forward.
+
 The exact incremental path, as in JAX: ``init_cache`` (per block, the
 FAVOR prefix state (S, z) in ``favor_cache_dtype`` and the local-head
 rings of ``local_window_size`` slots in ``dtype``), ``prime_cache`` for
@@ -62,8 +68,10 @@ from synthanatomy_tpu_torch.ops.local_attention import (
     local_attention_sequence_parallel,
     local_attention_step,
     rotary_sin_cos,
+    rounded,
 )
 from synthanatomy_tpu_torch.ops.local_attention_flash import local_attention_flash
+from synthanatomy_tpu_torch.parallel.distributed import group_info, megatron_f, megatron_g
 
 __all__ = ["Performer", "redraw_projections", "spatial_coordinate_sequences",
            "spatial_lookup_layout"]
@@ -130,6 +138,16 @@ def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype, group) -> torch.Tensor:
+    """This rank's share of a row-parallel ``_linear`` under tensor
+    parallelism: the product of its input columns (operands rounded to
+    ``dtype``, f32 accumulation) summed over ``group`` in f32 (Megatron's
+    ``f``), rounded to ``dtype``, then the replicated bias added once, as
+    ``_linear`` adds it."""
+    y = megatron_f(F.linear(rounded(x, dtype), rounded(lin.weight, dtype)), group).to(dtype)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.LayerNorm(dtype=dtype)``: f32 mean and E[x²] − mean²
     variance (clipped at 0), output cast to ``dtype``."""
@@ -155,17 +173,29 @@ def _row(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: keep with probability 1 − rate and scale by
     1/(1 − rate).  Draws from ``generator`` (set by
-    ``Performer.set_generator``), else from torch's default one."""
+    ``Performer.set_generator``), else from torch's default one.  With
+    ``share = (rank, n)`` (the FF's hidden width split over a TP group)
+    ``x`` holds the rank's n-th of the last dimension: the mask is drawn
+    at the whole width, as one device draws it, and the rank's columns
+    kept, so every rank advances the generator alike."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.share: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        if self.share is None:
+            draw = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:
+            rank, n = self.share
+            w = x.shape[-1]
+            draw = torch.rand(x.shape[:-1] + (w * n,), generator=self.generator,
+                              device=x.device)[..., rank * w:(rank + 1) * w]
+        keep = draw >= self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
                                                                     device=x.device))
 
@@ -176,7 +206,11 @@ def _remat(module: nn.Module, *args):
     generators for the recompute; the explicit generators the dropouts in
     ``module`` draw from are set back to their state at the forward for
     the recompute (so it draws the same masks) and to their state before
-    the recompute after it (so later draws do not depend on remat)."""
+    the recompute after it (so later draws do not depend on remat).  Under
+    tensor parallelism the recompute runs the module's collectives
+    (Megatron's ``f`` and ``g``) again; every rank of the group recomputes
+    the same modules in the same order, so they pair up as in the
+    forward and nothing more is needed."""
     if not torch.is_grad_enabled():
         return module(*args)
     gens = list({id(m.generator): m.generator for m in module.modules()
@@ -223,7 +257,16 @@ class PerformerAttention(nn.Module):
     the input is this rank's shard of the sequence and the heads take the
     sequence-parallel forms over that group (FAVOR's prefix state across
     ranks, the local heads' halo exchange); the kernel flags do not apply
-    there, as in JAX."""
+    there, as in JAX.
+
+    With ``tp_group`` set (the Megatron split; ``parallel/
+    tensor_parallel.shard_tp_state`` sets it on a rank's share) the module
+    holds the rank's packed heads: its q/k/v rows and ``to_out``'s
+    columns.  The input passes through ``g``, the heads run as on one
+    device (rotary, rows 5 and 6 included), ``to_out``'s partial product
+    goes through ``f``, and the replicated out-bias and the dropout act
+    after it, in the replicated stream: every rank of the group draws the
+    same mask."""
 
     def __init__(self, dim, heads, dim_head, local_heads, nb_features, gen, device, *,
                  local_window=256, causal=True, generalized=False, no_projection=False,
@@ -232,7 +275,7 @@ class PerformerAttention(nn.Module):
                  attn_compute_dtype=torch.float32, favor_cache_dtype=torch.float32,
                  dtype=torch.bfloat16):
         super().__init__()
-        self.sp_group = None
+        self.sp_group = self.tp_group = None
         inner = heads * dim_head
         self.heads, self.dim_head, self.local_heads = heads, dim_head, local_heads
         self.nb_features, self.favor_cache_dtype = nb_features, favor_cache_dtype
@@ -260,6 +303,8 @@ class PerformerAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 layer_rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         b, n, _ = x.shape
+        if self.tp_group is not None:
+            x = megatron_g(x, self.tp_group)
         q = self._split_heads(_linear(x, self.to_q, self.dtype))
         k = self._split_heads(_linear(x, self.to_k, self.dtype))
         v = self._split_heads(_linear(x, self.to_v, self.dtype))
@@ -295,6 +340,8 @@ class PerformerAttention(nn.Module):
                               causal=self.causal, compute_dtype=cd))
         out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
         out = out.transpose(1, 2).reshape(b, n, -1)
+        if self.tp_group is not None:
+            return self.drop(_row_parallel(out, self.to_out, self.dtype, self.tp_group))
         return self.drop(_linear(out, self.to_out, self.dtype))
 
     # -- incremental decoding -------------------------------------------------
@@ -348,7 +395,14 @@ class PerformerAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """Dense → GELU (tanh) → dropout → Dense; with ``glu`` the first
-    Dense is 2·inner wide and its halves a, g give a·gelu(g)."""
+    Dense is 2·inner wide and its halves a, g give a·gelu(g).
+
+    With ``tp_group`` set the module holds the rank's share of the hidden
+    width: w1's rows (under ``glu`` packed as [a_p; g_p], so ``chunk``
+    still pairs each value with its gate) and w2's columns.  The input
+    passes through ``g``; the hidden dropout draws the whole width's mask
+    and keeps the rank's columns; w2's partial product goes through ``f``
+    and its replicated bias is added once after it."""
 
     def __init__(self, dim, mult, gen, device, *, glu=False, dropout=0.0,
                  dtype=torch.bfloat16):
@@ -358,20 +412,37 @@ class FeedForward(nn.Module):
         self.w1 = _dense(dim, inner * 2 if glu else inner, True, gen, device)
         self.w2 = _dense(inner, dim, True, gen, device)
         self.drop = Dropout(dropout)
+        self.tp_group = None
+
+    @property
+    def tp_group(self):
+        return self._tp_group
+
+    @tp_group.setter
+    def tp_group(self, group):
+        self._tp_group = group
+        self.drop.share = None if group is None else group_info(group)
 
     def forward(self, x: torch.Tensor, deterministic: bool = False) -> torch.Tensor:
+        if self.tp_group is not None:
+            x = megatron_g(x, self.tp_group)
         h = _linear(x, self.w1, self.dtype)
         if self.glu:
             a, g = h.chunk(2, dim=-1)
             h = a * F.gelu(g, approximate="tanh")
         else:
             h = F.gelu(h, approximate="tanh")
-        return _linear(h if deterministic else self.drop(h), self.w2, self.dtype)
+        h = h if deterministic else self.drop(h)
+        if self.tp_group is not None:
+            return _row_parallel(h, self.w2, self.dtype, self.tp_group)
+        return _linear(h, self.w2, self.dtype)
 
 
 class PerformerBlock(nn.Module):
     """ReZero or pre-norm block; ``sp_group`` (JAX's ``sp_axis``) is the
-    attention's sequence-parallel group."""
+    attention's sequence-parallel group, ``tp_group`` the tensor-parallel
+    group of its split attention and FF (setting it splits both; the
+    norms and ReZero gains stay replicated)."""
 
     def __init__(self, dim, heads, dim_head, local_heads, nb_features, ff_mult,
                  use_rezero, gen, device, *, ff_dropout=0.0, ff_glu=False, use_scalenorm=False,
@@ -404,6 +475,14 @@ class PerformerBlock(nn.Module):
     @sp_group.setter
     def sp_group(self, group):
         self.attn.sp_group = group
+
+    @property
+    def tp_group(self):
+        return self.attn.tp_group if self.attn.tp_group is not None else self.ff.tp_group
+
+    @tp_group.setter
+    def tp_group(self, group):
+        self.attn.tp_group = self.ff.tp_group = group
 
     def _norm(self, x, norm):
         if norm is None:  # ReZero

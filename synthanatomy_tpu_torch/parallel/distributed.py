@@ -16,7 +16,10 @@ of the step's metrics (:func:`average_metrics`), one of an evaluation's
 (:func:`sample_weighted_means`) and, where statistics
 over the global batch enter the forward (the EMA codebook counts,
 batch-norm moments), :func:`all_reduce_sum`, which autograd
-differentiates.  :func:`stack_over_ranks` gathers the ranks' tensors
+differentiates.  :func:`megatron_f` and :func:`megatron_g` are
+Megatron's conjugate operators, which the Performer's attention and FF
+place around their split products under tensor parallelism.
+:func:`stack_over_ranks` gathers the ranks' tensors
 exactly (the TP and PP states, SP's prefix states).
 :func:`pipe_send_recv` moves a pipeline stage's activations to the next
 rank and their cotangents back (JAX's ``ppermute`` over the pipe axis).
@@ -54,6 +57,8 @@ __all__ = [
     "launched",
     "local_rank",
     "maybe_initialize_distributed",
+    "megatron_f",
+    "megatron_g",
     "pipe_send_recv",
     "ranks_agree",
     "sample_weighted_means",
@@ -152,6 +157,48 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """Σ over the ranks of ``t``, differentiable: the gradient of each
     rank's input is the sum of the ranks' output gradients."""
     return _AllReduceSum.apply(t, group)
+
+
+class _F(torch.autograd.Function):
+    """Megatron's ``f``: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _G(torch.autograd.Function):
+    """Megatron's ``g``: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def megatron_f(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over ``group``'s ranks of their partial products, closing a
+    column/row-parallel pair; its gradient passes through unchanged."""
+    return _F.apply(x, group)
+
+
+def megatron_g(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, opening a column/row-parallel pair; its gradient is
+    summed over ``group``'s ranks, so the replicated stream before it
+    gets the whole gradient on every rank."""
+    return _G.apply(x, group)
 
 
 def average_(tensors: Sequence[torch.Tensor], group) -> None:

@@ -1,37 +1,53 @@
 """Megatron tensor-parallel training of the Performer prior.
 
-Port of ``synthanatomy_tpu/parallel/tensor_parallel.py``.  Each rank of
-the model group holds H/P attention heads and 1/P of the FF hidden
-width: its share of q/k/v and w1 (column-parallel) and of the
-attention's ``to_out`` and w2 (row-parallel); embeddings, norms, the
-ReZero gains, w2's bias and the head are replicated.  Its heads are an
-ordinary ``PerformerAttention`` of H/P heads, so rows 5 and 6 run on each
-rank's heads under the two kernel flags, as in the one-device step.  One
-all-reduce after the attention's ``to_out`` and one after w2 restore the
-replicated residual stream.
+Port of ``synthanatomy_tpu/parallel/tensor_parallel.py`` and of the
+GSPMD route JAX's runner takes for every other prior form
+(``runners/transformer.py:244-262, 488-495`` there).  Each rank of the
+model group holds H/P attention heads and 1/P of the FF hidden width:
+its share of q/k/v and w1 (column-parallel) and of the attention's
+``to_out`` and w2 (row-parallel); embeddings, norms, the ReZero gains,
+the row-parallel biases and the head are replicated.  The share is the
+Performer itself (a copy under the canonical names) whose attention and
+FF modules hold the rank's slices and carry ``tp_group``
+(``models/performer.py``): they place Megatron's conjugate operators
+around their products (``g`` opens a pair: identity forward, all-reduce
+backward; ``f`` closes it: all-reduce forward, identity backward), so
+the replicated stream and the replicated parameters' gradients are the
+same on every rank.  Everything else is the one-device forward, so the
+TP step (:func:`make_tp_train_step`) is the one-device step
+(``train/transformer_steps.make_transformer_train_step``) run on the
+share: every form it trains (ScaleNorm, GLU, rotary, fixed or axial
+positions, 'fixed' spatial tables, 'prepending' conditioning, the
+out-bias, dropout, reversible blocks, remat) trains here, and rows 5 and
+6 run on each rank's heads under the two kernel flags.
 
-Head packing: the canonical q/k/v layout is [global heads, local heads];
-a contiguous split would give one rank only FAVOR heads.
+What splits (JAX's rule, ``sharding_rules.py:62-75`` there: an axis that
+does not divide stays whole): the attention when its FAVOR and its local
+heads both divide by P, else it stays whole on every rank (no
+``tp_group``, the same gradient everywhere); the FF when its hidden
+width divides, else likewise (:func:`tp_split`).
+
+Dropout: the ranks of a model group draw from one stream (the runner
+seeds it by the data index), so the masks in the replicated stream
+agree; the FF's hidden dropout draws the whole width's mask and keeps
+the rank's columns.  The TP step with dropout is then the one-device
+step with the same generator state, which is what JAX's GSPMD step
+computes.
+
+Packing: the canonical q/k/v layout is [global heads, local heads]; a
+contiguous split would give one rank only FAVOR heads.
 :func:`pack_tp_params` permutes the head blocks to [g₀ l₀ | g₁ l₁ | …]
-so that every rank holds gh/P FAVOR and lh/P local heads;
+so that every rank holds gh/P FAVOR and lh/P local heads, and under GLU
+w1's rows and bias from [a | g] to [a₀ g₀ | a₁ g₁ | …];
 :func:`unpack_tp_params` is its exact inverse, so checkpoints stay
 canonical.  Adam's moments are permuted and split like the parameters
-(each rank's Adam steps its own share).
-
-Gradients flow through Megatron's conjugate operators: ``f`` all-reduces
-forward and is the identity backward (it closes a column/row-parallel
-pair), ``g`` is the identity forward and all-reduces backward (it opens
-one), so the replicated parameters get the same whole gradient on every
-rank.  w2's bias and the ReZero gains act after ``f``.  With a data
-group (the DP×TP layout) the gradients are also averaged over the data
-ranks; JAX reaches that layout through GSPMD, the port through this
-step, with the same numbers.
+(each rank's Adam steps its own share).  With a data group (the DP×TP
+layout) the gradients are also averaged over the data ranks.
 
 The TP state (:func:`shard_tp_state`) is a ``TransformerTrainState``
-whose model is this rank's share (a copy of the Performer with its
-attention at H/P heads and sliced tensors under the canonical names) and
-whose optimizer is Adam over it; :func:`gather_tp_state` writes the
-shares back into a canonical state on every rank of the group.
+whose model is this rank's share and whose optimizer is Adam over it;
+:func:`gather_tp_state` writes the shares back into a canonical state on
+every rank of the group.
 """
 
 from __future__ import annotations
@@ -41,15 +57,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.nn.functional as F
 
-from synthanatomy_tpu_torch.models.performer import (
-    Performer,
-    redraw_projections,
-    spatial_lookup_layout,
-)
-from synthanatomy_tpu_torch.ops.local_attention import rounded
+from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.parallel import distributed as D
 from synthanatomy_tpu_torch.parallel.sharding_rules import adam, performer_split_dim
 
@@ -61,13 +70,25 @@ __all__ = [
     "pack_tp_state",
     "shard_tp_state",
     "tp_param_specs",
+    "tp_split",
     "tp_step_compatible",
     "unpack_tp_params",
     "unpack_tp_state",
 ]
 
-_EPS = 1e-6
 _QKV = ("to_q", "to_k", "to_v")
+
+
+def tp_split(model: Performer, n_shards: int) -> Tuple[bool, bool]:
+    """(attention, FF): whether each part of ``model``'s blocks splits
+    over ``n_shards`` ranks: the attention when its FAVOR and its local
+    heads both divide, the FF when its hidden width does; a part that
+    does not divide stays whole (JAX's rule)."""
+    if n_shards <= 1:
+        return False, False
+    gh, lh = model.heads - model.local_attn_heads, model.local_attn_heads
+    return (gh % n_shards == 0 and lh % n_shards == 0,
+            model.dim * model.ff_mult % n_shards == 0)
 
 
 def _head_perm(gh: int, lh: int, dh: int, n_shards: int) -> np.ndarray:
@@ -82,44 +103,63 @@ def _head_perm(gh: int, lh: int, dh: int, n_shards: int) -> np.ndarray:
     return (idx[:, None] * dh + np.arange(dh)[None, :]).reshape(-1)
 
 
-def _perm(model: Performer, n_shards: int) -> np.ndarray:
-    gh = model.heads - model.local_attn_heads
-    lh = model.local_attn_heads
-    if gh % n_shards or (lh and lh % n_shards):
-        raise ValueError(f"global heads {gh} and local heads {lh} must both divide into "
-                         f"{n_shards} TP shards")
-    return _head_perm(gh, lh, model.dim_head, n_shards)
+def _glu_perm(inner: int, n_shards: int) -> np.ndarray:
+    """Permutation of GLU's 2·inner w1 rows from [a | g] to
+    [a₀ g₀ | a₁ g₁ | …], so that each contiguous share holds its values'
+    gates."""
+    w = inner // n_shards
+    return np.concatenate([np.r_[p * w:(p + 1) * w, inner + p * w:inner + (p + 1) * w]
+                           for p in range(n_shards)])
 
 
-def _head_dim(name: str) -> Optional[int]:
-    """The dimension of ``name`` that runs over the heads: q/k/v's output
-    rows (weight and bias), the attention ``to_out``'s input columns."""
+def _perms(model: Performer, n_shards: int) -> Dict[str, np.ndarray]:
+    """The packing's permutations by part ("attn", "ff") of the parts
+    that split and need one."""
+    attn, ff = tp_split(model, n_shards)
+    out = {}
+    if attn:
+        out["attn"] = _head_perm(model.heads - model.local_attn_heads, model.local_attn_heads,
+                                 model.dim_head, n_shards)
+    if ff and model.ff_glu:
+        out["ff"] = _glu_perm(model.dim * model.ff_mult, n_shards)
+    return out
+
+
+def _permuted_dim(name: str) -> Optional[Tuple[str, int]]:
+    """(part, dimension) of the tensors the packing permutes: q/k/v's
+    output rows (weight and bias) and the attention ``to_out``'s input
+    columns run over the heads, w1's rows and bias over GLU's halves."""
     parts = name.split(".")
-    if len(parts) == 5 and parts[0] == "blocks" and parts[2] == "attn":
-        if parts[3] in _QKV:
-            return 0
-        if parts[3] == "to_out" and parts[4] == "weight":
-            return 1
+    if len(parts) == 5 and parts[0] == "blocks":
+        if parts[2] == "attn" and parts[3] in _QKV:
+            return "attn", 0
+        if parts[2] == "attn" and parts[3] == "to_out" and parts[4] == "weight":
+            return "attn", 1
+        if parts[2] == "ff" and parts[3] == "w1":
+            return "ff", 0
     return None
 
 
 def _permute(model, params: Dict[str, torch.Tensor], n_shards: int, inverse: bool):
-    perm = _perm(model, n_shards)
+    perms = _perms(model, n_shards)
     if inverse:
-        perm = np.argsort(perm)
+        perms = {k: np.argsort(v) for k, v in perms.items()}
     out = dict(params)
     for name, t in params.items():
-        dim = _head_dim(name)
-        if dim is not None:
-            out[name] = t.index_select(dim, torch.as_tensor(perm, device=t.device))
+        where = _permuted_dim(name)
+        if where is not None and where[0] in perms:
+            out[name] = t.index_select(where[1], torch.as_tensor(perms[where[0]],
+                                                                 device=t.device))
     return out
 
 
 def pack_tp_params(model: Performer, params: Dict[str, torch.Tensor],
                    n_shards: int) -> Dict[str, torch.Tensor]:
-    """``params`` (a state dict of ``model``'s names) with the attention's
-    head blocks permuted so that each of ``n_shards`` contiguous shares
-    holds gh/P FAVOR and lh/P local heads; other entries unchanged."""
+    """``params`` (a state dict of ``model``'s names) with the split
+    attention's head blocks permuted so that each of ``n_shards``
+    contiguous shares holds gh/P FAVOR and lh/P local heads, and a split
+    GLU's w1 rows so that each holds its values' gates; other entries
+    unchanged."""
     return _permute(model, params, n_shards, inverse=False)
 
 
@@ -130,9 +170,9 @@ def unpack_tp_params(model: Performer, params: Dict[str, torch.Tensor],
 
 
 def _permute_state(model, state, n_shards: int, inverse: bool):
-    """The head permutation applied in place to the state's parameters
-    and to Adam's ``exp_avg``/``exp_avg_sq`` (elementwise, so they
-    permute as their parameters do)."""
+    """The packing applied in place to the state's parameters and to
+    Adam's ``exp_avg``/``exp_avg_sq`` (elementwise, so they permute as
+    their parameters do)."""
     named = dict(state.model.named_parameters())
     fn = unpack_tp_params if inverse else pack_tp_params
     with torch.no_grad():
@@ -154,13 +194,16 @@ def pack_tp_state(model: Performer, state, n_shards: int):
 
 def unpack_tp_state(model: Performer, state, n_shards: int):
     """Exact inverse of :func:`pack_tp_state`: checkpoints stay in the
-    canonical (reference-convertible) head layout."""
+    canonical (reference-convertible) layout."""
     return _permute_state(model, state, n_shards, inverse=True)
 
 
 def tp_step_compatible(model: Performer, n_shards: int) -> Tuple[bool, str]:
-    """``(ok, reason)``: whether :func:`make_tp_train_step` trains this
-    configuration."""
+    """``(ok, reason)``: whether JAX's manual ``shard_map`` TP step takes
+    this configuration (JAX's runner sends the rest through GSPMD).  Kept
+    as the port of JAX's public function; nothing in the port's step or
+    runner consults it, since :func:`make_tp_train_step` trains every
+    form."""
     gh = model.heads - model.local_attn_heads
     lh = model.local_attn_heads
     if gh % n_shards or (lh and lh % n_shards):
@@ -184,10 +227,17 @@ def tp_step_compatible(model: Performer, n_shards: int) -> Tuple[bool, str]:
     return True, ""
 
 
-def tp_param_specs(params: Sequence[str]) -> Dict[str, Optional[int]]:
-    """Name → split dimension of the TP step's parameters and buffers
-    (``performer_split_dim``)."""
-    return {n: performer_split_dim(n) for n in params}
+def tp_param_specs(model: Performer, n_shards: int,
+                   names: Sequence[str]) -> Dict[str, Optional[int]]:
+    """Name → split dimension of the TP share's parameters and buffers:
+    ``performer_split_dim``'s Megatron rules for the parts that split
+    over ``n_shards`` ranks (:func:`tp_split`), None for the rest."""
+    split = dict(zip(("attn", "ff"), tp_split(model, n_shards)))
+    out = {}
+    for n in names:
+        dim = performer_split_dim(n)
+        out[n] = dim if dim is not None and split[n.split(".")[2]] else None
+    return out
 
 
 def _share(t: torch.Tensor, dim: Optional[int], rank: int, n: int) -> torch.Tensor:
@@ -199,18 +249,25 @@ def _share(t: torch.Tensor, dim: Optional[int], rank: int, n: int) -> torch.Tens
 def shard_tp_state(model: Performer, state, model_group):
     """This rank's TP state from a canonical ``TransformerTrainState`` of
     ``model`` (left as it is): the model packed and split
-    (:func:`tp_param_specs`), Adam over the share with its moments and
-    step count split the same way, the generators and counters shared."""
+    (:func:`tp_param_specs`), its split attention and FF modules carrying
+    ``model_group``, Adam over the share with its moments and step count
+    split the same way, the generators and counters shared (the share's
+    dropouts draw from ``state.generator``)."""
     from synthanatomy_tpu_torch.train.transformer_steps import TransformerTrainState
 
     rank, n = D.group_info(model_group)
-    _perm(model, n)  # the heads must divide
+    split_attn, split_ff = tp_split(model, n)
     shard = copy.deepcopy(model)
-    specs = tp_param_specs(dict(shard.state_dict()))
+    shard.set_generator(state.generator)
+    specs = tp_param_specs(model, n, list(shard.state_dict()))
     packed = pack_tp_params(model, {k: v.detach() for k, v in model.state_dict().items()}, n)
     for blk in shard.blocks:
-        blk.attn.heads //= n
-        blk.attn.local_heads //= n
+        if split_attn:
+            blk.attn.heads //= n
+            blk.attn.local_heads //= n
+            blk.attn.tp_group = model_group
+        if split_ff:
+            blk.ff.tp_group = model_group
     for name, p in list(shard.named_parameters()):
         owner, attr = _owner(shard, name)
         setattr(owner, attr, torch.nn.Parameter(_share(packed[name], specs[name], rank, n)))
@@ -258,7 +315,7 @@ def gather_tp_state(model: Performer, tp_state, state, model_group):
     _, n = D.group_info(model_group)
     shard = tp_state.model
     sd = shard.state_dict()
-    specs = tp_param_specs(sd)
+    specs = tp_param_specs(model, n, list(sd))
     names = list(sd)
     got = _gather([(sd[k], specs[k]) for k in names], model_group)
     model.load_state_dict(unpack_tp_params(model, dict(zip(names, got)), n))
@@ -284,151 +341,46 @@ def gather_tp_grads(model: Performer, tp_state, model_group) -> Dict[str, torch.
     names and shapes, on every rank (a collective)."""
     _, n = D.group_info(model_group)
     named = list(tp_state.model.named_parameters())
-    specs = tp_param_specs([nm for nm, _ in named])
+    specs = tp_param_specs(model, n, [nm for nm, _ in named])
     got = _gather([(p.grad, specs[nm]) for nm, p in named], model_group)
     return unpack_tp_params(model, dict(zip([nm for nm, _ in named], got)), n)
 
 
-class _F(torch.autograd.Function):
-    """Megatron's ``f``: all-reduce forward, identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-class _G(torch.autograd.Function):
-    """Megatron's ``g``: identity forward, all-reduce backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 def make_tp_train_step(
     model: Performer,
-    model_group,
     *,
     data_group=None,
     use_pallas_local: Optional[bool] = None,
     use_pallas_favor: Optional[bool] = None,
 ) -> Callable:
     """``step(state, inputs, targets, conditionings, sched) -> (state,
-    metrics)`` with ``state`` from :func:`shard_tp_state` over
-    ``model_group``.  ``model`` is the canonical Performer (its
-    configuration; JAX's module).  The two flags route each rank's heads
-    through rows 5 and 6 as the one-device step's (None: ``model``'s own
-    flags).  ``inputs``/``targets`` (B, L) are this data group's rows,
-    the same on every rank of the model group.
+    metrics)`` with ``state`` from :func:`shard_tp_state`: the one-device
+    step (``make_transformer_train_step``) on the rank's share, its
+    gradients, loss and summaries averaged over ``data_group``.
+    ``model`` is the canonical Performer (its configuration; JAX's
+    module).  The two flags route each rank's heads through rows 5 and 6
+    as the one-device step's (None: ``model``'s own flags).
+    ``inputs``/``targets`` (B, L) are this data group's rows, the same on
+    every rank of the model group.  Trains every form the one-device step
+    trains."""
+    from synthanatomy_tpu_torch.train.transformer_steps import make_transformer_train_step
 
-    Forms trained (the JAX step's): pre-LayerNorm or ReZero blocks,
-    learned positions, learned 'absolute' spatial tables,
-    'bos_replacement' conditioning.  Raises ``NotImplementedError("TP
-    step: …")`` for the rest (:func:`tp_step_compatible`)."""
-    _, n_sh = D.group_info(model_group)
-    ok, why = tp_step_compatible(model, n_sh)
-    if not ok:
-        raise NotImplementedError(f"TP step: {why}")
     attn0 = model.blocks[0].attn
     flags = {"use_pallas_local": attn0.use_pallas_local if use_pallas_local is None
              else use_pallas_local,
              "use_pallas_favor": attn0.use_pallas_favor if use_pallas_favor is None
              else use_pallas_favor}
-    dtype, rezero = model.dtype, model.use_rezero
     n_cond = len(model.conditioning_num_tokens)
-    interval = model.feature_redraw_interval
-    layouts = {}
-
-    def f_op(x):
-        return _F.apply(x, model_group) if n_sh > 1 else x
-
-    def g_op(x):
-        return _G.apply(x, model_group) if n_sh > 1 else x
-
-    def ln(x, norm):
-        x32 = x.float()
-        mu = x32.mean(-1, keepdim=True)
-        var = (x32 - mu).square().mean(-1, keepdim=True)
-        return ((x32 - mu) * torch.rsqrt(var + _EPS) * norm.weight + norm.bias).to(x.dtype)
-
-    def loss_fn(shard, inputs, targets, conds):
-        h = shard.token_emb.weight.to(dtype)[inputs]
-        b, n = inputs.shape
-        if shard.spatial_position_emb == "absolute":
-            if n not in layouts:
-                idx, mask = spatial_lookup_layout(shard._spatial_sequences, n)
-                layouts[n] = (torch.from_numpy(idx).long().to(h.device),
-                              torch.from_numpy(mask).to(h.device))
-            idx, mask = layouts[n]
-            for i, emb in enumerate(shard.spatial_embs):
-                h = h + (emb.weight.to(dtype)[idx[:, i]] * mask)[None].to(h.dtype)
-        if n_cond:
-            c0 = torch.zeros(b, 1, model.dim, dtype=dtype, device=h.device)
-            for emb, cond in zip(shard.conditioning_embs, conds):
-                c0 = c0 + emb.weight.to(dtype)[cond].reshape(b, 1, model.dim)
-            h = torch.cat([c0, h[:, 1:]], dim=1)
-        h = h + shard.abs_pos_emb.weight.to(dtype)[None, :n]
-        for blk in shard.blocks:
-            a = f_op(blk.attn(g_op(h.to(dtype) if rezero else ln(h, blk.norm_attn))))
-            h = h + (a * blk.g_attn if rezero else a)
-            x = g_op(h.to(dtype) if rezero else ln(h, blk.norm_ff))
-            w1, w2 = blk.ff.w1, blk.ff.w2
-            hid = F.gelu(F.linear(rounded(x, dtype), rounded(w1.weight, dtype)) + w1.bias,
-                         approximate="tanh")
-            down = F.linear(rounded(hid, dtype), rounded(w2.weight, dtype))
-            # w2's bias is replicated: added once, after the sum
-            ff = (f_op(down) + w2.bias).to(dtype if rezero else h.dtype)
-            h = h + (ff * blk.g_ff if rezero else ff)
-        hn = ln(h, shard.final_norm).float()
-        if model.tie_embed:
-            logits = hn @ shard.token_emb.weight.float().T
-        else:
-            logits = hn @ shard.to_out.weight.float().T + shard.to_out.bias
-        lse = torch.log_softmax(logits, dim=-1)
-        return -lse.gather(-1, targets[..., None].long())[..., 0].mean()
 
     def step(state, inputs, targets, conditionings: Optional[Sequence[torch.Tensor]],
              sched: Dict[str, float]):
         if n_cond and conditionings is None:
             raise ValueError("model was built with conditioning_num_tokens; the TP step needs "
                              "the conditioning values")
-        shard = state.model
-        for blk in shard.blocks:
+        for blk in state.model.blocks:
             for k, v in flags.items():
                 setattr(blk.attn, k, v)
-        conds = [torch.as_tensor(c, device=inputs.device).long()
-                 for c in (conditionings or ())[:n_cond]]
-        shard.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(shard, inputs, targets, conds)
-        loss.backward()
-        if data_group is not None:
-            params = list(shard.parameters())
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            D.average_gradients(params, data_group)
-        for group in state.optimizer.param_groups:
-            group["lr"] = float(sched["lr"])
-        state.optimizer.step()
-        state.step += 1
-        state.steps_since_redraw += 1
-        if interval and state.steps_since_redraw >= interval:
-            redraw_projections(shard, state.redraw_generator)
-            state.steps_since_redraw = 0
-        return state, D.average_metrics({"Loss": loss.detach()}, data_group)
+        one_device = make_transformer_train_step(state.model, process_group=data_group)
+        return one_device(state, inputs, targets, conditionings, sched)
 
     return step

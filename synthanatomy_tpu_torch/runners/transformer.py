@@ -20,13 +20,15 @@ tests' way to ask for the host).  Several devices (JAX :210-391,
   (``parallel/sequence_parallel.py``; the plain attention forms, as in
   JAX), the model and Adam replicated;
 - ``--mesh_shape=(d, m)``: the (data, model) layout and the Megatron TP
-  step (``parallel/tensor_parallel.py``; rows 5 and 6 on each rank's
-  heads), the model and Adam split over the model ranks.  Checkpoints
-  stay canonical: every rank gathers the shares and unpacks them before
-  rank 0 writes, and a resume packs and splits what it reads, so a TP
-  checkpoint resumes on one device and the other way round.  A model
-  that step does not train raises ``NotImplementedError`` (JAX trains it
-  through GSPMD; ROADMAP.md §1);
+  step (``parallel/tensor_parallel.py``: the one-device step on each
+  rank's share; rows 5 and 6 on each rank's heads), every prior form, the
+  attention and the FF split over the model ranks where their heads and
+  hidden width divide (else replicated), with Adam split alike; dropout
+  from one stream per data group, so the ranks of a model group draw the
+  same masks.  Checkpoints stay canonical: every rank gathers the shares
+  and unpacks them before rank 0 writes, and a resume packs and splits
+  what it reads, so a TP checkpoint resumes on one device and the other
+  way round;
 - ``--pp_stages=P``: the (data, pipe) layout and the GPipe step
   (``parallel/pipeline_parallel.py``; the depth in P contiguous stages,
   one a rank, rows 5 and 6 in each stage's layers; the most microbatches
@@ -267,11 +269,14 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     logger.info(f"Latent shape: {latent_shape}")
 
     ordering = build_ordering(config, latent_shape)
-    # the same weights and projections on every rank; dropout from seed + rank
+    # the same weights and projections on every rank; dropout from seed + rank,
+    # or under a model axis from seed + data index: the ranks of a model group
+    # share one stream, so their masks in the replicated stream agree
     model = build_performer(config, ordering, latent_shape, device=device,
                             generator=torch.Generator().manual_seed(config.seed))
     zero1 = config.zero1 and group is not None and not tp_mode
-    state = create_transformer_train_state(model, config.seed, rank=config.rank,
+    stream = layout.data_index if tp_mode else config.rank
+    state = create_transformer_train_state(model, config.seed, rank=stream,
                                            learning_rate=config.learning_rate, zero1=zero1,
                                            process_group=group)
     log_network_size(state.model, logger, config.network)
@@ -280,7 +285,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     if ckpt_path:
         state = C.load_checkpoint(ckpt_path, state)
         if config.world_size > 1:  # the file holds rank 0's dropout generator
-            state.generator.set_state(fold_in(state.generator, config.rank).get_state())
+            state.generator.set_state(fold_in(state.generator, stream).get_state())
         logger.info(f"Restored checkpoint from {ckpt_path}")
 
     want_pallas = config.use_pallas_local_attn or config.use_pallas_favor_attn
@@ -298,21 +303,25 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     elif tp_mode:
         from synthanatomy_tpu_torch.parallel import tensor_parallel as TP
 
-        ok, why = TP.tp_step_compatible(model, layout.shape[1])
-        if not ok:
-            raise NotImplementedError(
-                f"TP step: {why} (JAX trains this configuration through GSPMD; ROADMAP.md §1, "
-                f"item 1)")
         if config.zero1:
             logger.info("--zero1 has no effect under tensor parallelism: Adam is split like "
                         "the parameters over the model ranks")
+        m = layout.shape[1]
         train_state = TP.shard_tp_state(model, state, layout.inner_group)
         step_fn = TP.make_tp_train_step(
-            model, layout.inner_group, data_group=layout.data_group,
+            model, data_group=layout.data_group,
             use_pallas_local=config.use_pallas_local_attn,
             use_pallas_favor=config.use_pallas_favor_attn)
-        logger.info(f"Megatron TP step over {layout.shape[1]} model shards"
-                    + (f" x {layout.shape[0]} data shards" if layout.shape[0] > 1 else ""))
+        split_attn, split_ff = TP.tp_split(model, m)
+        gh = model.heads - model.local_attn_heads
+        attn = (f"attention split ({gh // m} FAVOR + {model.local_attn_heads // m} local heads "
+                f"a rank)" if split_attn else f"attention replicated ({gh} FAVOR / "
+                f"{model.local_attn_heads} local heads do not both divide by {m})")
+        ff = (f"FF split ({model.dim * model.ff_mult // m} hidden a rank)" if split_ff
+              else f"FF replicated (hidden {model.dim * model.ff_mult} does not divide by {m})")
+        logger.info(f"Megatron TP step over {m} model shards"
+                    + (f" x {layout.shape[0]} data shards" if layout.shape[0] > 1 else "")
+                    + f": {attn}, {ff}; embeddings, norms, gains and head replicated")
     elif pp_mode:
         from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
 

@@ -122,9 +122,10 @@ def tp_step(device, rank: int, world: int) -> Dict[str, float]:
 
     layout = build_groups(rank_layout((world // 2, 2), world, rank))
     model = _paper_prior(device)
-    state = create_transformer_train_state(model, 1, rank=rank, learning_rate=1e-4)
+    # one dropout stream per data group, as the runner seeds it
+    state = create_transformer_train_state(model, 1, rank=layout.data_index, learning_rate=1e-4)
     tp_state = TP.shard_tp_state(model, state, layout.inner_group)
-    step = TP.make_tp_train_step(model, layout.inner_group, data_group=layout.data_group)
+    step = TP.make_tp_train_step(model, data_group=layout.data_group)
     tokens = torch.randint(0, 32, (2, 29),
                            generator=torch.Generator().manual_seed(300 + layout.data_index))
     tokens = tokens.to(device)

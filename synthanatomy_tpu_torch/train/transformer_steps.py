@@ -66,8 +66,10 @@ def create_transformer_train_state(
     """Adam over the model's parameters (the FAVOR projections are
     buffers, never trained), sharded over ``process_group`` with
     ``zero1``; the dropout generator seeded from ``seed`` and ``rank``
-    (``seed + rank``: the run's per-rank seed), the redraw generator from
-    ``seed`` alone, equal on every rank."""
+    (``seed + rank``: the run's per-rank seed; under tensor parallelism
+    ``rank`` is the data index, so the ranks of a model group share one
+    stream), the redraw generator from ``seed`` alone, equal on every
+    rank."""
     device = next(model.parameters()).device
     optimizer = adam(model.parameters(), learning_rate, zero1=zero1,
                      process_group=process_group)

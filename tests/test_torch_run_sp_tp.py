@@ -7,8 +7,10 @@ runs of the same flags (``tests/test_sp_runner.py``,
 evaluation).
 
 - ``--sp_shards=2`` over 2 ranks, plain and with 'bos_replacement'
-  conditioning, and ``--mesh_shape='(1, 2)'``, plain and the paper form
-  with conditioning: each trains to the one-process run's epoch loss and
+  conditioning, and ``--mesh_shape='(1, 2)'``, plain, the paper form
+  with conditioning, and ScaleNorm, GLU, rotary positions and the
+  attention's out-bias (forms JAX's manual TP step refuses and its
+  runner trains through GSPMD): each trains to the one-process run's epoch loss and
   evaluation CE (rtol 1e-5) and parameters: all of them within 1e-4 in
   norm, and each element within JAX's runner-test bound (rtol 2e-3, atol
   5e-4, ``tests/test_sp_runner.py:62``): Adam moves an element by ~lr a
@@ -17,7 +19,11 @@ evaluation).
 - Over 4 ranks the (2, 2) DP×SP layout of ``--sp_shards=2`` and
   ``--mesh_shape='(2, 2)'``: ``--batch_size`` counts a data group's rows
   (as it counts a rank's under DP), so each trains as the DP run over 2
-  ranks, ``--mesh_shape='(2,)'``, at the same bounds.  At
+  ranks, ``--mesh_shape='(2,)'``, at the same bounds; so does
+  ``--mesh_shape='(2, 2)' --ff_dropout=0.1`` as the DP run of the same
+  flags, since each data group's ranks draw from one stream (seed +
+  data index, the DP run's seed + rank) and the FF's mask is drawn at
+  the whole width on every rank of a model group.  At
   ``--batch_size=1`` ``--sp_shards=2`` still takes the (2, 2) layout (no
   rank sits out: the batch is a data group's, not a global one to
   divide), and trains as the DP run over 2 ranks at B1.
@@ -26,8 +32,7 @@ evaluation).
   checkpoint to epoch 2, each as the uninterrupted one-process run.
 - Inference with a model axis ignores it, as JAX does: the DP sampler over
   both ranks writes what one process writes (greedy).
-- A configuration the TP step does not train raises ``NotImplementedError
-  ("TP step: …")`` on the ranks; ``--pp_stages=2`` raises "must divide
+- ``--pp_stages=2`` raises "must divide
   the device count" in one process and "must divide n_layers" over 2 ranks
   at depth 3 (PP trains in ``tests/test_torch_run_pp.py``); the flag
   rules of JAX's config hold (``tests/test_sp_runner.py:136``,
@@ -57,6 +62,7 @@ FLAGS = dict(device="cpu", mode="training", epochs=1, batch_size=2, eval_batch_s
              local_window_size=8, ordering_type="raster_scan", gamma=0.999,
              compute_dtype="float32", attn_compute_dtype="float32", seed=7)
 PAPER = dict(use_rezero=True, spatial_position_emb="absolute")
+FORMS = dict(use_scalenorm=True, ff_glu=True, position_emb="rotary", attn_out_bias=True)
 
 
 @pytest.fixture(scope="module")
@@ -82,6 +88,7 @@ def cli(tmp_path_factory):
         "plain": run(**dict(base, experiment_name="one")),
         "cond": run(**dict(base, experiment_name="one_cond", **conditioned)),
         "paper": run(**dict(base, experiment_name="one_paper", **PAPER, **conditioned)),
+        "forms": run(**dict(base, experiment_name="one_forms", **FORMS)),
     }
     ckdir = os.path.join(proj, "one", "performer", "checkpoints")
     resume_dir = os.path.join(proj, "tp_from_one", "performer", "checkpoints")
@@ -100,11 +107,15 @@ def cli(tmp_path_factory):
         "tp_from_one": dict(base, experiment_name="tp_from_one", mesh_shape=(1, 2), epochs=2),
         "tp12_infer": dict(base, experiment_name="tp12", mode="inference", mesh_shape=(1, 2),
                            eval_batch_size=4, sample=False),
-        "tp12_refused": dict(base, experiment_name="glu", mesh_shape=(1, 2), ff_glu=True),
+        "tp12_forms": dict(base, experiment_name="tp12_forms", mesh_shape=(1, 2), **FORMS),
+        "dp2_dropout": dict(base, experiment_name="dp2_dropout", mesh_shape=(2,),
+                            ff_dropout=0.1),
         "pp2_deep": dict(base, experiment_name="pp2_deep", pp_stages=2, n_layers=3),
     }
     four = {
         "tp22": dict(base, experiment_name="tp22", mesh_shape=(2, 2)),
+        "tp22_dropout": dict(base, experiment_name="tp22_dropout", mesh_shape=(2, 2),
+                             ff_dropout=0.1),
         "sp2x2": dict(base, experiment_name="sp2x2", sp_shards=2),
         "sp2_b1": dict(base, experiment_name="sp2_b1", sp_shards=2, batch_size=1),
     }
@@ -152,7 +163,8 @@ def _same_run(got, want, name):
 
 @pytest.mark.parametrize("name,ranks,want", [
     ("sp2", 2, "plain"), ("sp2_cond", 2, "cond"), ("sp2x2", 4, "dp2"), ("sp2_b1", 4, "dp2_b1"),
-    ("tp12", 2, "plain"), ("tp12_paper", 2, "paper"), ("tp22", 4, "dp2"),
+    ("tp12", 2, "plain"), ("tp12_paper", 2, "paper"), ("tp12_forms", 2, "forms"),
+    ("tp22", 4, "dp2"), ("tp22_dropout", 4, "dp2_dropout"),
 ])
 def test_parallel_cli_trains_as_one_process(cli, name, ranks, want):
     outs = cli["two" if ranks == 2 else "four"]
@@ -184,12 +196,6 @@ def test_inference_with_a_model_axis_samples_as_one_process(cli):
         want = np.load(p)
         assert want.dtype == got[os.path.basename(p)].dtype == np.uint16
         np.testing.assert_array_equal(got[os.path.basename(p)], want)
-
-
-def test_unsupported_tp_configuration_raises_on_the_ranks(cli):
-    for out in cli["two"]:
-        err = out["tp12_refused"]["error"]
-        assert err.startswith("NotImplementedError: TP step: ff_glu"), err
 
 
 def test_flag_validation(cli, tmp_path):

@@ -95,19 +95,23 @@ def _case_sp(spec, rank, world, outdir):
 def _case_tp(spec, rank, world, outdir):
     """Each TP case on the (2, 2) layout: without a data group each model
     group of 2 trains the whole batch (two (1, 2) runs), with one the
-    DP×TP step.  Rank 0 keeps the loss, the gradients gathered over its
-    model group and unpacked, and the canonical parameters after the
-    step; every rank's canonical parameters are compared over the job."""
+    DP×TP step, whose dropout draws from a stream per data group (seed 0
+    + data index, as the runner seeds it).  Rank 0 keeps the loss, the
+    gradients gathered over its model group and unpacked, and the
+    canonical parameters after the step; every rank's canonical
+    parameters are compared over the job, and each rank reports which
+    parts of its share split and its heads."""
     from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
 
     layout = build_groups(rank_layout((2, 2), world, rank))
     out = {}
     for case in spec["tp"]:
         model = copy.deepcopy(case["model"])
-        state = create_transformer_train_state(model, 0, learning_rate=LR)
+        stream = layout.data_index if case["dp"] else 0
+        state = create_transformer_train_state(model, 0, rank=stream, learning_rate=LR)
         tp_state = TP.shard_tp_state(model, state, layout.inner_group)
         data_group = layout.data_group if case["dp"] else None
-        step = TP.make_tp_train_step(model, layout.inner_group, data_group=data_group,
+        step = TP.make_tp_train_step(model, data_group=data_group,
                                      use_pallas_local=True, use_pallas_favor=True)
         x, y, conds = case["inputs"], case["targets"], case["conds"]
         if case["dp"]:
@@ -121,7 +125,10 @@ def _case_tp(spec, rank, world, outdir):
         out[case["name"]] = {
             "loss": float(met["Loss"]), "grads": grads, "params": params,
             "agree": D.ranks_agree(list(params.values()), D.default_group()),
-            "heads": (shard.blocks[0].attn.heads, shard.blocks[0].attn.local_heads)}
+            "split": (shard.blocks[0].attn.tp_group is not None,
+                      shard.blocks[0].ff.tp_group is not None),
+            "heads": (shard.blocks[0].attn.heads - shard.blocks[0].attn.local_heads,
+                      shard.blocks[0].attn.local_heads)}
     return out
 
 
