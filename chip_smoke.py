@@ -265,6 +265,11 @@ result, without them.  Phases, each fatal on failure:
    resume of it to epoch 2, and one sampling call of 16 grids (1400 row 1
    launches).
 22. (in a process of its own) sequence, tensor and pipeline parallelism:
+   first in each rank's process, the TP share (a2) and the PP stage (c1)
+   built on the card from the canonical prior on the host, as the runner
+   builds them: after building and after one step, each rank's state
+   tensors on the card equal the count from the canonical shapes exactly,
+   and ``torch.cuda.memory_allocated()`` grows by that count within 2%;
    (a) two ranks over gloo sharing card 0 (``--sptp-rank``), each held on rank 0
    against one process on the same B6 batch, the paper prior in f32 with
    ReZero gains 0.1: the SP step (seq_len 1400 padded to 1680, 840 tokens a
@@ -299,7 +304,11 @@ result, without them.  Phases, each fatal on failure:
    beside one process's), (c2) ``run_transformer --pp_stages=2`` at paper
    width on phase 19's grids: an epoch of 2 steps with rows 5 and 6 on
    both ranks, rank 0's canonical checkpoint with every Adam state, and a
-   one-device resume of it to epoch 2.
+   one-device resume of it to epoch 2.  The TP and PP epochs of (b) and
+   (c2) also evaluate the 12 grids: each rank's peak memory by region
+   (step, evaluation, gather, write) beside one process's in its resume,
+   every rank's peak below one process's, rank 1's at the checkpoint not
+   above its step's.
 
 The line before the last is the kernels' JSON record (time, plain time,
 bound and library time of every kernel); the last line is
@@ -312,6 +321,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3666,6 +3676,131 @@ TP_FORMS = (
 # F1 as run_transformer's flags, for (b)
 TP_FORMS_CLI = dict(use_rezero=False, use_scalenorm=True, ff_glu=True, position_emb="rotary",
                     attn_out_bias=True, emb_dropout=0.1, attn_dropout=0.1, ff_dropout=0.1)
+# a rank's card-resident train state (parameters, buffers, gradients, Adam's
+# moments): its tensors' bytes equal the count from the canonical shapes, and
+# the change of torch.cuda.memory_allocated() across building it and its first
+# step is within this share of that count (the allocator's rounding)
+RESIDENT_ALLOC = 0.02
+# Megatron's split parameters by part; the rest of a TP share is replicated
+MEGATRON = {"attn": re.compile(r"^blocks\.\d+\.attn\.(to_[qkv]\.(weight|bias)|to_out\.weight)$"),
+            "ff": re.compile(r"^blocks\.\d+\.ff\.(w1\.(weight|bias)|w2\.weight)$")}
+
+
+def _resident(state):
+    """Bytes of a train state's tensors on the card: its model's
+    parameters and buffers, their gradients and Adam's entries, each
+    tensor once."""
+    import torch
+
+    model = state.model
+    tensors = [*model.parameters(), *model.buffers(),
+               *(p.grad for p in model.parameters() if p.grad is not None),
+               *(v for st in state.optimizer.state.values() for v in st.values()
+                 if isinstance(v, torch.Tensor))]
+    return sum({id(t): t.numel() * t.element_size() for t in tensors if t.is_cuda}.values())
+
+
+def _share_bytes(host, inner, index, n, stepped):
+    """Bytes that rank ``index`` of ``n`` should hold on the card of the
+    canonical prior ``host``, counted from its shapes: a TP share
+    (``inner`` "model": a Megatron-split parameter's 1/n where its part
+    splits, the rest whole) or a PP stage ("pipe": the non-block tensors
+    and layers [index·L/n, (index+1)·L/n)); each parameter's bytes, four
+    times after a step (its gradient and Adam's two moments), and its
+    buffers'."""
+    per = host.depth // n
+    gh, lh = host.heads - host.local_attn_heads, host.local_attn_heads
+    split = {"attn": gh % n == 0 and lh % n == 0, "ff": host.dim * host.ff_mult % n == 0}
+
+    def kept(name):
+        head, _, rest = name.partition(".")
+        return (inner == "model" or head != "blocks"
+                or index * per <= int(rest.split(".")[0]) < (index + 1) * per)
+
+    def elements(name, t):
+        if inner == "model" and any(split[k] and rx.match(name) for k, rx in MEGATRON.items()):
+            return t.numel() // n
+        return t.numel()
+
+    params = sum(elements(nm, p) * p.element_size() for nm, p in host.named_parameters()
+                 if kept(nm))
+    buffers = sum(b.numel() * b.element_size() for nm, b in host.named_buffers() if kept(nm))
+    return params * (4 if stepped else 1) + buffers
+
+
+# (b, c2): each rank's peak device memory in a run_transformer epoch with an
+# evaluation and checkpoints under --mesh_shape='(1,2)' and --pp_stages=2, in
+# GiB, predicted from the resident state and the one-process step's 6.76 GiB
+# (phase 8; PERF.md §6); printed beside the readings.  The bounds:
+# each rank's peak below one process's in the same epoch (its resume), and
+# rank 1's peak at the checkpoint (gather and write) not above its step peak
+CLI_PEAK_PREDICTED = {"one": 6.8, "tp": 4.1, "pp": 1.8, "checkpoint": 0.9}
+
+
+@contextlib.contextmanager
+def _memory_regions(peaks):
+    """Inside, each region of a ``run_transformer`` call records the card's
+    peak memory (``torch.cuda.max_memory_allocated``, bytes) in ``peaks``
+    under its label, the largest over the region's calls: "step" (a train
+    step), "eval" (an evaluation batch), "gather" (a TP or PP checkpoint's
+    gather onto rank 0), "write" (a checkpoint's save) and "other" (the
+    rest: loading, logging, the raw export); ``peaks`` may hold the
+    allocation at the start under "start".  The runner's calls are
+    wrapped, and the peak statistic is reset at each region's edges."""
+    import torch
+
+    from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
+    from synthanatomy_tpu_torch.parallel import tensor_parallel as TP
+    from synthanatomy_tpu_torch.train import checkpoints as C
+    from synthanatomy_tpu_torch.train import transformer_steps as S
+
+    depth = [0]
+
+    def mark(label):
+        torch.cuda.synchronize()
+        peaks[label] = max(peaks.get(label, 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def region(label, fn):
+        def run(*a, **k):
+            depth[0] += 1
+            if depth[0] == 1:
+                mark("other")
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    mark(label)
+        return run
+
+    def maker(label, make):
+        return lambda *a, **k: region(label, make(*a, **k))
+
+    patches = {(C, "save_checkpoint"): region("write", C.save_checkpoint),
+               (C, "save_best_checkpoint"): region("write", C.save_best_checkpoint),
+               (TP, "gather_tp_state"): region("gather", TP.gather_tp_state),
+               (PP, "unpack_pp_state"): region("gather", PP.unpack_pp_state),
+               (TP, "make_tp_train_step"): maker("step", TP.make_tp_train_step),
+               (PP, "make_pp_train_step"): maker("step", PP.make_pp_train_step),
+               (S, "make_transformer_train_step"): maker("step", S.make_transformer_train_step),
+               (S, "make_transformer_eval_step"): maker("eval", S.make_transformer_eval_step),
+               (PP.PipelinedApply, "loss"): region("eval", PP.PipelinedApply.loss)}
+    saved = {key: getattr(*key) for key in patches}
+    for (owner, attr), fn in patches.items():
+        setattr(owner, attr, fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield peaks
+    finally:
+        for (owner, attr), fn in saved.items():
+            setattr(owner, attr, fn)
+        mark("other")
+
+
+def _gib(n):
+    return f"{n / 2 ** 30:.3f} GiB"
 
 
 def _sptp_rank(root):
@@ -3677,6 +3812,8 @@ def _sptp_rank(root):
     step, held against the TP step's one process (the same kernels, weights
     and batch), rank 0 writing the record to ``ROOT/sptp.json``; then (b,
     c2) ``_sptp_cli``, the CLI calls in the same group."""
+    import copy
+
     import numpy as np
     import torch
 
@@ -3738,6 +3875,47 @@ def _sptp_rank(root):
         model.load_state_dict(init)
         return float(m["Loss"]), grads, ms
 
+    def memory():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    def resident(inner, state, base, stepped):
+        """[bytes of ``state`` on the card, the count from shapes, the
+        change of memory_allocated since ``base`` (``memory()``), that of
+        the bytes requested from the allocator] for this rank."""
+        now = memory()
+        return [_resident(state), _share_bytes(host, inner, rank, world, stepped),
+                now[0] - base[0], now[1] - base[1]]
+
+    def resident_held(label, inner, built, stepped):
+        """Every rank's readings after building its state and after one
+        step (``resident`` each): the bytes must equal the count from
+        shapes and memory_allocated's change be within RESIDENT_ALLOC of
+        it, on every rank; a line on rank 0."""
+        table = torch.zeros(world, 8, dtype=torch.float64)
+        table[rank] = torch.tensor(built + stepped, dtype=torch.float64)
+        torch.distributed.all_reduce(table, group=group)
+        rows = [[int(v) for v in row] for row in table.tolist()]
+        for r, row in enumerate(rows):
+            for got, want, alloc, _ in (row[:4], row[4:]):
+                _require(got == want and abs(alloc - want) <= RESIDENT_ALLOC * want,
+                         f"{label} rank {r}: {got} B on the card, {want} B from shapes, "
+                         f"memory_allocated +{alloc} B")
+        whole = _share_bytes(host, "pipe", 0, 1, True)
+
+        def cell(got, want, alloc, asked):
+            return (f"{got} B (from shapes {want} B; memory_allocated +{alloc} B, "
+                    f"{(alloc - want) / want * 100:+.3f}%; requested +{asked} B)")
+
+        say(f"[mem] {label}, paper prior f32: built, " + ", ".join(
+            f"rank {r} holds {cell(*row[:4])}" for r, row in enumerate(rows))
+            + "; after one step (gradients, Adam's moments), " + ", ".join(
+            f"rank {r} holds {cell(*row[4:])}" for r, row in enumerate(rows))
+            + f"; the whole model after a step: {whole} B (bound: bytes equal to the count, "
+            f"memory_allocated within {RESIDENT_ALLOC:.0%})  [{note}]")
+        return rows
+
     def held(label, loss, grads, ref):
         loss1, g1, one_ms = ref
         rel, (wname, wrel) = _rel(grads, g1), _worst(grads, g1)
@@ -3747,12 +3925,88 @@ def _sptp_rank(root):
         return {"loss_rel": loss_rel, "grad_rel": rel, "worst": [wname, wrel],
                 "one_ms": one_ms}
 
-    model, ordering = _train_prior(dev, torch.float32)
+    # the canonical prior on the host, whose share and stage (a2, c1) are built
+    # on the card as the runner builds them, each first thing in this process
+    # (nothing else of the prior on the card yet: the readings of memory are
+    # the state's); then its copy on the card for the SP step and the
+    # one-process references
+    host, ordering = _train_prior(torch.device("cpu"), torch.float32)
     b = TRAIN_BATCH
     latents = np.random.default_rng(22).integers(0, 2048, size=(b,) + GRID)
     inputs, targets = (torch.as_tensor(x, device=dev)
                        for x in prepare_batch(latents, ordering, 2048))
     sched = {"lr": 1e-4}
+    # cuBLAS's workspaces (the forward's thread and autograd's) before the
+    # readings: they stay allocated for the process
+    warm = torch.nn.Linear(64, 64, device=dev)
+    warm(torch.ones(8, 64, device=dev)).sum().backward()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (a2) the TP step at (1, world): each rank's heads through rows 5 and 6
+    # (the share built on the card from the host's canonical state, as the
+    # runner builds it)
+    tp = build_groups(rank_layout((1, world), world, rank))
+    state = create_transformer_train_state(host, seed=0, device=dev)
+    base = memory()
+    tp_state = TP.shard_tp_state(host, state, tp.inner_group, device=dev)
+    built = resident("model", tp_state, base, stepped=False)
+    step = TP.make_tp_train_step(tp_state.model, use_pallas_local=True,
+                                 use_pallas_favor=True)
+    attn = tp_state.model.blocks[0].attn
+    heads = (attn.heads - attn.local_heads, attn.local_heads)
+    def launched(label, run):
+        """Each rank's row 5 and row 6 launches in ``run()``, all > 0."""
+        fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = torch.zeros(world, 2)
+        counts[rank] = torch.tensor([float(fa.favor_attention_fused.launches),
+                                     float(lf.local_attention_flash.launches)])
+        torch.distributed.all_reduce(counts, group=group)
+        _require(bool((counts > 0).all()), f"{label} launches (row 5, row 6) by rank {counts}")
+        return out, counts.int().tolist()
+
+    (tp_state, m), rec["tp_launches"] = launched(
+        "TP step", lambda: step(tp_state, inputs, targets, None, sched))
+    rec["tp_resident"] = resident_held(f"TP share at (1, {world})", "model", built,
+                                       resident("model", tp_state, base, stepped=True))
+    g_tp = TP.gather_tp_grads(tp_state, tp.inner_group, root_only=True)
+    loss_tp = float(m["Loss"])
+    rec["tp_ms"] = wall_ms(lambda: step(tp_state, inputs, targets, None, sched), 1)
+    del tp_state, step, state
+    torch.cuda.empty_cache()
+    D.barrier(group)
+
+    # (c1) the PP step at (1, world): the rank's stage of 24 / world layers,
+    # rows 5 and 6 in them, PP_MICROBATCHES microbatches
+    # (the stage built on the card from the host's canonical state)
+    pp = build_groups(rank_layout(None, world, rank, pp_stages=world))
+    state = create_transformer_train_state(host, seed=0, device=dev)
+    base = memory()
+    packed = PP.pack_pp_state(host, state, pp.inner_group, device=dev)
+    built = resident("pipe", packed, base, stepped=False)
+    step = PP.make_pp_train_step(packed.model, pp.inner_group, n_microbatches=PP_MICROBATCHES)
+    (packed, m), rec["pp_launches"] = launched(
+        "PP step", lambda: step(packed, inputs, targets, None, sched))
+    rec["pp_resident"] = resident_held(f"PP stage at (1, {world})", "pipe", built,
+                                       resident("pipe", packed, base, stepped=True))
+    per_stage = host.depth // world * PP_MICROBATCHES
+    rec["pp_predicted"] = [per_stage * PP_FAVOR_PER_LAYER_MB, per_stage * PP_LOCAL_PER_LAYER_MB]
+    _require(all(c == rec["pp_predicted"] for c in rec["pp_launches"]),
+             f"PP step launches (row 5, row 6) by rank {rec['pp_launches']}, predicted "
+             f"{rec['pp_predicted']} on each")
+    g_pp = PP.unpack_pp_tree(packed.model,
+                             {n: p.grad for n, p in packed.model.named_parameters()},
+                             pp.inner_group, root_only=True)
+    loss_pp = float(m["Loss"])
+    rec["pp_ms"] = wall_ms(lambda: step(packed, inputs, targets, None, sched), 1)
+    del packed, step, state
+    torch.cuda.empty_cache()
+    D.barrier(group)
+
+    model = copy.deepcopy(host).to(dev)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     # (a1) the SP step: the sequence over both ranks, the plain attention
@@ -3760,7 +4014,7 @@ def _sptp_rank(root):
     l_pad = sp_padded_length(model, SEQ, world)
     state = create_transformer_train_state(model, seed=0)
     step = make_sp_train_step(model, sp.inner_group, SEQ, data_group=sp.data_group)
-    _, m = step(state, inputs, targets, None, sched)
+    m = step(state, inputs, targets, None, sched)[1]
     g_sp, loss_sp = _grads(model), float(m["Loss"])
     # every rank holds the same summed gradients: each tensor's sum and norm
     prints = torch.stack([torch.stack([g.sum(), torch.linalg.norm(g)]) for g in g_sp.values()])
@@ -3783,36 +4037,11 @@ def _sptp_rank(root):
     del g_sp
     D.barrier(group)
 
-    # (a2) the TP step at (1, world): each rank's heads through rows 5 and 6
-    tp = build_groups(rank_layout((1, world), world, rank))
-    model.load_state_dict(init)
-    state = create_transformer_train_state(model, seed=0)
-    tp_state = TP.shard_tp_state(model, state, tp.inner_group)
-    step = TP.make_tp_train_step(model, use_pallas_local=True,
-                                 use_pallas_favor=True)
-    attn = tp_state.model.blocks[0].attn
-    heads = (attn.heads - attn.local_heads, attn.local_heads)
-    def launched(label, run):
-        """Each rank's row 5 and row 6 launches in ``run()``, all > 0."""
-        fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
-        out = run()
-        torch.cuda.synchronize()
-        counts = torch.zeros(world, 2)
-        counts[rank] = torch.tensor([float(fa.favor_attention_fused.launches),
-                                     float(lf.local_attention_flash.launches)])
-        torch.distributed.all_reduce(counts, group=group)
-        _require(bool((counts > 0).all()), f"{label} launches (row 5, row 6) by rank {counts}")
-        return out, counts.int().tolist()
-
-    (tp_state, m), rec["tp_launches"] = launched(
-        "TP step", lambda: step(tp_state, inputs, targets, None, sched))
-    g_tp, loss_tp = TP.gather_tp_grads(model, tp_state, tp.inner_group), float(m["Loss"])
-    rec["tp_ms"] = wall_ms(lambda: step(tp_state, inputs, targets, None, sched), 1)
-    del tp_state, step, state
-    torch.cuda.empty_cache()
+    # (a2) against one process with the same kernels
     ref_kernels = one_process(kernels=True) if rank == 0 else None
     if rank == 0:
-        rec["tp"] = held("TP step", loss_tp, g_tp, ref_kernels)
+        rec["tp"] = held("TP step", loss_tp, {k: v.to(dev) for k, v in g_tp.items()},
+                         ref_kernels)
         per_rank = ", ".join(f"rank {r}: row 5 {c[0]}, row 6 {c[1]}"
                              for r, c in enumerate(rec["tp_launches"]))
         say(f"[tp] TP step at (1, {world}), paper prior f32 (ReZero gains 0.1), B{b}, "
@@ -3835,13 +4064,15 @@ def _sptp_rank(root):
                  else None)
         state = create_transformer_train_state(fmodel, seed=0)
         tp_state = TP.shard_tp_state(fmodel, state, tp.inner_group)
-        step = TP.make_tp_train_step(fmodel, use_pallas_local=True, use_pallas_favor=True)
+        step = TP.make_tp_train_step(tp_state.model, use_pallas_local=True,
+                                     use_pallas_favor=True)
         (tp_state, m), counts = launched(
             f"TP step {label}", lambda: step(tp_state, inputs, targets, conds, sched))
         _require(all(c == list(predicted) for c in counts),
                  f"TP step {label} launches (row 5, row 6) by rank {counts}, predicted "
                  f"{list(predicted)} on each")
-        g_f, loss_f = TP.gather_tp_grads(fmodel, tp_state, tp.inner_group), float(m["Loss"])
+        g_f = TP.gather_tp_grads(tp_state, tp.inner_group, root_only=True)
+        g_f, loss_f = g_f and {k: v.to(dev) for k, v in g_f.items()}, float(m["Loss"])
         split = TP.tp_split(fmodel, world)
         tp_ms = wall_ms(lambda: step(tp_state, inputs, targets, conds, sched), 1)
         del tp_state, step, state
@@ -3850,7 +4081,8 @@ def _sptp_rank(root):
             fmodel.load_state_dict(finit)
             state = create_transformer_train_state(fmodel, seed=0)
             one = make_transformer_train_step(fmodel)
-            _, m1 = one(state, inputs, targets, conds, sched)
+            # (not the returned state: it would keep the form's model on the card)
+            m1 = one(state, inputs, targets, conds, sched)[1]
             g1 = _grads(fmodel)
             one_ms = _time_ms(lambda: one(state, inputs, targets, conds, sched), 1)
             r = rec[f"tp_{label}"] = held(f"TP step {label}", loss_f, g_f,
@@ -3871,28 +4103,10 @@ def _sptp_rank(root):
         torch.cuda.empty_cache()
         D.barrier(group)
 
-    # (c1) the PP step at (1, world): the rank's stage of 24 / world layers,
-    # rows 5 and 6 in them, PP_MICROBATCHES microbatches
-    pp = build_groups(rank_layout(None, world, rank, pp_stages=world))
-    model.load_state_dict(init)
-    state = create_transformer_train_state(model, seed=0)
-    packed = PP.pack_pp_state(model, state, pp.inner_group)
-    step = PP.make_pp_train_step(model, pp.inner_group, n_microbatches=PP_MICROBATCHES)
-    (packed, m), rec["pp_launches"] = launched(
-        "PP step", lambda: step(packed, inputs, targets, None, sched))
-    per_stage = model.depth // world * PP_MICROBATCHES
-    rec["pp_predicted"] = [per_stage * PP_FAVOR_PER_LAYER_MB, per_stage * PP_LOCAL_PER_LAYER_MB]
-    _require(all(c == rec["pp_predicted"] for c in rec["pp_launches"]),
-             f"PP step launches (row 5, row 6) by rank {rec['pp_launches']}, predicted "
-             f"{rec['pp_predicted']} on each")
-    g_pp = PP.unpack_pp_tree(model, {n: p.grad for n, p in model.named_parameters()},
-                             pp.inner_group)
-    loss_pp = float(m["Loss"])
-    rec["pp_ms"] = wall_ms(lambda: step(packed, inputs, targets, None, sched), 1)
-    del packed, step, state
-    torch.cuda.empty_cache()
+    # (c1) against one process with the same kernels
     if rank == 0:
-        rec["pp"] = held("PP step", loss_pp, g_pp, ref_kernels)
+        rec["pp"] = held("PP step", loss_pp, {k: v.to(dev) for k, v in g_pp.items()},
+                         ref_kernels)
         per_rank = ", ".join(f"rank {r}: row 5 {c[0]}, row 6 {c[1]}"
                              for r, c in enumerate(rec["pp_launches"]))
         say(f"[pp] PP step at (1, {world}), paper prior f32 (ReZero gains 0.1), B{b} in "
@@ -3908,7 +4122,7 @@ def _sptp_rank(root):
             f"{rec['tp']['one_ms']:.1f} ms for one process  [{note}]")
         with open(os.path.join(root, "sptp.json"), "w") as f:
             json.dump(rec, f)
-    del model, init, g_pp, inputs, targets, ref_kernels
+    del model, host, init, g_pp, inputs, targets, ref_kernels
     torch.cuda.empty_cache()
     D.barrier(group)
     _sptp_cli(root, rank)
@@ -3938,16 +4152,19 @@ def _sptp_cli(root, rank):
         fa.favor_attention_fused.launches = lf.local_attention_flash.launches = 0
         mod = importlib.import_module(f"synthanatomy_tpu_torch.{module}")
         t0 = time.perf_counter()
-        res = dispatch({"run": mod.run}, argv)
+        with _memory_regions({"start": torch.cuda.memory_allocated()}) as peaks:
+            res = dispatch({"run": mod.run}, argv)
         torch.cuda.synchronize()
-        st = res["state"]  # the canonical state that rank 0 wrote
-        out.append({"history": res["history"], "s": time.perf_counter() - t0,
+        # rank 0: the canonical state it wrote; a TP or PP rank: its share
+        st = res["state"]
+        out.append({"history": res["history"], "s": time.perf_counter() - t0, "peaks": peaks,
                     "launches": [fa.favor_attention_fused.launches,
                                  lf.local_attention_flash.launches],
                     "finite": bool(all(np.isfinite(h["Loss"]) for h in res["history"])),
                     "adam_states": sum("exp_avg" in v for v in st.optimizer.state.values()),
-                    "params": len(list(st.model.parameters())), "step": int(st.step)})
-        del res
+                    "params": len(list(st.model.parameters())), "step": int(st.step),
+                    "card_bytes": _resident(st)})
+        del res, st
         torch.cuda.empty_cache()
     with open(os.path.join(root, f"sptp_cli_rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -3976,12 +4193,16 @@ def _check_sptp(dev, smi, root):
     prior = dict(PRIOR_FLAGS, project_directory=proj, cuda_benchmark=False,
                  training_subjects=os.path.join(root, "prior_train"), batch_size=TRAIN_BATCH,
                  checkpoint_every=100, num_workers=4)
+    # the TP and PP epochs also evaluate (and write the best checkpoint), so
+    # their memory readings cover a step, an evaluation and a checkpoint
+    evaluated = dict(prior, validation_subjects=os.path.join(root, "prior_train"),
+                     eval_every=1)
     calls = [("run_transformer", _argv(epochs=1, experiment_name="sp", sp_shards=SPTP_RANKS,
                                        **prior)),
              ("run_transformer", _argv(epochs=1, experiment_name="tp",
-                                       mesh_shape=f"(1,{SPTP_RANKS})", **prior)),
+                                       mesh_shape=f"(1,{SPTP_RANKS})", **evaluated)),
              ("run_transformer", _argv(epochs=1, experiment_name="pp", pp_stages=SPTP_RANKS,
-                                       **prior)),
+                                       **evaluated)),
              ("run_transformer", _argv(epochs=1, experiment_name="tp_forms",
                                        mesh_shape=f"(1,{SPTP_RANKS})",
                                        **dict(prior, **TP_FORMS_CLI)))]
@@ -4014,11 +4235,12 @@ def _check_sptp(dev, smi, root):
                  f"at step {run['step']}")
         ck[name] = run["params"]
     mod = importlib.import_module("synthanatomy_tpu_torch.run_transformer")
-    resumed = {}
+    resumed, one_peaks = {}, {}
     for name in ("tp", "pp", "tp_forms"):
         t0 = time.perf_counter()
-        flags = dict(prior, **TP_FORMS_CLI) if name == "tp_forms" else prior
-        res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name=name, **flags))
+        flags = dict(prior, **TP_FORMS_CLI) if name == "tp_forms" else evaluated
+        with _memory_regions({"start": torch.cuda.memory_allocated()}) as one_peaks[name]:
+            res = dispatch({"run": mod.run}, _argv(epochs=2, experiment_name=name, **flags))
         hist = res["history"]
         _require(len(hist) == 1 and np.isfinite(hist[0]["Loss"]) and int(res["state"].step) == 4,
                  f"one-device resume of the {name} checkpoint: {hist}, step {res['state'].step}")
@@ -4030,6 +4252,40 @@ def _check_sptp(dev, smi, root):
         torch.cuda.empty_cache()
     rec["resume_s"], rec["pp_resume_s"] = resumed["tp"][1], resumed["pp"][1]
     rec["forms_resume_s"] = resumed["tp_forms"][1]
+    # (b, c2) memory: each rank's peak below one process's in the same epoch
+    # (its resume), rank 1's peak at the checkpoint not above its step peak
+    rec["cli_peaks"] = {}
+    for name, i in (("tp", 1), ("pp", 2)):
+        one = one_peaks[name]
+        rec["cli_peaks"][name] = {"one": one, "ranks": [runs[i]["peaks"] for runs in ranks],
+                                  "card_bytes": [runs[i]["card_bytes"] for runs in ranks]}
+        for r, runs in enumerate(ranks):
+            pk = runs[i]["peaks"]
+            _require(max(pk.values()) < max(one.values()),
+                     f"{name} run rank {r}: peak {pk} not below one process's {one}")
+        pk = ranks[1][i]["peaks"]
+        _require(max(pk["gather"], pk["write"]) <= pk["step"],
+                 f"{name} run rank 1: the checkpoint's peak rose above the step's: {pk}")
+        _require(ranks[0][i]["card_bytes"] == 0 and ranks[1][i]["card_bytes"] > 0,
+                 f"{name} run: rank 0 returned {ranks[0][i]['card_bytes']} B on the card, "
+                 f"rank 1 {ranks[1][i]['card_bytes']} B")
+        label = (f"--mesh_shape='(1,{SPTP_RANKS})'" if name == "tp"
+                 else f"--pp_stages={SPTP_RANKS}")
+
+        def row(pk):
+            return ", ".join(f"{k} {_gib(pk[k])}" for k in ("start", "step", "eval", "gather",
+                                                             "write") if k in pk)
+
+        print(f"[mem cli] run_transformer {label} at paper width (bf16, B{TRAIN_BATCH}), an "
+              f"epoch of 2 steps, an evaluation of 12 grids and its checkpoints: peak device "
+              f"memory by region, " + "; ".join(
+                  f"rank {r}: {row(runs[i]['peaks'])}" for r, runs in enumerate(ranks))
+              + f" (predicted: step {CLI_PEAK_PREDICTED[name]:.1f} GiB, gather and write "
+              f"{CLI_PEAK_PREDICTED['checkpoint']:.1f} GiB on each rank); one process's "
+              f"resume of it: {row(one)} (predicted step {CLI_PEAK_PREDICTED['one']:.1f} "
+              f"GiB); rank 1 returned its {ranks[1][i]['card_bytes']} B share on the card, "
+              f"rank 0 the canonical state on the host (bounds: each rank's peak below one "
+              f"process's, rank 1's checkpoint peak not above its step peak)  [{smi}]")
     sp_run, tp_run, pp_run, forms_run = ranks[0]
     print(f"[sptp] run_transformer at paper width (24L/d512, bf16, B{TRAIN_BATCH}) on phase "
           f"19's grids over {SPTP_RANKS} gloo ranks on card 0: --sp_shards={SPTP_RANKS} "

@@ -869,9 +869,16 @@ class Performer(nn.Module):
 def redraw_projections(model: Performer, generator: torch.Generator) -> None:
     """Redraw every layer's FAVOR+ projection buffer in place from
     ``generator`` (a CPU generator: the QR factorisations run on the
-    host) — the port of ``redraw_projections`` (performer.py:845)."""
+    host) — the port of ``redraw_projections`` (performer.py:845).  A
+    layer that this process does not hold (a pipeline stage's stand-in
+    for another stage's block, which has no ``attn``) draws its matrix
+    too and drops it, so every layer's draw is the one a process holding
+    the whole model makes."""
+    shape = next((tuple(blk.attn.projection.shape) for blk in model.blocks
+                  if getattr(getattr(blk, "attn", None), "projection", None) is not None), None)
+    if shape is None:
+        return
     for blk in model.blocks:
-        proj = getattr(blk.attn, "projection", None)
-        if proj is not None:
-            proj.copy_(gaussian_orthogonal_random_matrix(
-                proj.shape[0], proj.shape[1], generator=generator))
+        proj = gaussian_orthogonal_random_matrix(*shape, generator=generator)
+        if hasattr(blk, "attn"):
+            blk.attn.projection.copy_(proj)

@@ -20,7 +20,9 @@ differentiates.  :func:`megatron_f` and :func:`megatron_g` are
 Megatron's conjugate operators, which the Performer's attention and FF
 place around their split products under tensor parallelism.
 :func:`stack_over_ranks` gathers the ranks' tensors
-exactly (the TP and PP states, SP's prefix states).
+exactly, on every rank (the TP and PP states, SP's prefix states) or on
+the group's rank 0 alone, one tensor at a time (the runner's checkpoints
+under TP and PP).
 :func:`pipe_send_recv` moves a pipeline stage's activations to the next
 rank and their cotangents back (JAX's ``ppermute`` over the pipe axis).
 :func:`fold_in` is JAX's ``fold_in(key, axis_index)`` for a
@@ -306,14 +308,24 @@ def gather_to_rank0(t: torch.Tensor, group) -> Optional[torch.Tensor]:
     return torch.cat(parts).to(t.device) if rank == 0 else None
 
 
-def stack_over_ranks(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+def stack_over_ranks(tensors: Sequence[torch.Tensor], group, *,
+                     root_only: bool = False) -> Optional[List[torch.Tensor]]:
     """Each of ``tensors`` (alike in number, shapes and dtypes on the
-    ranks) stacked over ``group``'s ranks in rank order, ``(n, *shape)``,
-    on every rank: one sum all-reduce of a zero buffer in which each rank
-    writes its tensors at its slot (f32 for the floats of 32 bits or
-    fewer, else one a dtype).  Adding zeros is exact, and a sum
+    ranks) stacked over ``group``'s ranks in rank order, ``(n, *shape)``.
+
+    On every rank (the default): one sum all-reduce of a zero buffer in
+    which each rank writes its tensors at its slot (f32 for the floats of
+    32 bits or fewer, else one a dtype).  Adding zeros is exact, and a sum
     all-reduce carries CUDA tensors over gloo too (its gather takes host
-    tensors); under NCCL the buffer is on the rank's card."""
+    tensors); under NCCL the buffer is on the rank's card.
+
+    ``root_only``: on the group's rank 0 alone, in host memory, and None
+    on the other ranks, which allocate nothing for it: one gather a
+    tensor, in its own dtype (exact); under NCCL rank 0's card holds one
+    tensor's n shares at a time before they move to the host, and gloo
+    gathers host tensors."""
+    if root_only:
+        return _stack_to_root(tensors, group)
     rank, n = group_info(group)
     if group is None:
         return [t.unsqueeze(0) for t in tensors]
@@ -340,6 +352,25 @@ def stack_over_ranks(tensors: Sequence[torch.Tensor], group) -> List[torch.Tenso
             out[i] = flat[:, off:off + t.numel()].reshape((n,) + tuple(t.shape)).to(
                 t.device, t.dtype)
             off += t.numel()
+    return out
+
+
+def _stack_to_root(tensors: Sequence[torch.Tensor], group) -> Optional[List[torch.Tensor]]:
+    rank, n = group_info(group)
+    if group is None:
+        return [t.detach().cpu().unsqueeze(0) for t in tensors]
+    dev = (torch.device("cuda", torch.cuda.current_device()) if backend_is_nccl(group)
+           else torch.device("cpu"))
+    root = dist.get_global_rank(group, 0)
+    out: Optional[List[torch.Tensor]] = [] if rank == 0 else None
+    for t in tensors:
+        local = t.detach().to(dev).contiguous()
+        if rank == 0:
+            parts = torch.empty((n,) + tuple(local.shape), dtype=local.dtype, device=dev)
+            dist.gather(local, list(parts.unbind(0)), dst=root, group=group)
+            out.append(parts.cpu())
+        else:
+            dist.gather(local, None, dst=root, group=group)
     return out
 
 

@@ -31,23 +31,28 @@ Where the port differs from JAX, by design:
   broadcasts only the loss (in the all-reduce of the replicated
   parameters' gradients), :func:`make_pipelined_apply` the logits.
 
-Every rank holds the whole canonical model: the stages split the
-activations and the compute, not the parameters' memory.  The packed
-state (:func:`pack_pp_state`) is that model with Adam over the rank's
-stage, its non-block parameters and layers [lo, hi), under their
-canonical names, with their moments and step counts.
-:func:`unpack_pp_state` gathers the other stages' blocks (parameters,
-FAVOR projections, Adam's state) over the pipe group into the canonical
-state on every rank, as ``tensor_parallel.gather_tp_state`` does for TP,
-so checkpoints stay canonical; pack and unpack are exact inverses.  The
-non-block parameters are replicated: stage 0 holds the embeddings' share
-of their gradient, the last stage the head's (a tied embedding gets
-both), and the shares are summed over the pipe group before Adam steps,
-so every rank steps them alike.  With a data group (PP×DP) every
-gradient is also averaged over the data ranks.  The projection redraw is
-the one-device ``redraw_projections`` on every rank: all L layers are
-drawn in order, so the generators stay in step and each stage's
-projections are the ones one process draws.
+Each rank holds its stage alone: the packed state (:func:`pack_pp_state`)
+is a copy of the canonical model that holds the non-block parameters
+(embeddings, position and spatial tables, final norm, head) and layers
+[lo, hi), the other layers' blocks empty stand-ins (no parameters, no
+buffers), with Adam over exactly those parameters under their canonical
+names, their moments and step counts.  It is built from a canonical
+state that may live on the host (the runner's), so the whole model never
+reaches the rank's card.  :func:`unpack_pp_state` gathers the stages'
+blocks (parameters, FAVOR projections, Adam's state) over the pipe group
+into the canonical state, on every rank (the tests, the dry run) or on
+the pipe group's rank 0 alone (``root_only``: the runner's checkpoints,
+one tensor at a time into host memory), as
+``tensor_parallel.gather_tp_state`` does for TP, so checkpoints stay
+canonical; pack and unpack are exact inverses.  The non-block parameters
+are replicated: stage 0 holds the embeddings' share of their gradient,
+the last stage the head's (a tied embedding gets both), and the shares
+are summed over the pipe group before Adam steps, so every rank steps
+them alike.  With a data group (PP×DP) every gradient is also averaged
+over the data ranks.  The projection redraw is the one-device
+``redraw_projections`` on every rank: all L layers are drawn in order,
+the other stages' matrices dropped, so the generators stay in step and
+each stage's projections are the ones one process draws.
 
 JAX's ``stack_block_params`` and ``pp_param_specs`` are GSPMD placement
 (the (L, …) stacked slabs and their ``PartitionSpec``) and have no port:
@@ -71,7 +76,7 @@ from torch.utils.checkpoint import checkpoint
 from synthanatomy_tpu_torch.losses.transformer import ce_loss
 from synthanatomy_tpu_torch.models.performer import Performer, redraw_projections
 from synthanatomy_tpu_torch.parallel import distributed as D
-from synthanatomy_tpu_torch.parallel.sharding_rules import adam
+from synthanatomy_tpu_torch.parallel.sharding_rules import adam, placed_copy
 
 __all__ = [
     "PipelinedApply",
@@ -110,60 +115,85 @@ def pack_pp_tree(model: Performer, tree: Dict[str, torch.Tensor],
             if _layer(name) is None or lo <= _layer(name) < hi}
 
 
-def unpack_pp_tree(model: Performer, tree: Dict[str, torch.Tensor],
-                   pipe_group) -> Dict[str, torch.Tensor]:
+def unpack_pp_tree(model: Performer, tree: Dict[str, torch.Tensor], pipe_group, *,
+                   root_only: bool = False) -> Optional[Dict[str, torch.Tensor]]:
     """Inverse of :func:`pack_pp_tree`: this rank's stage's entries of
     ``tree`` (the rest is ignored) with every other stage's layers,
-    gathered over the pipe group on every rank, a collective.  The stages'
-    entries are alike past their layer numbers (the blocks are alike);
-    the non-block entries are this rank's."""
+    gathered over the pipe group, a collective: on every rank, or with
+    ``root_only`` on the group's rank 0 alone (the gathered layers in
+    host memory; None on the other ranks).  The stages' entries are alike
+    past their layer numbers (the blocks are alike); the non-block entries
+    are this rank's.  ``model`` is the canonical model or a stage of it."""
     lo, hi = _layers(model, pipe_group)
     mine = pack_pp_tree(model, tree, pipe_group)
-    out = {name: t for name, t in mine.items() if _layer(name) is None}
     blocks = [name for name in mine if _layer(name) is not None]
-    for name, stack in zip(blocks, D.stack_over_ranks([mine[n] for n in blocks], pipe_group)):
+    stacks = D.stack_over_ranks([mine[n] for n in blocks], pipe_group, root_only=root_only)
+    if stacks is None:
+        return None
+    out = {name: t for name, t in mine.items() if _layer(name) is None}
+    for name, stack in zip(blocks, stacks):
         i, rest = _layer(name) - lo, name.split(".", 2)[2]
         for r, t in enumerate(stack):
             out[f"blocks.{r * (hi - lo) + i}.{rest}"] = t
     return out
 
 
-def pack_pp_state(model: Performer, state, pipe_group):
+def pack_pp_state(model: Performer, state, pipe_group, *, device=None):
     """This rank's packed state from a canonical ``TransformerTrainState``
-    of ``model`` (left as it is): the same model and Adam over the stage's
-    parameters (:func:`pack_pp_tree`), with their moments and step
-    counts; the generators and counters shared."""
+    of ``model`` (left as it is; it may live on the host): the rank's
+    stage, a copy of ``model`` on ``device`` (default: ``model``'s) that
+    holds the non-block parameters and buffers and layers [lo, hi), the
+    other layers empty stand-ins, with Adam over its parameters
+    (:func:`pack_pp_tree`) and their moments and step counts; the
+    generators and counters shared."""
     from synthanatomy_tpu_torch.train.transformer_steps import TransformerTrainState
 
-    params = list(pack_pp_tree(model, dict(model.named_parameters()), pipe_group).values())
-    opt = adam(params, state.optimizer.param_groups[0]["lr"])
-    for p in params:
-        st = state.optimizer.state.get(p, {})
+    device = next(model.parameters()).device if device is None else torch.device(device)
+    lo, hi = _layers(model, pipe_group)
+    kept = pack_pp_tree(model, {**dict(model.named_parameters()),
+                                **dict(model.named_buffers())}, pipe_group)
+    stage = placed_copy(model, {name: t.detach().to(device, copy=True)
+                                for name, t in kept.items()},
+                        [f"blocks.{i}" for i in range(model.depth) if not lo <= i < hi])
+    stage.set_generator(state.generator)
+    full = dict(model.named_parameters())
+    opt = adam(stage.parameters(), state.optimizer.param_groups[0]["lr"])
+    for name, p in stage.named_parameters():
+        st = state.optimizer.state.get(full[name], {})
         if "exp_avg" in st:
-            opt.state[p] = {k: st[k].clone() for k in ("step", "exp_avg", "exp_avg_sq")}
-    return TransformerTrainState(step=state.step, model=model, optimizer=opt,
+            opt.state[p] = {"step": st["step"].clone(),
+                            **{k: st[k].to(device, copy=True) for k in ("exp_avg", "exp_avg_sq")}}
+    return TransformerTrainState(step=state.step, model=stage, optimizer=opt,
                                  generator=state.generator,
                                  redraw_generator=state.redraw_generator,
                                  steps_since_redraw=state.steps_since_redraw)
 
 
 @torch.no_grad()
-def unpack_pp_state(model: Performer, packed, state, pipe_group):
+def unpack_pp_state(model: Optional[Performer], packed, state, pipe_group, *,
+                    root_only: bool = False):
     """Write the stages in ``packed`` back into the canonical ``state`` of
     ``model`` (parameters and FAVOR projections, Adam's moments and step
-    counts, the counters): a collective over ``pipe_group``; every rank
-    ends with the canonical state, which it returns.  ``packed.model`` is
-    ``model`` where the packed state was made from ``state``."""
-    model.load_state_dict(unpack_pp_tree(model, packed.model.state_dict(), pipe_group))
-    params = dict(model.named_parameters())
+    counts, the counters), each tensor on the device of ``model``'s own: a
+    collective over ``pipe_group``.  Every rank ends with the canonical
+    state, which it returns; with ``root_only`` the group's rank 0 alone
+    (the others pass None for ``model`` and ``state`` if they like, send
+    their stage and get None)."""
+    stage = packed.model
+    tree = unpack_pp_tree(stage, stage.state_dict(), pipe_group, root_only=root_only)
     opt = packed.optimizer.state
-    have = {name: opt[p] for name, p in pack_pp_tree(
-        model, dict(packed.model.named_parameters()), pipe_group).items()
-        if "exp_avg" in opt.get(p, {})}
-    for key in ("step", "exp_avg", "exp_avg_sq"):
-        got = unpack_pp_tree(model, {name: st[key] for name, st in have.items()}, pipe_group)
-        for name, t in got.items():
-            state.optimizer.state.setdefault(params[name], {})[key] = t.clone()
+    have = {name: opt[p] for name, p in stage.named_parameters() if "exp_avg" in opt.get(p, {})}
+    got = {key: unpack_pp_tree(stage, {name: st[key] for name, st in have.items()}, pipe_group,
+                               root_only=root_only)
+           for key in ("step", "exp_avg", "exp_avg_sq")}
+    if tree is None:
+        return None
+    model.load_state_dict(tree)
+    params = dict(model.named_parameters())
+    for key, moments in got.items():
+        for name, t in moments.items():
+            dev = t.device if key == "step" else params[name].device
+            state.optimizer.state.setdefault(params[name], {})[key] = t.to(dev, copy=True)
     state.step = packed.step
     state.steps_since_redraw = packed.steps_since_redraw
     return state
@@ -262,6 +292,34 @@ class PipelinedApply:
                 inbox = torch.empty(out.shape, dtype=out.dtype, device=out.device)
             D.pipe_send_recv(grad_in, inbox, self.group, backward=True)
 
+    def _conds(self, conditionings, mb: int, device):
+        """Each microbatch's conditioning values (None without them)."""
+        if conditionings is None:
+            return None
+        per = [torch.as_tensor(c, device=device).long().split(mb) for c in conditionings]
+        return [list(cs) for cs in zip(*per)]
+
+    @torch.no_grad()
+    def loss(self, x: torch.Tensor, targets: torch.Tensor,
+             conditionings: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The CE of the batch ``x`` (B, n) against ``targets``, the mean of
+        its microbatches' CEs, on every rank: the last stage computes it and
+        only the loss crosses the pipe group (one all-reduce of a scalar),
+        not the logits.  The model runs in eval mode; with one microbatch
+        this is the one-device evaluation's CE of the batch."""
+        self.model.eval()
+        mb = self.microbatch_rows(x.shape[0])
+        xs, ys = x.split(mb), targets.split(mb)
+        conds = self._conds(conditionings, mb, x.device) or [None] * len(xs)
+        _, kept = self.fill(list(xs), conds, lambda m, out: ce_loss(
+            self.model._head(self.model.encode(out, conds[m])), ys[m])[0])
+        last = self.rank == self.n_stages - 1
+        loss = (torch.stack(kept).float().mean().reshape(1) if last
+                else torch.zeros(1, device=x.device))
+        if self.group is not None:
+            dist.all_reduce(loss, group=self.group)
+        return loss[0]
+
     @torch.no_grad()
     def __call__(self, x: torch.Tensor,
                  conditionings: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
@@ -294,13 +352,16 @@ class PipelinedApply:
 def make_pipelined_apply(model: Performer, pipe_group, *, n_microbatches: Optional[int] = None,
                          data_group=None) -> PipelinedApply:
     """``apply(x, conditionings=None) -> logits``: the forward of
-    ``model``'s prior pipelined over ``pipe_group``, x the whole batch on
-    every rank.  The batch must divide into ``n_microbatches`` (default:
-    the pipe size), each microbatch over ``data_group``'s ranks when
-    given (PP×DP: each data rank runs the schedule on its rows of every
-    microbatch).  Raises ``ValueError`` when the depth does not divide
-    into the stages or the batch into the microbatches, as JAX does.  The
-    forward only: gradients are :func:`make_pp_train_step`'s."""
+    ``model``'s prior (the canonical model, or this rank's stage from
+    :func:`pack_pp_state`) pipelined over ``pipe_group``, x the whole batch
+    on every rank; ``apply.loss(x, targets, conditionings)`` is the
+    batch's CE without gathering the logits.  The batch must divide into
+    ``n_microbatches`` (default: the pipe size), each microbatch over
+    ``data_group``'s ranks when given (PP×DP: each data rank runs the
+    schedule on its rows of every microbatch).  Raises ``ValueError`` when
+    the depth does not divide into the stages or the batch into the
+    microbatches, as JAX does.  The forward only: gradients are
+    :func:`make_pp_train_step`'s."""
     return PipelinedApply(model, pipe_group, n_microbatches, data_group)
 
 
@@ -308,16 +369,16 @@ def make_pp_train_step(model: Performer, pipe_group, *, data_group=None,
                        n_microbatches: Optional[int] = None) -> Callable:
     """``step(state, inputs, targets, conditionings, sched) -> (state,
     metrics)`` with ``state`` from :func:`pack_pp_state` over
-    ``pipe_group``: the GPipe schedule of :func:`make_pipelined_apply`,
-    then the drain, the replicated parameters' gradients summed over the
-    pipe group (the loss rides along, so every rank reports it), every
-    gradient averaged over ``data_group`` when given, Adam and the
-    projection redraw.  ``inputs``/``targets`` (B, L) are this data
-    group's rows, the same on every rank of the pipe group; the loss is
-    the mean of the M microbatch CEs, the whole batch's CE.  Raises
-    ``NotImplementedError`` for dropout (JAX's message) and for a
-    configuration JAX's PP step trains differently from its one-device
-    step (rotary positions)."""
+    ``pipe_group`` and ``model`` its stage (``state.model``): the GPipe
+    schedule of :func:`make_pipelined_apply`, then the drain, the
+    replicated parameters' gradients summed over the pipe group (the loss
+    rides along, so every rank reports it), every gradient averaged over
+    ``data_group`` when given, Adam and the projection redraw.
+    ``inputs``/``targets`` (B, L) are this data group's rows, the same on
+    every rank of the pipe group; the loss is the mean of the M
+    microbatch CEs, the whole batch's CE.  Raises ``NotImplementedError``
+    for dropout (JAX's message) and for a configuration JAX's PP step
+    trains differently from its one-device step (rotary positions)."""
     if any(m.rate for m in model.modules() if hasattr(m, "rate")):
         raise NotImplementedError("PP training runs the blocks deterministically; dropout "
                                   "(emb/ff/attn) is unsupported — use DP or single-device")
@@ -332,16 +393,16 @@ def make_pp_train_step(model: Performer, pipe_group, *, data_group=None,
 
     def step(state, inputs, targets, conditionings: Optional[Sequence[torch.Tensor]],
              sched: Dict[str, float]):
+        if state.model is not model:
+            raise ValueError("the PP step was made for another model: make it for the packed "
+                             "state's stage, pack_pp_state(...).model")
         if n_cond and conditionings is None:
             raise ValueError("model was built with conditioning_num_tokens; the PP step needs "
                              "the conditioning values")
         mb = pipe.microbatch_rows(inputs.shape[0])
         xs, ys = inputs.split(mb), targets.split(mb)
-        conds = [None] * len(xs)
-        if n_cond:
-            per = [torch.as_tensor(c, device=inputs.device).long().split(mb)
-                   for c in conditionings[:n_cond]]
-            conds = [list(cs) for cs in zip(*per)]
+        conds = (pipe._conds(conditionings[:n_cond], mb, inputs.device) if n_cond
+                 else [None] * len(xs))
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
 

@@ -20,12 +20,13 @@ consolidated state dict is a one-device Adam state dict and the reverse.
 
 from __future__ import annotations
 
+import copy
 import re
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 
-__all__ = ["adam", "full_state_dict", "is_zero1", "performer_split_dim"]
+__all__ = ["adam", "full_state_dict", "is_zero1", "performer_split_dim", "placed_copy"]
 
 # (name pattern, split dimension of the torch tensor) — first match wins;
 # JAX's P(None, "model") on a (in, out) kernel is the out dimension, 0.
@@ -45,6 +46,38 @@ def performer_split_dim(name: str) -> Optional[int]:
         if rx.match(name):
             return dim
     return None
+
+
+class _StandIn(torch.nn.Module):
+    """Holds the place of a submodule that this rank does not hold: no
+    parameters, no buffers."""
+
+
+def placed_copy(model: torch.nn.Module, tensors: Dict[str, torch.Tensor],
+                stand_ins: Sequence[str] = ()) -> torch.nn.Module:
+    """A copy of ``model`` built around ``tensors`` (name → the tensor the
+    copy holds under that name, already where it should live): each
+    parameter and buffer of ``model`` is replaced by its entry, and each
+    submodule named in ``stand_ins`` by an empty module, whose parameters
+    and buffers need no entry.  Nothing else of ``model``'s tensors is
+    copied, so a share of a model on the host becomes a share on the card
+    without the whole model ever reaching it.  The copy shares ``model``'s
+    dropout generators; names stay ``model``'s."""
+    memo: Dict[int, Any] = {}
+    for name in stand_ins:
+        memo[id(model.get_submodule(name))] = _StandIn()
+    dropped = tuple(f"{name}." for name in stand_ins)
+    for name, p in model.named_parameters():
+        if not name.startswith(dropped):
+            memo[id(p)] = torch.nn.Parameter(tensors[name], requires_grad=p.requires_grad)
+    for name, b in model.named_buffers():
+        if not name.startswith(dropped):
+            memo[id(b)] = tensors[name]
+    for mod in model.modules():
+        gen = getattr(mod, "generator", None)
+        if isinstance(gen, torch.Generator):
+            memo[id(gen)] = gen
+    return copy.deepcopy(model, memo)
 
 
 BETAS, EPS = (0.9, 0.999), 1e-8

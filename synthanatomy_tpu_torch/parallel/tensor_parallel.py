@@ -45,14 +45,17 @@ canonical.  Adam's moments are permuted and split like the parameters
 layout) the gradients are also averaged over the data ranks.
 
 The TP state (:func:`shard_tp_state`) is a ``TransformerTrainState``
-whose model is this rank's share and whose optimizer is Adam over it;
-:func:`gather_tp_state` writes the shares back into a canonical state on
-every rank of the group.
+whose model is this rank's share and whose optimizer is Adam over it.
+The share is built at share size from the packed canonical tensors,
+which may live on the host (the runner's), so the whole model never
+reaches the rank's card.  :func:`gather_tp_state` writes the shares back
+into a canonical state, on every rank of the group (the tests, the dry
+run) or on its rank 0 alone (``root_only``: the runner's checkpoints,
+one tensor at a time into host memory).
 """
 
 from __future__ import annotations
 
-import copy
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,7 +63,11 @@ import torch
 
 from synthanatomy_tpu_torch.models.performer import Performer
 from synthanatomy_tpu_torch.parallel import distributed as D
-from synthanatomy_tpu_torch.parallel.sharding_rules import adam, performer_split_dim
+from synthanatomy_tpu_torch.parallel.sharding_rules import (
+    adam,
+    performer_split_dim,
+    placed_copy,
+)
 
 __all__ = [
     "gather_tp_grads",
@@ -246,21 +253,28 @@ def _share(t: torch.Tensor, dim: Optional[int], rank: int, n: int) -> torch.Tens
     return share.clone(memory_format=torch.contiguous_format)
 
 
-def shard_tp_state(model: Performer, state, model_group):
+def shard_tp_state(model: Performer, state, model_group, *, device=None):
     """This rank's TP state from a canonical ``TransformerTrainState`` of
-    ``model`` (left as it is): the model packed and split
-    (:func:`tp_param_specs`), its split attention and FF modules carrying
-    ``model_group``, Adam over the share with its moments and step count
-    split the same way, the generators and counters shared (the share's
+    ``model`` (left as it is; it may live on the host): the share, a copy
+    of ``model`` on ``device`` (default: ``model``'s) built around the
+    rank's slices of the packed parameters (:func:`tp_param_specs`) and
+    the buffers, its split attention and FF modules carrying
+    ``model_group``; Adam over the share with its moments and step count
+    split the same way; the generators and counters shared (the share's
     dropouts draw from ``state.generator``)."""
     from synthanatomy_tpu_torch.train.transformer_steps import TransformerTrainState
 
+    device = next(model.parameters()).device if device is None else torch.device(device)
     rank, n = D.group_info(model_group)
     split_attn, split_ff = tp_split(model, n)
-    shard = copy.deepcopy(model)
+    full = dict(model.named_parameters())
+    specs = tp_param_specs(model, n, list(full))
+    packed = pack_tp_params(model, {k: p.detach() for k, p in full.items()}, n)
+    shard = placed_copy(model, {
+        **{nm: _share(packed[nm], specs[nm], rank, n).to(device) for nm in full},
+        **{nm: b.to(device, copy=True) for nm, b in model.named_buffers()}})
+    del packed
     shard.set_generator(state.generator)
-    specs = tp_param_specs(model, n, list(shard.state_dict()))
-    packed = pack_tp_params(model, {k: v.detach() for k, v in model.state_dict().items()}, n)
     for blk in shard.blocks:
         if split_attn:
             blk.attn.heads //= n
@@ -268,66 +282,66 @@ def shard_tp_state(model: Performer, state, model_group):
             blk.attn.tp_group = model_group
         if split_ff:
             blk.ff.tp_group = model_group
-    for name, p in list(shard.named_parameters()):
-        owner, attr = _owner(shard, name)
-        setattr(owner, attr, torch.nn.Parameter(_share(packed[name], specs[name], rank, n)))
     opt = adam(shard.parameters(), state.optimizer.param_groups[0]["lr"])
-    full = dict(model.named_parameters())
-    moments = {}
-    for key in ("exp_avg", "exp_avg_sq"):
-        have = {nm: state.optimizer.state[p][key] for nm, p in full.items()
-                if key in state.optimizer.state.get(p, {})}
-        moments[key] = pack_tp_params(model, have, n)
-    for nm, p in shard.named_parameters():
-        st = state.optimizer.state.get(full[nm], {})
-        if "exp_avg" in st:
-            opt.state[p] = {"step": st["step"].clone(),
-                            **{key: _share(moments[key][nm], specs[nm], rank, n)
-                               for key in moments}}
+    have = {nm: state.optimizer.state[p] for nm, p in full.items()
+            if "exp_avg" in state.optimizer.state.get(p, {})}
+    moments = {key: pack_tp_params(model, {nm: st[key] for nm, st in have.items()}, n)
+               for key in ("exp_avg", "exp_avg_sq")}
+    for nm, st in have.items():
+        opt.state[shard.get_parameter(nm)] = {
+            "step": st["step"].clone(),
+            **{key: _share(moments[key][nm], specs[nm], rank, n).to(device) for key in moments}}
     return TransformerTrainState(step=state.step, model=shard, optimizer=opt,
                                  generator=state.generator,
                                  redraw_generator=state.redraw_generator,
                                  steps_since_redraw=state.steps_since_redraw)
 
 
-def _owner(module: torch.nn.Module, name: str):
-    *path, attr = name.split(".")
-    for part in path:
-        module = getattr(module, part)
-    return module, attr
-
-
-def _gather(tensors: Sequence[Tuple[torch.Tensor, Optional[int]]], group):
+def _gather(tensors: Sequence[Tuple[torch.Tensor, Optional[int]]], group, *,
+            root_only: bool = False):
     """Each (share, dim) concatenated over the ranks of ``group`` along
-    ``dim`` (a replicated entry as it is), on every rank, exactly
-    (``distributed.stack_over_ranks``)."""
+    ``dim`` (a replicated entry as it is), exactly
+    (``distributed.stack_over_ranks``): on every rank, or with
+    ``root_only`` on the group's rank 0 alone, in host memory (None on the
+    other ranks)."""
     split = [t for t, d in tensors if d is not None]
-    it = iter(D.stack_over_ranks(split, group))
+    stacks = D.stack_over_ranks(split, group, root_only=root_only)
+    if stacks is None:
+        return None
+    it = iter(stacks)
     return [t if d is None else next(it).movedim(0, d).flatten(d, d + 1) for t, d in tensors]
 
 
 @torch.no_grad()
-def gather_tp_state(model: Performer, tp_state, state, model_group):
+def gather_tp_state(model: Optional[Performer], tp_state, state, model_group, *,
+                    root_only: bool = False):
     """Write the ranks' shares in ``tp_state`` back into the canonical
     ``state`` of ``model`` (parameters, FAVOR projections, Adam's moments
-    and step count, the counters), unpacked: a collective over
-    ``model_group``; every rank ends with the canonical state."""
+    and step count, the counters), unpacked, each tensor on the device of
+    ``model``'s own: a collective over ``model_group``.  Every rank ends
+    with the canonical state, which it returns; with ``root_only`` the
+    group's rank 0 alone (the others pass None for ``model`` and
+    ``state`` if they like, send their share and get None)."""
     _, n = D.group_info(model_group)
-    shard = tp_state.model
+    shard = tp_state.model  # a Performer of the canonical configuration
     sd = shard.state_dict()
-    specs = tp_param_specs(model, n, list(sd))
     names = list(sd)
-    got = _gather([(sd[k], specs[k]) for k in names], model_group)
-    model.load_state_dict(unpack_tp_params(model, dict(zip(names, got)), n))
-    params = dict(model.named_parameters())
+    specs = tp_param_specs(shard, n, names)
+    got = _gather([(sd[k], specs[k]) for k in names], model_group, root_only=root_only)
     shard_params = dict(shard.named_parameters())
     opt_state = tp_state.optimizer.state
     have = [nm for nm, p in shard_params.items() if "exp_avg" in opt_state.get(p, {})]
-    for key in ("exp_avg", "exp_avg_sq"):
-        got = _gather([(opt_state[shard_params[nm]][key], specs[nm])
-                       for nm in have], model_group)
-        for nm, t in unpack_tp_params(model, dict(zip(have, got)), n).items():
-            state.optimizer.state.setdefault(params[nm], {})[key] = t.clone()
+    moments = {key: _gather([(opt_state[shard_params[nm]][key], specs[nm]) for nm in have],
+                            model_group, root_only=root_only)
+               for key in ("exp_avg", "exp_avg_sq")}
+    if got is None:
+        return None
+    model.load_state_dict(unpack_tp_params(shard, dict(zip(names, got)), n))
+    params = dict(model.named_parameters())
+    for key, ts in moments.items():
+        for nm, t in unpack_tp_params(shard, dict(zip(have, ts)), n).items():
+            state.optimizer.state.setdefault(params[nm], {})[key] = t.to(params[nm].device,
+                                                                         copy=True)
     for nm in have:
         state.optimizer.state[params[nm]]["step"] = opt_state[shard_params[nm]]["step"].clone()
     state.step = tp_state.step
@@ -335,52 +349,57 @@ def gather_tp_state(model: Performer, tp_state, state, model_group):
     return state
 
 
-def gather_tp_grads(model: Performer, tp_state, model_group) -> Dict[str, torch.Tensor]:
+def gather_tp_grads(tp_state, model_group, *,
+                    root_only: bool = False) -> Optional[Dict[str, torch.Tensor]]:
     """The gradients of the shares in ``tp_state`` (after a step),
-    gathered over ``model_group`` and unpacked: ``model``'s canonical
-    names and shapes, on every rank (a collective)."""
+    gathered over ``model_group`` and unpacked: the canonical names and
+    shapes, on every rank (a collective), or with ``root_only`` on the
+    group's rank 0 alone, in host memory (None on the other ranks)."""
     _, n = D.group_info(model_group)
-    named = list(tp_state.model.named_parameters())
-    specs = tp_param_specs(model, n, [nm for nm, _ in named])
-    got = _gather([(p.grad, specs[nm]) for nm, p in named], model_group)
-    return unpack_tp_params(model, dict(zip([nm for nm, _ in named], got)), n)
+    shard = tp_state.model
+    named = list(shard.named_parameters())
+    specs = tp_param_specs(shard, n, [nm for nm, _ in named])
+    got = _gather([(p.grad, specs[nm]) for nm, p in named], model_group, root_only=root_only)
+    if got is None:
+        return None
+    return unpack_tp_params(shard, dict(zip([nm for nm, _ in named], got)), n)
 
 
 def make_tp_train_step(
-    model: Performer,
+    share: Performer,
     *,
     data_group=None,
     use_pallas_local: Optional[bool] = None,
     use_pallas_favor: Optional[bool] = None,
 ) -> Callable:
     """``step(state, inputs, targets, conditionings, sched) -> (state,
-    metrics)`` with ``state`` from :func:`shard_tp_state`: the one-device
-    step (``make_transformer_train_step``) on the rank's share, its
-    gradients, loss and summaries averaged over ``data_group``.
-    ``model`` is the canonical Performer (its configuration; JAX's
-    module).  The two flags route each rank's heads through rows 5 and 6
-    as the one-device step's (None: ``model``'s own flags).
-    ``inputs``/``targets`` (B, L) are this data group's rows, the same on
-    every rank of the model group.  Trains every form the one-device step
-    trains."""
+    metrics)`` with ``state`` from :func:`shard_tp_state` and ``share``
+    its model (``state.model``): the one-device step
+    (``make_transformer_train_step``) on the rank's share, its gradients,
+    loss and summaries averaged over ``data_group``, built once here.  The
+    two flags route each rank's heads through rows 5 and 6 as the
+    one-device step's (None: the share's own flags); they are set on the
+    share here.  ``inputs``/``targets`` (B, L) are this data group's rows,
+    the same on every rank of the model group.  Trains every form the
+    one-device step trains."""
     from synthanatomy_tpu_torch.train.transformer_steps import make_transformer_train_step
 
-    attn0 = model.blocks[0].attn
-    flags = {"use_pallas_local": attn0.use_pallas_local if use_pallas_local is None
-             else use_pallas_local,
-             "use_pallas_favor": attn0.use_pallas_favor if use_pallas_favor is None
-             else use_pallas_favor}
-    n_cond = len(model.conditioning_num_tokens)
+    for blk in share.blocks:
+        for flag, value in (("use_pallas_local", use_pallas_local),
+                            ("use_pallas_favor", use_pallas_favor)):
+            if value is not None:
+                setattr(blk.attn, flag, value)
+    n_cond = len(share.conditioning_num_tokens)
+    one_device = make_transformer_train_step(share, process_group=data_group)
 
     def step(state, inputs, targets, conditionings: Optional[Sequence[torch.Tensor]],
              sched: Dict[str, float]):
+        if state.model is not share:
+            raise ValueError("the TP step was made for another model: make it for the TP "
+                             "state's share, shard_tp_state(...).model")
         if n_cond and conditionings is None:
             raise ValueError("model was built with conditioning_num_tokens; the TP step needs "
                              "the conditioning values")
-        for blk in state.model.blocks:
-            for k, v in flags.items():
-                setattr(blk.attn, k, v)
-        one_device = make_transformer_train_step(state.model, process_group=data_group)
         return one_device(state, inputs, targets, conditionings, sched)
 
     return step

@@ -25,16 +25,28 @@ tests' way to ask for the host).  Several devices (JAX :210-391,
   attention and the FF split over the model ranks where their heads and
   hidden width divide (else replicated), with Adam split alike; dropout
   from one stream per data group, so the ranks of a model group draw the
-  same masks.  Checkpoints stay canonical: every rank gathers the shares
-  and unpacks them before rank 0 writes, and a resume packs and splits
-  what it reads, so a TP checkpoint resumes on one device and the other
-  way round;
+  same masks;
 - ``--pp_stages=P``: the (data, pipe) layout and the GPipe step
   (``parallel/pipeline_parallel.py``; the depth in P contiguous stages,
   one a rank, rows 5 and 6 in each stage's layers; the most microbatches
   up to 2P that divide ``--batch_size``, JAX's rule), each rank's Adam
-  over its stage.  Checkpoints stay canonical: the ranks gather the
-  stages before rank 0 writes, and a resume packs what it reads.
+  over its stage.
+
+Under TP and PP a rank's card holds only its share or its stage:
+parameters, FAVOR projections, gradients and Adam's moments.  The
+canonical model is built on the host (the weights come from a CPU
+generator, so they are the ones a build on the card draws), restored
+there from a checkpoint, and split or packed onto the card; then only
+world rank 0 keeps it, as the host state that checkpoints are gathered
+into.  Checkpoints stay canonical: the model or pipe group that holds
+rank 0 gathers its shares or stages onto rank 0 alone, one tensor at a
+time (the other data groups hold the same after the averaged step),
+rank 0 writes, and a resume splits or packs what it reads, so a TP or PP
+checkpoint resumes on one device and the other way round.  The
+evaluation runs on the share's own forward (TP) or through the pipe,
+one microbatch a batch, the CE computed on the last stage and only the
+loss sent back (PP).  The returned ``"state"`` is the canonical host
+state on rank 0 and the rank's own TP or PP state elsewhere.
 
 Each rank loads its data group's shard of the latents; rank 0 writes
 checkpoints and logs, and the evaluation weights each rank's CE by its
@@ -271,14 +283,17 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     ordering = build_ordering(config, latent_shape)
     # the same weights and projections on every rank; dropout from seed + rank,
     # or under a model axis from seed + data index: the ranks of a model group
-    # share one stream, so their masks in the replicated stream agree
-    model = build_performer(config, ordering, latent_shape, device=device,
+    # share one stream, so their masks in the replicated stream agree.  Under
+    # TP and PP the canonical model stays on the host: each rank's card gets
+    # its share or its stage
+    split = tp_mode or pp_mode
+    model = build_performer(config, ordering, latent_shape, device="cpu" if split else device,
                             generator=torch.Generator().manual_seed(config.seed))
     zero1 = config.zero1 and group is not None and not tp_mode
     stream = layout.data_index if tp_mode else config.rank
     state = create_transformer_train_state(model, config.seed, rank=stream,
                                            learning_rate=config.learning_rate, zero1=zero1,
-                                           process_group=group)
+                                           process_group=group, device=device)
     log_network_size(state.model, logger, config.network)
     if zero1:
         logger.info(f"ZeRO-1: Adam state sharded over {config.world_size} ranks")
@@ -307,9 +322,9 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
             logger.info("--zero1 has no effect under tensor parallelism: Adam is split like "
                         "the parameters over the model ranks")
         m = layout.shape[1]
-        train_state = TP.shard_tp_state(model, state, layout.inner_group)
+        train_state = TP.shard_tp_state(model, state, layout.inner_group, device=device)
         step_fn = TP.make_tp_train_step(
-            model, data_group=layout.data_group,
+            train_state.model, data_group=layout.data_group,
             use_pallas_local=config.use_pallas_local_attn,
             use_pallas_favor=config.use_pallas_favor_attn)
         split_attn, split_ff = TP.tp_split(model, m)
@@ -331,29 +346,44 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
         n_stages = layout.shape[1]
         n_mb = next(m for m in range(min(config.batch_size, 2 * n_stages), 0, -1)
                     if config.batch_size % m == 0)
-        step_fn = PP.make_pp_train_step(model, layout.inner_group, data_group=layout.data_group,
-                                        n_microbatches=n_mb)
-        train_state = PP.pack_pp_state(model, state, layout.inner_group)
+        train_state = PP.pack_pp_state(model, state, layout.inner_group, device=device)
+        step_fn = PP.make_pp_train_step(train_state.model, layout.inner_group,
+                                        data_group=layout.data_group, n_microbatches=n_mb)
         logger.info(f"pipeline-parallel step: {n_stages} stages × {n_mb} microbatches"
                     + (f" × {layout.shape[0]} data shards" if layout.shape[0] > 1 else ""))
     else:
         step_fn = (make_transformer_train_step(state.model) if group is None
                    else make_transformer_train_step_dp(state.model, group))
-    eval_fn = make_transformer_eval_step(state.model)
+    if pp_mode:
+        # an evaluation batch need not divide into the training microbatches
+        pipe_eval = PP.make_pipelined_apply(train_state.model, layout.inner_group,
+                                            n_microbatches=1)
+
+        def eval_fn(st, inputs, targets, conds):
+            return None, {"Loss": pipe_eval.loss(inputs, targets, conds)}
+    else:
+        eval_fn = make_transformer_eval_step(train_state.model)
+    if split and config.rank != 0:  # rank 0 alone keeps the host state to gather into
+        model = state = None
     tb_train = TBLogger(f"{dirs['logs_directory']}/train", enabled=config.rank == 0)
     tb_val = TBLogger(f"{dirs['logs_directory']}/val_eval", enabled=config.rank == 0)
 
     gathered_at = [None]  # the TP or PP step count the canonical state was gathered at
 
     def canonical():
-        """The canonical state (TP: gathered from the model ranks and
-        unpacked; PP: the stages gathered from the pipe ranks; on every
-        rank, a collective, once per step count)."""
-        if (tp_mode or pp_mode) and gathered_at[0] != train_state.step:
+        """The canonical state to write: under TP or PP the shares or
+        stages of rank 0's model or pipe group gathered onto rank 0's host
+        state (a collective of that group, once per step count), None on
+        the other ranks; otherwise the state itself."""
+        if not split:
+            return state
+        if layout.data_index == 0 and gathered_at[0] != train_state.step:
             if tp_mode:
-                TP.gather_tp_state(model, train_state, state, layout.inner_group)
+                TP.gather_tp_state(model, train_state, state, layout.inner_group,
+                                   root_only=True)
             else:
-                PP.unpack_pp_state(model, train_state, state, layout.inner_group)
+                PP.unpack_pp_state(model, train_state, state, layout.inner_group,
+                                   root_only=True)
             gathered_at[0] = train_state.step
         return state
 
@@ -365,7 +395,7 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
     best_metric = np.inf
     profiler = StepProfiler(rank=config.rank)
     guard = PreemptionGuard(logger)
-    global_step = int(state.step)
+    global_step = int(train_state.step)
 
     for epoch in range(max(starting_epoch, 0), config.epochs):
         t0 = time.time()
@@ -399,11 +429,10 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
             break
 
         if val_loader and (epoch + 1) % config.eval_every == 0:
-            canonical()
             vlosses, sizes = [], []
             for batch in val_loader.epoch(epoch):
                 inputs, targets, conds = _tensors(batch, ordering, config.vocab_size, device)
-                vlosses.append(eval_fn(state, inputs, targets, conds)[1]["Loss"])
+                vlosses.append(eval_fn(train_state, inputs, targets, conds)[1]["Loss"])
                 sizes.append(inputs.shape[0])
             # one host read per evaluation
             if eval_group is None:
@@ -442,7 +471,8 @@ def training(config: TransformerConfig) -> Dict[str, Any]:
                 logger.info(f"wrote raw state dict {out}")
     tb_train.close()
     tb_val.close()
-    return {"state": state, "history": history, "dirs": dirs, "ordering": ordering}
+    return {"state": train_state if state is None else state, "history": history, "dirs": dirs,
+            "ordering": ordering}
 
 
 def inference(config: TransformerConfig) -> Dict[str, Any]:

@@ -125,7 +125,7 @@ def tp_step(device, rank: int, world: int) -> Dict[str, float]:
     # one dropout stream per data group, as the runner seeds it
     state = create_transformer_train_state(model, 1, rank=layout.data_index, learning_rate=1e-4)
     tp_state = TP.shard_tp_state(model, state, layout.inner_group)
-    step = TP.make_tp_train_step(model, data_group=layout.data_group)
+    step = TP.make_tp_train_step(tp_state.model, data_group=layout.data_group)
     tokens = torch.randint(0, 32, (2, 29),
                            generator=torch.Generator().manual_seed(300 + layout.data_index))
     tokens = tokens.to(device)
@@ -197,7 +197,7 @@ def pp_half(device, rank: int, world: int) -> Dict[str, float]:
     if err > (1e-4 if dtype == torch.float32 else 2e-2) * float(want.abs().max()):
         raise RuntimeError(f"pipelined forward on rank {rank}: max abs error {err} against the "
                            f"one-device forward")
-    packed, metrics = PP.make_pp_train_step(model, group)(
+    packed, metrics = PP.make_pp_train_step(packed.model, group)(
         packed, tokens[:, :-1], tokens[:, 1:], None, {"lr": 1e-4})
     PP.unpack_pp_state(model, packed, state, group)
     _check("PP prior", _state_tensors(model), metrics, group)

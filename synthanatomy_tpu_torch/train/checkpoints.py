@@ -167,7 +167,9 @@ def check_for_checkpoints(
     )
 
 
-def _state_dict(state: Any) -> Dict[str, Any]:
+def _state_dict(state: Any) -> Optional[Dict[str, Any]]:
+    if state is None:  # a TP or PP rank other than 0: it holds no whole model, rank 0 writes
+        return None
     if hasattr(state, "optimizer"):  # the prior's TransformerTrainState
         return {
             "step": int(state.step),
@@ -200,7 +202,8 @@ def _on_rank0(write) -> None:
 def _write(path: str, state: Any, then=None) -> str:
     """``torch.save`` to a private name, then rename: a run stopped
     mid-write leaves no half checkpoint under the discovered name.  Rank
-    0 writes (and runs ``then``), the others wait for it."""
+    0 writes (and runs ``then``), the others wait for it; they may pass
+    None for ``state`` (a TP or PP rank, which holds only its share)."""
     sd = _state_dict(state)  # every rank: ZeRO-1 gathers to rank 0
 
     def write():

@@ -62,15 +62,18 @@ def create_transformer_train_state(
     rank: int = 0,
     zero1: bool = False,
     process_group=None,
+    device=None,
 ) -> TransformerTrainState:
     """Adam over the model's parameters (the FAVOR projections are
     buffers, never trained), sharded over ``process_group`` with
     ``zero1``; the dropout generator seeded from ``seed`` and ``rank``
     (``seed + rank``: the run's per-rank seed; under tensor parallelism
     ``rank`` is the data index, so the ranks of a model group share one
-    stream), the redraw generator from ``seed`` alone, equal on every
-    rank."""
-    device = next(model.parameters()).device
+    stream) on ``device`` (default: the model's; the card under TP and
+    PP, whose canonical model stays on the host while each rank trains
+    its share on the card), the redraw generator from ``seed`` alone,
+    equal on every rank."""
+    device = next(model.parameters()).device if device is None else torch.device(device)
     optimizer = adam(model.parameters(), learning_rate, zero1=zero1,
                      process_group=process_group)
     generator = torch.Generator(device=device).manual_seed(seed + rank)

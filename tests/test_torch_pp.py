@@ -26,6 +26,13 @@ window 6, m 8, B8 × 20, f32).
 - ``pack_pp_*`` / ``unpack_pp_*`` are exact inverses (parameters, FAVOR
   projections, Adam's moments and step counts), with 1 and 2 layers a
   stage.
+- On each rank of the (1, 2), (2, 2) and (1, 4) layouts the packed state
+  holds its stage alone: the non-block parameters and buffers and its
+  layers' (names and element counts from the canonical shapes, each equal
+  to the canonical tensor of its name), and after a step their gradients
+  and Adam's entries, no other layer's; its state gathered onto the pipe
+  group's rank 0 alone is bit for bit the every-rank gather, and the
+  other ranks get nothing.
 - Bad shapes raise ``ValueError`` and dropout ``NotImplementedError``
   (``:423``, ``:855``); rotary positions raise ``NotImplementedError("PP
   step: …")``: JAX's pipelined forward of a rotary prior differs from its
@@ -85,6 +92,9 @@ STEPS = {
     "pp2x2": (dict(depth=4, max_seq_len=24, use_rezero=True, feature_redraw_interval=1), None,
               2, 2, True),
 }
+# the holdings' layouts over the 4 ranks: name: (stages, PP×DP); without a data
+# group each pipe of the (2, 2) layout is a (1, 2) run
+LAYOUTS = {"1x2": (2, False), "2x2": (2, True), "1x4": (4, False)}
 FWD = {  # name: (depth, stages, microbatches, PP×DP)
     "pp4": (4, 4, 4, False),
     "pp2x2": (2, 2, 2, True),
@@ -237,6 +247,8 @@ def ranks(cases, tmp_path_factory):
                                   conds=conds, stages=stages, n_mb=n_mb, dp=dp))
     x, y, _ = _inputs(cases["plain"])
     spec["round_trip"] = dict(model=_port(cases["plain"]), inputs=x, targets=y)
+    spec["holdings"] = dict(model=_port(cases["plain"]), inputs=x, targets=y,
+                            layouts=[(name, stages, dp) for name, (stages, dp) in LAYOUTS.items()])
     spec["bad"] = {"depth5": Performer(17, 24, 32, 5, heads=2, dim_head=8, nb_features=8,
                                        dtype=torch.float32, device="cpu")}
     out = tmp_path_factory.mktemp("pp")
@@ -432,7 +444,7 @@ def test_one_stage_is_the_one_device_step(cases, one_device):
     state = create_state(model, 0, learning_rate=LR)
     packed = PP.pack_pp_state(model, state, None)
     assert len(packed.model.blocks) == 4
-    packed, met = PP.make_pp_train_step(model, None, n_microbatches=2)(
+    packed, met = PP.make_pp_train_step(packed.model, None, n_microbatches=2)(
         packed, *_inputs(case), {"lr": LR})
     PP.unpack_pp_state(model, packed, state, None)
     want = one_device["paper_bos"]
@@ -447,17 +459,51 @@ def test_pp_step_needs_the_conditioning_values(cases):
     packed = PP.pack_pp_state(model, create_state(model, 0), None)
     x = torch.zeros(2, 20, dtype=torch.long)
     with pytest.raises(ValueError, match="conditioning"):
+        PP.make_pp_train_step(packed.model, None)(packed, x, x, None, {"lr": LR})
+    with pytest.raises(ValueError, match="made for another model"):
         PP.make_pp_train_step(model, None)(packed, x, x, None, {"lr": LR})
 
 
-def test_stage_shares_the_canonical_modules(cases):
-    """The packed state copies no module: its model is the canonical one,
-    and its Adam steps exactly the stage's parameters, here (one stage)
-    all of them, under their canonical names."""
+def _stage_shapes(model, stages, index):
+    """What stage ``index`` of ``stages`` holds, from ``model``'s canonical
+    shapes: each kept parameter's and buffer's element count by name (the
+    non-block ones and its layers')."""
+    per = model.depth // stages
+
+    def kept(name):
+        head, _, rest = name.partition(".")
+        return head != "blocks" or index * per <= int(rest.split(".")[0]) < (index + 1) * per
+
+    return ({n: p.numel() for n, p in model.named_parameters() if kept(n)},
+            {n: b.numel() for n, b in model.named_buffers() if kept(n)})
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_stage_holds_only_its_layers(ranks, cases, layout):
+    """Each rank's packed state after a step holds the non-block tensors
+    and its stage's layers, each equal to the canonical tensor of its name,
+    with their gradients and Adam's entries (step, both moments), and
+    nothing of another stage; its Adam steps exactly those parameters."""
     model = _port(cases["plain"])
-    packed = PP.pack_pp_state(model, create_state(model, 0), None)
-    assert packed.model is model
-    assert [id(p) for p in packed.optimizer.param_groups[0]["params"]] == [
-        id(p) for p in model.parameters()]
-    assert set(PP.pack_pp_tree(model, dict(model.named_parameters()), None)) == {
-        n for n, _ in model.named_parameters()}
+    whole = sum(p.numel() for p in model.parameters())
+    for r, out in enumerate(ranks.result()):
+        got = out["holdings"][layout]
+        index, stages = got["inner"]
+        params, buffers = _stage_shapes(model, stages, index)
+        held = got["holding"]
+        assert held["params"] == params and held["grads"] == params, (r, held["params"])
+        assert held["buffers"] == buffers, (r, held["buffers"])
+        assert held["adam"] == {n: {"step": 1, "exp_avg": c, "exp_avg_sq": c}
+                                for n, c in params.items()}, r
+        assert held["stepped"] == list(params)
+        assert set(got["mine"]) == set(params) | set(buffers) and all(got["mine"].values()), r
+        assert sum(params.values()) < whole
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_rank0_gather_is_the_every_rank_gather(ranks, layout):
+    """``unpack_pp_state(..., root_only=True)`` gives the pipe group's rank
+    0 the canonical state that every rank gets without it (parameters,
+    projections and Adam's state dict, bit for bit) and the others None."""
+    for r, out in enumerate(ranks.result()):
+        assert out["holdings"][layout]["root_gather"] is True, (r, layout)

@@ -27,6 +27,9 @@ evaluation).
   ``--batch_size=1`` ``--sp_shards=2`` still takes the (2, 2) layout (no
   rank sits out: the batch is a data group's, not a global one to
   divide), and trains as the DP run over 2 ranks at B1.
+- Under SP every rank ends with rank 0's model; under TP rank 0 returns
+  the canonical state and every other rank its share alone, each tensor
+  its slice of rank 0's packed canonical one, exactly.
 - Checkpoints stay canonical: a one-process run resumes the (1, 2)
   checkpoint to epoch 2, and a (1, 2) run resumes a one-process
   checkpoint to epoch 2, each as the uninterrupted one-process run.
@@ -134,7 +137,23 @@ def cli(tmp_path_factory):
                 infer_dir)
     one["infer"] = run(**dict(two["tp12_infer"], experiment_name="one_infer"))
     one["resumed_tp"] = run(**dict(base, experiment_name="tp12", epochs=2))
-    return dict(one=one, two=outs[2], four=outs[4], base=base)
+    return dict(one=one, two=outs[2], four=outs[4], base=base, runs={2: two, 4: four})
+
+
+def _share_of(flags, canon, m, index):
+    """Model rank ``index``'s share over ``m`` ranks of the canonical
+    parameters ``canon`` of ``flags``' prior: packed, then its slice of
+    each split tensor, the rest whole."""
+    from synthanatomy_tpu_torch.parallel import tensor_parallel as TP
+    from synthanatomy_tpu_torch.runners import transformer as trunner
+
+    config = TransformerConfig(**{k: v for k, v in flags.items()
+                                  if k in TransformerConfig.__dataclass_fields__})
+    model = trunner.build_performer(config, trunner.build_ordering(config, (4, 4, 4)),
+                                    (4, 4, 4), device="cpu")
+    specs = TP.tp_param_specs(model, m, list(canon))
+    return {k: t if specs[k] is None else t.chunk(m, specs[k])[index]
+            for k, t in TP.pack_tp_params(model, canon, m).items()}
 
 
 def _params(res):
@@ -170,9 +189,17 @@ def test_parallel_cli_trains_as_one_process(cli, name, ranks, want):
     outs = cli["two" if ranks == 2 else "four"]
     ref = cli["two"][0][want] if want.startswith("dp2") else cli["one"][want]
     _same_run(outs[0][name], ref, name)
-    for o in outs[1:]:  # every rank ends with rank 0's model
+    canon = outs[0][name]["params"]
+    flags = cli["runs"][ranks][name]
+    for r, o in enumerate(outs[1:], 1):
         assert o[name]["history"]
-        assert all(torch.equal(o[name]["params"][k], v) for k, v in outs[0][name]["params"].items())
+        if "sp_shards" in flags:  # SP: every rank ends with rank 0's model
+            want = canon
+        else:  # TP: rank r holds its model rank's share of rank 0's
+            m = flags["mesh_shape"][1]
+            want = _share_of(flags, canon, m, r % m)
+        assert set(o[name]["params"]) == set(want), r
+        assert all(torch.equal(o[name]["params"][k], v) for k, v in want.items()), r
 
 
 def test_tp_checkpoint_is_canonical_both_ways(cli):

@@ -36,6 +36,15 @@ by ``parallel.distributed.launch``) against the JAX package.
   gates.
 - ``tp_step_compatible`` refuses what JAX's refuses, with its reasons; the
   port's ``make_tp_train_step`` trains each of those forms.
+- On each rank of the (1, 2), (2, 2) and (1, 4) layouts (a prior of 8
+  heads, 4 local, whose attention splits over 4) the TP state holds its
+  share alone: each split parameter at 1/P of its canonical element
+  count, the rest whole (names and counts from the canonical shapes and
+  the Megatron rules), each parameter its rank's slice of the packed
+  canonical one, and after a step their gradients and
+  Adam's entries; its state and gradients gathered onto the model group's
+  rank 0 alone are bit for bit the every-rank gather, and the other ranks
+  get nothing.
 
 The new forms' weights are drawn with numpy into the tree of JAX's
 abstract init (``abstract=True``: no QR factorisations), so no JAX init
@@ -44,6 +53,7 @@ runs for them.
 
 import copy
 import os
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, NamedTuple
@@ -119,6 +129,13 @@ CASES = {
 }
 # the cases whose weights come from JAX's own init (the rest: _random_tree)
 JAX_INIT = ("plain", "paper_bos", "dp_x_tp")
+# the holdings' layouts over the 4 ranks: name: (mesh shape, DP×TP); without a
+# data group each model group of the (2, 2) mesh is a (1, 2) run
+LAYOUTS = {"1x2": ((2, 2), False), "2x2": ((2, 2), True), "1x4": ((1, 4), False)}
+HOLDINGS = dict(NET, heads=8, dim_head=4, local_attn_heads=4)
+# Megatron's split parameters by part (the rest of the model is replicated)
+SPLIT = {"attn": re.compile(r"^blocks\.\d+\.attn\.(to_[qkv]\.(weight|bias)|to_out\.weight)$"),
+         "ff": re.compile(r"^blocks\.\d+\.ff\.(w1\.(weight|bias)|w2\.weight)$")}
 
 
 def _close(got, want, tol, name=""):
@@ -333,6 +350,9 @@ def ranks(cases, tmp_path_factory):
         x, y, conds = _inputs(case)
         spec["tp"].append(dict(name=name, model=_port(case), inputs=x, targets=y, conds=conds,
                                dp=case["dp"]))
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 16, (4, 23))).long()
+    spec["holdings"] = dict(model=_holdings_model(), inputs=x, targets=x.roll(1, 1),
+                            layouts=[(n, shape, dp) for n, (shape, dp) in LAYOUTS.items()])
     out = tmp_path_factory.mktemp("tp")
     torch.save(spec, out / "spec.pt")
 
@@ -343,6 +363,12 @@ def ranks(cases, tmp_path_factory):
 
     with ThreadPoolExecutor(1) as pool:
         yield pool.submit(run)
+
+
+def _holdings_model():
+    return Performer(17, 24, **{k: v for k, v in HOLDINGS.items() if k != "num_tokens"},
+                     dtype=torch.float32, generator=torch.Generator().manual_seed(3),
+                     device="cpu")
 
 
 @pytest.mark.parametrize("name", [n for n, c in CASES.items() if c[4]])
@@ -464,8 +490,8 @@ def test_tp_step_compatible_refuses_as_jax(name):
     want = JTP.tp_step_compatible(JPerformer(**jopts), 2)
     model = Performer(17, 24, 32, 2, **popts, dtype=torch.float32, device="cpu")
     assert TP.tp_step_compatible(model, 2) == want and not want[0]
-    step = TP.make_tp_train_step(model)
     state = TP.shard_tp_state(model, create_state(model, 0), None)
+    step = TP.make_tp_train_step(state.model)
     x = torch.zeros(2, 23, dtype=torch.long)
     conds = [torch.tensor([1, 3])] if "conditioning_num_tokens" in opts else None
     _, met = step(state, x, x, conds, {"lr": LR})
@@ -479,4 +505,69 @@ def test_tp_step_needs_the_conditioning_values():
     state = TP.shard_tp_state(model, create_state(model, 0), None)
     x = torch.zeros(2, 24, dtype=torch.long)
     with pytest.raises(ValueError, match="conditioning"):
+        TP.make_tp_train_step(state.model)(state, x, x, None, {"lr": LR})
+    with pytest.raises(ValueError, match="made for another model"):
         TP.make_tp_train_step(model)(state, x, x, None, {"lr": LR})
+
+
+def test_tp_step_sets_the_kernel_flags_once():
+    """The step is built, and the share's kernel flags set, when it is
+    made; a call changes neither."""
+    model = _holdings_model()
+    state = TP.shard_tp_state(model, create_state(model, 0), None)
+    step = TP.make_tp_train_step(state.model, use_pallas_local=True, use_pallas_favor=True)
+    flags = [(b.attn.use_pallas_local, b.attn.use_pallas_favor) for b in state.model.blocks]
+    assert flags == [(True, True)] * HOLDINGS["depth"]
+    assert not any(b.attn.use_pallas_local for b in model.blocks)
+    for blk in state.model.blocks:
+        blk.attn.use_pallas_favor = False  # a call leaves the share's flags alone
+    x = torch.zeros(2, 23, dtype=torch.long)
+    _, met = step(state, x, x, None, {"lr": LR})
+    assert np.isfinite(float(met["Loss"]))
+    assert not any(b.attn.use_pallas_favor for b in state.model.blocks)
+
+
+def _share_shapes(model, m):
+    """What a rank's share of ``model`` over ``m`` model ranks holds, from
+    the canonical shapes and Megatron's rules: each parameter's element
+    count by name (a split one's 1/m), each buffer's whole."""
+    gh, lh = model.heads - model.local_attn_heads, model.local_attn_heads
+    split = {"attn": gh % m == 0 and lh % m == 0, "ff": model.dim * model.ff_mult % m == 0}
+    params = {n: p.numel() // m if any(split[k] and rx.match(n) for k, rx in SPLIT.items())
+              else p.numel() for n, p in model.named_parameters()}
+    return params, {n: b.numel() for n, b in model.named_buffers()}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_share_holds_only_its_slices(ranks, layout):
+    """Each rank's TP state after a step holds its share alone: every
+    parameter at its count from shapes (split or whole) and its rank's
+    slice of the packed canonical tensor, the buffers whole,
+    with their gradients and Adam's entries; its Adam steps exactly those
+    parameters."""
+    model = _holdings_model()
+    whole = sum(p.numel() for p in model.parameters())
+    for r, out in enumerate(ranks.result()):
+        got = out["holdings"][layout]
+        params, buffers = _share_shapes(model, got["inner"][1])
+        held = got["holding"]
+        assert held["params"] == params and held["grads"] == params, (r, held["params"])
+        assert held["buffers"] == buffers, r
+        assert held["adam"] == {n: {"step": 1, "exp_avg": c, "exp_avg_sq": c}
+                                for n, c in params.items()}, r
+        assert held["stepped"] == list(params)
+        assert set(got["mine"]) == set(params) and all(got["mine"].values()), r
+        assert sum(params.values()) < whole
+    if layout == "1x4":  # the attention splits over 4 ranks too
+        assert params["blocks.0.attn.to_q.weight"] == (
+            HOLDINGS["dim"] * HOLDINGS["heads"] * HOLDINGS["dim_head"] // 4)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tp_rank0_gather_is_the_every_rank_gather(ranks, layout):
+    """``gather_tp_state`` and ``gather_tp_grads`` with ``root_only`` give
+    the model group's rank 0 what every rank gets without it (parameters,
+    projections, Adam's state dict, gradients; bit for bit) and the others
+    None."""
+    for r, out in enumerate(ranks.result()):
+        assert out["holdings"][layout]["root_gather"] is True, (r, layout)

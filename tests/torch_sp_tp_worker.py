@@ -36,6 +36,46 @@ def _grads(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
+def _holding(state):
+    """What a TP share's or PP stage's train state holds: the element
+    count of each parameter, buffer and gradient and of each Adam entry
+    (by its parameter's name), and the names of the parameters Adam
+    steps."""
+    model = state.model
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"params": {n: p.numel() for n, p in model.named_parameters()},
+            "buffers": {n: b.numel() for n, b in model.named_buffers()},
+            "grads": {n: p.grad.numel() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "adam": {names[id(p)]: {k: v.numel() for k, v in st.items()}
+                     for p, st in state.optimizer.state.items()},
+            "stepped": [names[id(p)] for p in state.optimizer.param_groups[0]["params"]]}
+
+
+def _same_state(a, b, opt_a, opt_b):
+    """Whether two canonical states are bit-identical: the models' state
+    dicts and the optimizers' state dicts, index for index."""
+    sa, sb = a.state_dict(), b.state_dict()
+    oa, ob = opt_a.state_dict()["state"], opt_b.state_dict()["state"]
+    return (set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and set(oa) == set(ob) and all(set(oa[i]) == set(ob[i]) and all(
+                torch.equal(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa))
+
+
+def _root_gather(gather, model, layout, lr, **kw):
+    """The canonical state gathered onto the inner group's rank 0 alone
+    (``gather(model, state, root_only=True)``) into a fresh copy of
+    ``model``'s initial state: the copy and its state on that rank, and
+    whether every other rank got None."""
+    from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
+
+    fresh = copy.deepcopy(model)
+    fresh_state = create_transformer_train_state(fresh, 0, learning_rate=lr, **kw)
+    root = layout.inner_index == 0
+    got = gather(fresh if root else None, fresh_state if root else None)
+    return (fresh, fresh_state) if root else got is None
+
+
 def _sp_ops(spec, rank, world):
     """Both sequence-parallel attention ops over 2 shards (the seq groups
     of a (2, 2) layout: ranks {0, 1} and {2, 3}) and over all 4: this
@@ -111,7 +151,7 @@ def _case_tp(spec, rank, world, outdir):
         state = create_transformer_train_state(model, 0, rank=stream, learning_rate=LR)
         tp_state = TP.shard_tp_state(model, state, layout.inner_group)
         data_group = layout.data_group if case["dp"] else None
-        step = TP.make_tp_train_step(model, data_group=data_group,
+        step = TP.make_tp_train_step(tp_state.model, data_group=data_group,
                                      use_pallas_local=True, use_pallas_favor=True)
         x, y, conds = case["inputs"], case["targets"], case["conds"]
         if case["dp"]:
@@ -119,7 +159,7 @@ def _case_tp(spec, rank, world, outdir):
             conds = conds and [c.chunk(2)[layout.data_index] for c in conds]
         tp_state, met = step(tp_state, x, y, conds, {"lr": LR})
         shard = tp_state.model
-        grads = TP.gather_tp_grads(model, tp_state, layout.inner_group)
+        grads = TP.gather_tp_grads(tp_state, layout.inner_group)
         TP.gather_tp_state(model, tp_state, state, layout.inner_group)
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         out[case["name"]] = {
@@ -129,6 +169,54 @@ def _case_tp(spec, rank, world, outdir):
                       shard.blocks[0].ff.tp_group is not None),
             "heads": (shard.blocks[0].attn.heads - shard.blocks[0].attn.local_heads,
                       shard.blocks[0].attn.local_heads)}
+    out["holdings"] = _tp_holdings(spec["holdings"], rank, world)
+    return out
+
+
+def _tp_holdings(spec, rank, world):
+    """Each TP layout of ``spec["layouts"]`` (name, mesh shape, whether the
+    step averages over the data group: without, each model group of a
+    (2, 2) mesh is a (1, 2) run): the rank's share of ``spec["model"]``
+    after one step (what it holds; whether each parameter is its slice of
+    the packed canonical one), its gradients and state gathered onto the
+    model
+    group's rank 0 alone against the every-rank gather (bit for bit on
+    that rank, nothing on the others)."""
+    from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
+
+    out = {}
+    for name, shape, dp in spec["layouts"]:
+        layout = build_groups(rank_layout(shape, world, rank))
+        group, m, me = layout.inner_group, layout.shape[1], layout.inner_index
+        model = copy.deepcopy(spec["model"])
+        state = create_transformer_train_state(model, 0, rank=layout.data_index,
+                                               learning_rate=LR)
+        tp_state = TP.shard_tp_state(model, state, group)
+        specs = TP.tp_param_specs(model, m, [n for n, _ in model.named_parameters()])
+        packed = TP.pack_tp_params(model, {n: p.detach() for n, p in model.named_parameters()},
+                                   m)
+        mine = {n: torch.equal(p, packed[n] if specs[n] is None
+                               else packed[n].chunk(m, specs[n])[me])
+                for n, p in tp_state.model.named_parameters()}
+        step = TP.make_tp_train_step(tp_state.model, data_group=layout.data_group if dp else None)
+        rows = [t.chunk(layout.shape[0] if dp else 1)[layout.data_index if dp else 0]
+                for t in (spec["inputs"], spec["targets"])]
+        tp_state, _ = step(tp_state, rows[0], rows[1], None, {"lr": LR})
+        every_grads = TP.gather_tp_grads(tp_state, group)
+        root_grads = TP.gather_tp_grads(tp_state, group, root_only=True)
+        TP.gather_tp_state(model, tp_state, state, group)
+        root = _root_gather(lambda mdl, st: TP.gather_tp_state(mdl, tp_state, st, group,
+                                                               root_only=True),
+                            spec["model"], layout, LR, rank=layout.data_index)
+        if me == 0:
+            fresh, fresh_state = root
+            root = (_same_state(fresh, model, fresh_state.optimizer, state.optimizer)
+                    and set(root_grads) == set(every_grads)
+                    and all(torch.equal(root_grads[n], t) for n, t in every_grads.items()))
+        else:
+            root = root and root_grads is None
+        out[name] = {"holding": _holding(tp_state), "mine": mine, "root_gather": root,
+                     "inner": (me, m)}
     return out
 
 
@@ -159,14 +247,14 @@ def _case_pp(spec, rank, world, outdir):
         state = create_transformer_train_state(model, 0, learning_rate=LR)
         packed = PP.pack_pp_state(model, state, lay.inner_group)
         data_group = lay.data_group if case["dp"] else None
-        step = PP.make_pp_train_step(model, lay.inner_group, data_group=data_group,
+        step = PP.make_pp_train_step(packed.model, lay.inner_group, data_group=data_group,
                                      n_microbatches=case["n_mb"])
         x, y, conds = case["inputs"], case["targets"], case["conds"]
         if case["dp"]:
             x, y = (t.chunk(lay.shape[0])[lay.data_index] for t in (x, y))
             conds = conds and [c.chunk(lay.shape[0])[lay.data_index] for c in conds]
         packed, met = step(packed, x, y, conds, {"lr": LR})
-        grads = PP.unpack_pp_tree(model, {n: p.grad for n, p in model.named_parameters()},
+        grads = PP.unpack_pp_tree(model, {n: p.grad for n, p in packed.model.named_parameters()},
                                   lay.inner_group)
         PP.unpack_pp_state(model, packed, state, lay.inner_group)
         sd = {n: t.detach().clone() for n, t in model.state_dict().items()}
@@ -199,8 +287,10 @@ def _case_pp(spec, rank, world, outdir):
             "adam": set(got) == set(want[1]) and all(
                 torch.equal(got[i][k], st[k]) for i, st in want[1].items()
                 for k in ("step", "exp_avg", "exp_avg_sq")),
-            "stage": sum(any(id(q) in stepped for q in blk.parameters()) for blk in model.blocks),
+            "stage": sum(any(id(q) in stepped for q in blk.parameters())
+                         for blk in packed.model.blocks),
             "adam_params": len(packed.optimizer.state)}
+    out["holdings"] = _pp_holdings(spec["holdings"], layouts)
 
     bad = spec["bad"]
     try:
@@ -213,6 +303,44 @@ def _case_pp(spec, rank, world, outdir):
         apply(rt["inputs"])
     except ValueError as exc:
         out["errors"]["microbatches"] = str(exc)
+    return out
+
+
+def _pp_holdings(spec, layouts):
+    """Each PP layout of ``spec["layouts"]`` (name, stages, whether the
+    step averages over the data group: without, each pipe of the (2, 2)
+    layout is a (1, 2) run): the rank's stage of ``spec["model"]`` after
+    one step (what it holds; whether each parameter and buffer equals the
+    canonical one of its name), its state gathered onto the pipe group's
+    rank 0 alone against the every-rank gather (bit for bit on that rank,
+    nothing on the others)."""
+    from synthanatomy_tpu_torch.parallel import pipeline_parallel as PP
+    from synthanatomy_tpu_torch.train.transformer_steps import create_transformer_train_state
+
+    out = {}
+    for name, stages, dp in spec["layouts"]:
+        lay = layouts[stages]
+        group = lay.inner_group
+        model = copy.deepcopy(spec["model"])
+        state = create_transformer_train_state(model, 0, learning_rate=LR)
+        packed = PP.pack_pp_state(model, state, group)
+        canon = {**model.state_dict(), **dict(model.named_buffers())}
+        mine = {n: torch.equal(t, canon[n]) for n, t in
+                {**packed.model.state_dict(), **dict(packed.model.named_buffers())}.items()}
+        step = PP.make_pp_train_step(packed.model, group,
+                                     data_group=lay.data_group if dp else None)
+        rows = [t.chunk(lay.shape[0] if dp else 1)[lay.data_index if dp else 0]
+                for t in (spec["inputs"], spec["targets"])]
+        packed, _ = step(packed, rows[0], rows[1], None, {"lr": LR})
+        PP.unpack_pp_state(model, packed, state, group)
+        root = _root_gather(lambda mdl, st: PP.unpack_pp_state(mdl, packed, st, group,
+                                                               root_only=True),
+                            spec["model"], lay, LR)
+        if lay.inner_index == 0:
+            fresh, fresh_state = root
+            root = _same_state(fresh, model, fresh_state.optimizer, state.optimizer)
+        out[name] = {"holding": _holding(packed), "mine": mine, "root_gather": root,
+                     "inner": (lay.inner_index, stages)}
     return out
 
 
