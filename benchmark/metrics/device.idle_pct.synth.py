@@ -1,0 +1,7 @@
+"""The share of the traced window in which no operation ran on the device."""
+
+from benchmark.harness.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
